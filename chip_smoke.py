@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the port's u64 merge NTT main path once on one CUDA card.
+"""Drive the port's merge NTT paths once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
-Builds the kernels of gpuntt_tpu_torch/csrc/ and runs, on the card:
+Builds the kernels of gpuntt_tpu_torch/csrc/ (one nvcc per source, all
+at once) and runs, on the card:
 
 1. the card's name and power limit, torch and CUDA versions, build time;
-2. the main path at its full width — the forward merge NTT, its inverse
-   and the fused polymul of a (128, 2^16) u64 batch, X^N + 1, the
-   61-bit pool prime — through ntt_lanes / intt_lanes / polymul_lanes,
-   with every kernel's launch count read around that run; then each
-   kernel against its plain PyTorch version on the same card, all 128
-   rows, and two rows against the golden NTTCPU on the host;
-3. logn 12, X^N - 1, batch 4 against schoolbook multiplication;
+2. the u64 main path at its full width — the forward merge NTT, its
+   inverse and the fused polymul of a (128, 2^16) u64 batch, X^N + 1,
+   the 61-bit pool prime — through ntt_lanes / intt_lanes /
+   polymul_lanes, with every kernel's launch count read around that
+   run; then each kernel against its plain PyTorch version on the same
+   card, all 128 rows, and two rows against the golden NTTCPU;
+3. u64 logn 12, X^N - 1, batch 4 against schoolbook multiplication;
 4. a 62-bit and a 46-bit modulus at logn 14 against NTTCPU;
-5. PolynomialMultiplier (the nn.Module) on the main-path shape;
-6. CUDA-event times of each kernel and of its plain version.
+5. PolynomialMultiplier (the nn.Module) on the u64 main-path shape;
+6. the u32 path at the two widths of the JAX bench line, X^N + 1, the
+   pool prime 469762049 — (128, 2^16), served by K4's counterpart, and
+   (16, 2^20), by K6's — the same way: ntt, intt and polymul through
+   the public *_lanes entries with the launch counts read around each
+   run, each kernel against its plain version on every row, the round
+   trip, two rows against NTTCPU, and PolynomialMultiplier;
+7. u32 2^17 x 4 (K5's range) and 2^25 x 1 (the top of the u32 pool):
+   kernels against plain versions, ntt / intt against NTTCPU, the round
+   trip;
+8. u32 logn 8, X^N - 1, batch 4 against schoolbook, and a 30-bit q at
+   logn 14 against NTTCPU;
+9. CUDA-event times of each kernel and of its plain version, at the
+   shape its path gave it.
 
-Every comparison is exact equality (integer arithmetic).  Any failure
-raises, and the script exits non-zero without a result line; so it does
-when no CUDA device is visible.  The line before the last is the JSON
-kernel table; the last is {"ok": true, "device": {...}}.
+Every comparison is exact equality (integer arithmetic: tolerance 0).
+Any failure raises, and the script exits non-zero without a result line;
+so it does when no CUDA device is visible.  The line before the last is
+the JSON kernel table, with each kernel's bound: the larger of the time
+to move its bytes (each input read once, each output written once, at
+3.35 TB/s) and the time of its integer multiplies at 67 T/s (the
+float32 rate; the card's 32-bit integer rate is not above it).  The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,6 +52,8 @@ import numpy as np
 SEED = 0
 BATCH = 128
 LOGN = 16
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12
 
 
 def check(cond: bool, what: str) -> None:
@@ -49,6 +68,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int) -> tuple[float, str]:
+    """Least time for a transform of (batch, 2^logn) int64 lanes that reads
+    `operands` tensors and writes one: bytes against multiplies."""
+    by = (operands + 1) * batch * (8 << logn)
+    ops = batch * (1 << (logn - 1)) * logn * mul_per_bf
+    t_by, t_ops = by / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return (t_by, "bytes") if t_by >= t_ops else (t_ops, "operations")
+
+
 def main() -> int:
     import torch
 
@@ -58,26 +86,36 @@ def main() -> int:
 
     import gpuntt_tpu_torch as g
     from gpuntt_tpu_torch.ops import _build
+    from gpuntt_tpu_torch.ops import barrett as bo
     from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
     from gpuntt_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
+    t_start = time.perf_counter()
+
+    def reset():
+        hm.reset_counts()
+        hm32.reset_counts()
 
     # -- 1. card and build
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.library()
-    print(f"kernel build+load {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_info.get('seconds', 0.0):.2f} s)")
-    for line in _build.build_info.get("log", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("ptxas", line.strip())
+    _build.build_all()
+    print(f"kernel build+load {time.perf_counter() - t0:.2f} s " + " ".join(
+        f"(nvcc {n} {i['seconds']:.2f} s)" for n, i in _build.build_info.items()))
+    for info in _build.build_info.values():
+        for line in info["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print("ptxas", line.strip())
 
-    # -- 2. the main path at full width
+    launches, err, times, bounds = {}, {}, {}, {}
+
+    # -- 2. the u64 main path at full width
     p = g.NTTParameters(LOGN, g.ReductionPolynomial.X_N_plus, np.uint64)
     q = p.modulus.value
     plan = g.MergePlan.from_params(p, device=dev)
@@ -85,15 +123,15 @@ def main() -> int:
     b_np = rng.integers(0, q, size=(BATCH, p.n), dtype=np.uint64)
     a, b = from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)
 
-    hm.reset_counts()
+    reset()
     fa = g.ntt_lanes(a, plan)
     back = g.intt_lanes(fa, plan)
     prod = g.polymul_lanes(a, b, plan)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in hm.KERNELS}
+    launches.update({k.name: k.launches for k in hm.KERNELS})
     for k in hm.KERNELS:
         check(k.launches > 0 and k.plain_calls == 0,
-              f"main path launched {k.name} {k.launches}x, plain version "
+              f"u64 main path launched {k.name} {k.launches}x, plain version "
               f"{k.plain_calls}x")
 
     fa_plain = hm.merge_u64_fwd_plain(a, plan)
@@ -104,31 +142,30 @@ def main() -> int:
         hm.POLYMUL_INVERSE.name: (
             prod, hm.merge_u64_polymul_inv_plain(fa_plain, fb_plain, plan)),
     }
-    err = {}
     for name, (got, want) in pairs.items():
         err[name] = int((got - want).abs().max().item())
         check(torch.equal(got, want),
               f"{name} == plain version, all {BATCH} rows (max |diff| {err[name]})")
-    check(torch.equal(back, a), "intt(ntt(a)) == a, all rows")
+    check(torch.equal(back, a), "u64 intt(ntt(a)) == a, all rows")
 
     gen = g.NTTCPU(p)
     for r in (0, BATCH - 1):
         check(np.array_equal(to_numpy_u64(fa[r]), gen.ntt(a_np[r])),
-              f"ntt row {r} == NTTCPU")
+              f"u64 ntt row {r} == NTTCPU")
         want = gen.intt(gen.mult(gen.ntt(a_np[r]), gen.ntt(b_np[r])))
-        check(np.array_equal(to_numpy_u64(prod[r]), want), f"polymul row {r} == NTTCPU")
+        check(np.array_equal(to_numpy_u64(prod[r]), want), f"u64 polymul row {r} == NTTCPU")
 
     # -- 3. small cell against schoolbook
     ps = g.NTTParameters(12, g.ReductionPolynomial.X_N_minus, np.uint64)
     xs = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64)
     ys = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64)
-    hm.reset_counts()
+    reset()
     got = g.polymul(xs, ys, g.MergePlan.from_params(ps, device=dev))
-    check(hm.POLYMUL_INVERSE.launches == 1, "logn 12 polymul ran the kernels")
+    check(hm.POLYMUL_INVERSE.launches == 1, "u64 logn 12 polymul ran the kernels")
     for r in range(4):
         check(np.array_equal(got[r], g.schoolbook_poly_multiplication(
             xs[r], ys[r], ps.modulus, ps.poly_reduction)),
-            f"logn 12 X^N-1 polymul row {r} == schoolbook")
+            f"u64 logn 12 X^N-1 polymul row {r} == schoolbook")
 
     # -- 4. wide and narrow moduli
     for bits, poly in ((62, g.ReductionPolynomial.X_N_plus),
@@ -141,7 +178,7 @@ def main() -> int:
         xw = rng.integers(0, qw, size=(4, pw.n), dtype=np.uint64)
         yw = rng.integers(0, qw, size=(4, pw.n), dtype=np.uint64)
         genw = g.NTTCPU(pw)
-        hm.reset_counts()
+        reset()
         fw = g.ntt(xw, planw)
         check(np.array_equal(fw, genw.ntt(xw)), f"{bits}-bit q={qw} ntt == NTTCPU")
         check(np.array_equal(g.intt(fw, planw), xw), f"{bits}-bit intt(ntt) == x")
@@ -152,38 +189,168 @@ def main() -> int:
 
     # -- 5. the nn.Module
     model = g.PolynomialMultiplier(p, device=dev)
-    check(torch.equal(model(a, b), prod), "PolynomialMultiplier == polymul_lanes")
+    check(torch.equal(model(a, b), prod), "u64 PolynomialMultiplier == polymul_lanes")
 
-    # -- 6. times: plain, kernel, kernel, plain
+    # -- 6. the u32 path at the bench line's two widths
+    u32_cells = {}
+    for logn32, batch32 in ((16, 128), (20, 16)):
+        k = hm32.tpu_kernel(logn32)
+        fwd_k, inv_k = hm32.FORWARD[k], hm32.INVERSE[k]
+        p32 = g.NTTParameters(logn32, g.ReductionPolynomial.X_N_plus, np.uint32)
+        q32 = p32.modulus.value
+        plan32 = g.MergePlan.from_params(p32, device=dev)
+        x_np = rng.integers(0, q32, size=(batch32, p32.n), dtype=np.uint64).astype(np.uint32)
+        y_np = rng.integers(0, q32, size=(batch32, p32.n), dtype=np.uint64).astype(np.uint32)
+        x = torch.from_numpy(x_np.astype(np.int64)).to(dev)
+        y = torch.from_numpy(y_np.astype(np.int64)).to(dev)
+        cell = f"u32 2^{logn32}x{batch32}"
+
+        reset()
+        fx = g.ntt_lanes(x, plan32)
+        bx = g.intt_lanes(fx, plan32)
+        pxy = g.polymul_lanes(x, y, plan32)
+        torch.cuda.synchronize()
+        launches.update({fwd_k.name: fwd_k.launches, inv_k.name: inv_k.launches})
+        others = [s for s in hm32.KERNELS if s not in (fwd_k, inv_k)]
+        check(fwd_k.launches == 3 and inv_k.launches == 2
+              and sum(s.launches + s.plain_calls for s in (fwd_k, inv_k, *others)) == 5,
+              f"{cell} launched {fwd_k.name} {fwd_k.launches}x and {inv_k.name} "
+              f"{inv_k.launches}x, nothing else, no plain version")
+
+        fx_plain = hm32.merge_u32_fwd_plain(x, plan32)
+        fy_plain = hm32.merge_u32_fwd_plain(y, plan32)
+        pxy_plain = hm32.merge_u32_inv_plain(
+            bo.barrett_mul32(fx_plain, fy_plain, q32, plan32.bit, plan32.mu), plan32)
+        for name, got, want in ((fwd_k.name, fx, fx_plain),
+                                (inv_k.name, bx, hm32.merge_u32_inv_plain(fx, plan32))):
+            err[name] = int((got - want).abs().max().item())
+            check(torch.equal(got, want),
+                  f"{name} == plain version, all {batch32} rows (max |diff| {err[name]})")
+        check(torch.equal(pxy, pxy_plain), f"{cell} polymul == plain pipeline, all rows")
+        check(torch.equal(bx, x), f"{cell} intt(ntt(x)) == x, all rows")
+        gen32 = g.NTTCPU(p32)
+        for r in (0, batch32 - 1):
+            check(np.array_equal(fx[r].cpu().numpy().astype(np.uint32), gen32.ntt(x_np[r])),
+                  f"{cell} ntt row {r} == NTTCPU")
+            want = gen32.intt(gen32.mult(gen32.ntt(x_np[r]), gen32.ntt(y_np[r])))
+            check(np.array_equal(pxy[r].cpu().numpy().astype(np.uint32), want),
+                  f"{cell} polymul row {r} == NTTCPU")
+        model32 = g.PolynomialMultiplier(p32, device=dev)
+        check(torch.equal(model32(x, y), pxy), f"{cell} PolynomialMultiplier == polymul_lanes")
+        u32_cells[k] = (plan32, x, fx, batch32, logn32)
+
+    # -- 7. u32 2^17 x 4 (K5) and 2^25 x 1 (top of the pool)
+    for logn32, batch32 in ((17, 4), (25, 1)):
+        k = hm32.tpu_kernel(logn32)
+        fwd_k, inv_k = hm32.FORWARD[k], hm32.INVERSE[k]
+        p32 = g.NTTParameters(logn32, g.ReductionPolynomial.X_N_plus, np.uint32)
+        plan32 = g.MergePlan.from_params(p32, device=dev)
+        x_np = rng.integers(0, p32.modulus.value, size=(batch32, p32.n),
+                            dtype=np.uint64).astype(np.uint32)
+        x = torch.from_numpy(x_np.astype(np.int64)).to(dev)
+        cell = f"u32 2^{logn32}x{batch32}"
+        reset()
+        fx = g.ntt_lanes(x, plan32)
+        ix = g.intt_lanes(x, plan32)
+        torch.cuda.synchronize()
+        check(fwd_k.launches == 1 and inv_k.launches == 1
+              and sum(s.plain_calls for s in hm32.KERNELS) == 0,
+              f"{cell} launched {fwd_k.name} and {inv_k.name}, no plain version")
+        if k == "K5":
+            launches.update({fwd_k.name: fwd_k.launches, inv_k.name: inv_k.launches})
+            u32_cells[k] = (plan32, x, fx, batch32, logn32)
+        for name, got, want in ((fwd_k.name, fx, hm32.merge_u32_fwd_plain(x, plan32)),
+                                (inv_k.name, ix, hm32.merge_u32_inv_plain(x, plan32))):
+            e = int((got - want).abs().max().item())
+            err.setdefault(name, e)
+            check(torch.equal(got, want), f"{cell} {name} == plain version (max |diff| {e})")
+        gen32 = g.NTTCPU(p32)
+        check(np.array_equal(fx.cpu().numpy().astype(np.uint32), gen32.ntt(x_np)),
+              f"{cell} ntt == NTTCPU, all rows")
+        check(np.array_equal(ix.cpu().numpy().astype(np.uint32), gen32.intt(x_np)),
+              f"{cell} intt == NTTCPU, all rows")
+        check(torch.equal(g.intt_lanes(fx, plan32), x), f"{cell} intt(ntt(x)) == x")
+        del fx, ix, x
+
+    # -- 8. u32 small cell against schoolbook, and a 30-bit q
+    ps = g.NTTParameters(8, g.ReductionPolynomial.X_N_minus, np.uint32)
+    xs = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64).astype(np.uint32)
+    ys = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64).astype(np.uint32)
+    reset()
+    got = g.polymul(xs, ys, g.MergePlan.from_params(ps, device=dev))
+    check(hm32.FORWARD["K4"].launches == 2 and hm32.INVERSE["K4"].launches == 1,
+          "u32 logn 8 polymul ran the kernels")
+    for r in range(4):
+        check(np.array_equal(got[r], g.schoolbook_poly_multiplication(
+            xs[r], ys[r], ps.modulus, ps.poly_reduction)),
+            f"u32 logn 8 X^N-1 polymul row {r} == schoolbook")
+    qw = g.find_ntt_primes(30, 14, 1)[0]
+    omega, psi = g.ntt_root_pair(qw, 14)
+    pw = g.NTTParameters(14, g.ReductionPolynomial.X_N_plus, np.uint32,
+                         factors=g.NTTFactors(g.Modulus32(qw), omega, psi))
+    planw = g.MergePlan.from_params(pw, device=dev)
+    xw = rng.integers(0, qw, size=(4, pw.n), dtype=np.uint64).astype(np.uint32)
+    yw = rng.integers(0, qw, size=(4, pw.n), dtype=np.uint64).astype(np.uint32)
+    genw = g.NTTCPU(pw)
+    reset()
+    fw = g.ntt(xw, planw)
+    check(np.array_equal(fw, genw.ntt(xw)), f"u32 30-bit q={qw} ntt == NTTCPU")
+    check(np.array_equal(g.intt(fw, planw), xw), "u32 30-bit intt(ntt) == x")
+    check(np.array_equal(g.polymul(xw, yw, planw),
+                         genw.intt(genw.mult(genw.ntt(xw), genw.ntt(yw)))),
+          "u32 30-bit polymul == NTTCPU")
+    check(hm32.FORWARD["K4"].launches == 3 and hm32.INVERSE["K4"].launches == 2,
+          "u32 30-bit q ran the kernels")
+
+    # -- 9. times: plain, kernel, kernel, plain
     cases = {
         hm.FORWARD.name: (lambda: hm.merge_u64_fwd(a, plan),
-                          lambda: hm.merge_u64_fwd_plain(a, plan)),
+                          lambda: hm.merge_u64_fwd_plain(a, plan),
+                          bound_ms(BATCH, LOGN, 1, 16), f"u64 2^{LOGN}x{BATCH}"),
         hm.INVERSE.name: (lambda: hm.merge_u64_inv(fa, plan),
-                          lambda: hm.merge_u64_inv_plain(fa, plan)),
+                          lambda: hm.merge_u64_inv_plain(fa, plan),
+                          bound_ms(BATCH, LOGN, 1, 16), f"u64 2^{LOGN}x{BATCH}"),
         hm.POLYMUL_INVERSE.name: (
             lambda: hm.merge_u64_polymul_inv(fa, fa_plain, plan),
-            lambda: hm.merge_u64_polymul_inv_plain(fa, fa_plain, plan)),
+            lambda: hm.merge_u64_polymul_inv_plain(fa, fa_plain, plan),
+            bound_ms(BATCH, LOGN, 2, 16), f"u64 2^{LOGN}x{BATCH}"),
     }
-    times = {}
-    for name, (kernel, plain) in cases.items():
+    for k, (plan32, x, fx, batch32, logn32) in sorted(u32_cells.items()):
+        cell = f"u32 2^{logn32}x{batch32}"
+        cases[hm32.FORWARD[k].name] = (
+            lambda x=x, pl=plan32: hm32.merge_u32_fwd(x, pl),
+            lambda x=x, pl=plan32: hm32.merge_u32_fwd_plain(x, pl),
+            bound_ms(batch32, logn32, 1, 3), cell)
+        cases[hm32.INVERSE[k].name] = (
+            lambda fx=fx, pl=plan32: hm32.merge_u32_inv(fx, pl),
+            lambda fx=fx, pl=plan32: hm32.merge_u32_inv_plain(fx, pl),
+            bound_ms(batch32, logn32, 1, 3), cell)
+    for name, (kernel, plain, bound, cell) in cases.items():
         runs = [time_cuda(plain, repeats=5, inner=2), time_cuda(kernel),
                 time_cuda(kernel), time_cuda(plain, repeats=5, inner=2)]
         k_ms = (runs[1][0] + runs[2][0]) / 2
         p_ms = (runs[0][0] + runs[3][0]) / 2
-        times[name] = (k_ms, p_ms)
-        print(f"time {name} 2^{LOGN}x{BATCH}: kernel {k_ms:.4f} ms "
-              f"(spread {max(runs[1][1], runs[2][1]):.3f}, "
-              f"{BATCH / k_ms * 1e3:.0f} NTTs/s), plain {p_ms:.3f} ms "
-              f"(spread {max(runs[0][1], runs[3][1]):.3f})")
+        times[name], bounds[name] = (k_ms, p_ms), bound
+        print(f"time {name} {cell}: kernel {k_ms:.5f} ms "
+              f"(spread {max(runs[1][1], runs[2][1]):.3f}), plain {p_ms:.3f} ms "
+              f"(spread {max(runs[0][1], runs[3][1]):.3f}), bound {bound[0]:.5f} ms "
+              f"({bound[1]}), {bound[0] / k_ms:.1%} of it")
     e2e, spread = time_cuda(lambda: g.polymul_lanes(a, b, plan))
-    print(f"time polymul_lanes 2^{LOGN}x{BATCH} end to end: {e2e:.4f} ms "
+    print(f"time polymul_lanes u64 2^{LOGN}x{BATCH} end to end: {e2e:.4f} ms "
           f"(spread {spread:.3f})")
+    plan32, x, _, batch32, logn32 = u32_cells["K4"]
+    e2e, spread = time_cuda(lambda: g.polymul_lanes(x, x, plan32))
+    print(f"time polymul_lanes u32 2^{logn32}x{batch32} end to end: {e2e:.4f} ms "
+          f"(spread {spread:.3f})")
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": err[k.name], "ms": times[k.name][0],
-         "plain_ms": times[k.name][1]} for k in hm.KERNELS]}))
+         "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
+         "bound_by": bounds[k.name][1], "library_ms": None}
+        for k in (*hm.KERNELS, *hm32.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

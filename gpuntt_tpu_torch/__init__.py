@@ -1,19 +1,24 @@
 """gpuntt_tpu_torch — the gpuntt_tpu NTT framework on PyTorch and CUDA.
 
 A port of the JAX package `gpuntt_tpu` to PyTorch, with hand-written
-kernels for NVIDIA Hopper (sm_90a).  This first slice covers the u64
-merge NTT main path:
+kernels for NVIDIA Hopper (sm_90a).  It covers the merge NTT paths of
+both word sizes so far:
 
 - the host layers (moduli, prime and root pools, twiddle tables, golden
   models) copied from gpuntt_tpu;
-- exact modular arithmetic on int64 tensors that hold u64 bit patterns;
+- exact modular arithmetic on int64 tensors that hold u64 bit patterns
+  or u32 values;
 - the merged radix-2 butterfly engine in plain PyTorch, on any device;
-- three CUDA kernels (forward, inverse, fused polymul inverse) for u64
-  rings of 2^12..2^17 with q < 2^62, built from csrc/ at first launch,
-  each with a plain PyTorch version that CPU tensors take;
+- CUDA kernels built from csrc/ at first launch, each with a plain
+  PyTorch version that CPU tensors take: the u64 forward, inverse and
+  fused polymul inverse for rings of 2^12..2^17 with q < 2^62
+  (ops.hopper_merge), and the u32 forward and inverse for rings of
+  2^8..2^25 with q < 2^30 (ops.hopper_merge32);
 - the merge entries of the transform API and PolynomialMultiplier.
 
-It imports torch and never jax.
+Entry points run on the first CUDA card unless the caller passes
+device="cpu"; without a card, a plan made for the default device raises
+NTTDeviceError.  It imports torch and never jax.
 """
 
 from .arith.modulus import Modulus, Modulus32, Modulus64

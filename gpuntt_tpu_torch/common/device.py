@@ -31,8 +31,11 @@ def available_devices(platform: str | None = None) -> list[torch.device]:
 
 
 def default_device() -> torch.device:
-    """First visible device (the reference always used device 0)."""
-    return available_devices()[0]
+    """The first visible card, cuda:0 (the reference always used device
+    0).  Raises NTTDeviceError when no card is visible: the port's entry
+    points run on the card, and on the CPU only when the caller passes
+    device="cpu"."""
+    return available_devices("cuda")[0]
 
 
 def _power_limits() -> list[str]:

@@ -6,6 +6,10 @@ schoolbook).  `PolynomialMultiplier` is the port of the JAX package's
 single-device model as an `nn.Module`: the plan's twiddle tables are
 registered buffers (so `.to(device)` moves them), `forward(a, b)` takes
 lane tensors, and calling it on numpy arrays keeps the JAX signature.
+`device` defaults to the first CUDA card (NTTDeviceError without one);
+pass device="cpu" to run on the host.  u64 params reach the kernels of
+hopper_merge.py, u32 params those of hopper_merge32.py, both through
+polymul_lanes.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels at first use.
 
-`library()` compiles csrc/merge_u64.cu with nvcc into a shared library
-with a plain C interface and loads it with ctypes.  The build lands in
-the gitignored csrc/build/ directory under a name that carries a hash
-of the sources and flags, so an edited source never loads a stale
+Each source in csrc/ (merge_u64.cu, merge_u32.cu) is compiled by its own
+nvcc call into a shared library with a plain C interface and loaded with
+ctypes: `library(name)` builds and loads one, `build_all()` starts every
+missing build at once and waits for them together.  Builds land in the
+gitignored csrc/build/ directory under names that carry a hash of each
+library's sources and the flags, so an edited source never loads a stale
 build; concurrent first uses each build to a private temporary name and
 rename it into place.  Importing this module needs no nvcc: only the
 first launch on a CUDA tensor builds.
@@ -24,13 +26,32 @@ from ..common.errors import NTTDeviceError
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-_SOURCES = ("merge_u64.cu", "merge_u64.cuh")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_p, _u32, _u64, _i32, _i64 = (ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint64,
+                              ctypes.c_int, ctypes.c_longlong)
+# library -> entry -> ctypes argtypes
+_ENTRIES = {
+    "merge_u64": {
+        "merge_u64_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u64, _u64, _i32,
+                              _p],
+        "merge_u64_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u64, _u64, _u64,
+                              _u64, _i32, _p],
+        "merge_u64_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _p, _u64,
+                                      _i32, _u64, _u64, _u64, _i32, _p],
+    },
+    "merge_u32": {
+        "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _i32,
+                              _p],
+        "merge_u32_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _u32,
+                              _u32, _i32, _p],
+    },
+}
+
 _lock = threading.Lock()
-_lib = None
-build_info: dict = {}  # "seconds" and "log" of this process's build, if any
+_libs: dict[str, ctypes.CDLL] = {}
+build_info: dict = {}  # name -> {"seconds", "log"} of this process's builds
 
 
 def _nvcc() -> str:
@@ -42,51 +63,71 @@ def _nvcc() -> str:
                          "build from csrc/ at their first launch")
 
 
-def _so_path() -> str:
+def _so_path(name: str) -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
+    for ext in (".cu", ".cuh"):
+        with open(os.path.join(_CSRC, name + ext), "rb") as f:
             h.update(f.read())
-    return os.path.join(_BUILD, f"libmerge_u64-{h.hexdigest()[:12]}.so")
+    return os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def _compile(so: str) -> None:
+def _compile(names) -> None:
+    """Compile the libraries `names`, one nvcc process each, all at once."""
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, os.path.join(_CSRC, "merge_u64.cu")]
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise NTTDeviceError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=res.stdout + res.stderr)
+    nvcc, t0, jobs = _nvcc(), time.perf_counter(), {}
+    for name in names:
+        so = _so_path(name)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, *_FLAGS, "-o", tmp, os.path.join(_CSRC, name + ".cu")]
+        jobs[name] = (so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (so, tmp, proc) in jobs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
+            else:
+                os.replace(tmp, so)
+                build_info[name] = dict(seconds=time.perf_counter() - t0,
+                                        log=out + err)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            failed.append(f"{name}: nvcc timed out")
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if failed:
+        raise NTTDeviceError("\n".join(failed))
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(_so_path(name))
+    for entry, argtypes in _ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def build_all() -> None:
+    """Build every kernel library not yet built, in parallel, and load all."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = _so_path()
-        if not os.path.exists(so):
-            _compile(so)
-        lib = ctypes.CDLL(so)
-        p, u64, i32, i64 = (ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
-                            ctypes.c_longlong)
-        lib.merge_u64_forward.argtypes = [i32, p, p, i64, i32, i32, p, p, u64, u64,
-                                          i32, p]
-        lib.merge_u64_inverse.argtypes = [i32, p, p, i64, i32, i32, p, p, u64, u64,
-                                          u64, u64, i32, p]
-        lib.merge_u64_polymul_inverse.argtypes = [i32, p, p, p, i64, i32, i32, p, p,
-                                                  u64, i32, u64, u64, u64, i32, p]
-        for fn in (lib.merge_u64_forward, lib.merge_u64_inverse,
-                   lib.merge_u64_polymul_inverse):
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return _lib
+        missing = [n for n in _ENTRIES if not os.path.exists(_so_path(n))]
+        if missing:
+            _compile(missing)
+        for name in _ENTRIES:
+            if name not in _libs:
+                _load(name)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built on first call."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        if not os.path.exists(_so_path(name)):
+            _compile([name])
+        return _load(name)

@@ -18,7 +18,10 @@ namesake accepts (edge operands near 2^64 - 1 included):
   approximate high word (result < 3q for any x);
 - `reduce_signed*` / `centered*` the signed load and centered store
   (modular_arith.cuh:371-405);
-- `reduce_forced64` x mod q for any u64 x (modular_arith.cuh:407-418).
+- `reduce_forced32/64` x mod q for any word x (modular_arith.cuh:407-418);
+- `shoup_mul32_lazy` / `cond_sub32` the lazy 32-bit Shoup product and
+  one normalisation step, from which the u32 kernels' reduce-on-load
+  is built (csrc/merge_u32.cuh).
 """
 
 from __future__ import annotations
@@ -58,6 +61,25 @@ def shoup_mul32(x, w, w_shoup, q: int):
     hi = srl(x * w_shoup, 32)
     r = (x * w - hi * q) & M32
     return torch.where(r >= q, r - q, r)
+
+
+def shoup_mul32_lazy(x, w, w_shoup, q: int):
+    """x*w mod q + e*q with e in {0, 1}: result < 2q for any u32 x."""
+    hi = srl(x * w_shoup, 32)
+    return (x * w - hi * q) & M32
+
+
+def cond_sub32(x, c: int):
+    """x - c if x >= c else x (one normalisation step)."""
+    return torch.where(x >= c, x - c, x)
+
+
+def reduce_forced32(x, q: int):
+    """x mod q for ANY u32 word x (the low 32 bits of the lane) and any
+    q >= 2 (modular_arith.cuh:407-418): a lazy Shoup product by 1 with
+    c = floor(2^32 / q) undershoots the quotient by at most 1, so r < 2q
+    and one conditional subtract canonicalises."""
+    return cond_sub32(shoup_mul32_lazy(x & M32, 1, (1 << 32) // q, q), q)
 
 
 def reduce_signed32(x, q: int):

@@ -19,11 +19,20 @@ reduction after the inverse.  `NTTConfig.zero_padding` and
 `NTTConfig.mod_inverse` are accepted and ignored, as in the JAX
 package.
 
-Route (`_kernel_path`): u64 transforms with q < 2^62, a genuine root of
-unity, logn 12-17 and a 2-D PerPolynomial batch go to the hand-written
-kernels of hopper_merge.py ("hopper-merge"), both directions and the
-fused polymul; everything else to the torch butterfly engine
-("engine").  The wrappers run their plain versions for CPU tensors.
+Route (`_kernel_path`), for a genuine root of unity and a 2-D
+PerPolynomial batch (1-D, 3-D and PerCoefficient inputs are reshaped to
+one first):
+
+- u64, q < 2^62, logn 12-17 -> the hand-written kernels of
+  hopper_merge.py ("hopper-merge"), both directions and the fused
+  polymul;
+- u32, q < 2^30, logn 8-25 -> those of hopper_merge32.py
+  ("hopper-merge32"), both directions; the u32 polymul is the forward
+  kernel twice, the plain Barrett product, then the inverse kernel, as
+  the JAX package leaves the u32 product to XLA;
+- everything else -> the torch butterfly engine ("engine").
+
+The wrappers run their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
 from . import hopper_merge as hm
+from . import hopper_merge32 as hm32
 from .merge_ntt import MergePlan, from_lanes, merge_intt_lanes, merge_ntt_lanes, to_lanes
 
 
@@ -52,12 +62,23 @@ class NTTConfig:
 
 
 def _kernel_path(plan: MergePlan, x_shape, layout: NTTLayout) -> str:
-    """"hopper-merge" or "engine" for a transform (same in both
-    directions; the JAX package's TPU thresholds do not apply)."""
-    if (layout == NTTLayout.PerPolynomial and len(x_shape) == 2
-            and hm.covers(plan) and plan.genuine_root):
+    """"hopper-merge", "hopper-merge32" or "engine" for a transform (same
+    in both directions; the JAX package's TPU thresholds do not apply)."""
+    if layout != NTTLayout.PerPolynomial or len(x_shape) != 2 or not plan.genuine_root:
+        return "engine"
+    if hm.covers(plan):
         return "hopper-merge"
+    if hm32.covers(plan):
+        return "hopper-merge32"
     return "engine"
+
+
+# path -> (forward, inverse) on a contiguous (batch, N) lane tensor
+_TRANSFORMS = {
+    "hopper-merge": (hm.merge_u64_fwd, hm.merge_u64_inv),
+    "hopper-merge32": (hm32.merge_u32_fwd, hm32.merge_u32_inv),
+    "engine": (merge_ntt_lanes, merge_intt_lanes),
+}
 
 
 def _apply_layout_in(x, layout: NTTLayout):
@@ -89,10 +110,7 @@ def ntt_lanes(x: torch.Tensor, plan: MergePlan,
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    if _kernel_path(plan, x2.shape, NTTLayout.PerPolynomial) == "hopper-merge":
-        y = hm.merge_u64_fwd(x2, plan)
-    else:
-        y = merge_ntt_lanes(x2, plan)
+    y = _TRANSFORMS[_kernel_path(plan, x2.shape, NTTLayout.PerPolynomial)][0](x2, plan)
     return _apply_layout_out(y.reshape(shape), layout)
 
 
@@ -104,10 +122,7 @@ def intt_lanes(x: torch.Tensor, plan: MergePlan,
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    if _kernel_path(plan, x2.shape, NTTLayout.PerPolynomial) == "hopper-merge":
-        y = hm.merge_u64_inv(x2, plan)
-    else:
-        y = merge_intt_lanes(x2, plan)
+    y = _TRANSFORMS[_kernel_path(plan, x2.shape, NTTLayout.PerPolynomial)][1](x2, plan)
     y = _apply_layout_out(y.reshape(shape), layout)
     if signed_output:
         return bo.centered64(y, plan.q) if plan.is64 else bo.centered32(y, plan.q)
@@ -124,8 +139,9 @@ def pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan):
 
 def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)): cyclic for X_N_minus, negacyclic for
-    X_N_plus.  On the kernel route the pointwise product is fused into
-    the inverse kernel; outputs are bit-identical either way."""
+    X_N_plus.  On the u64 kernel route the pointwise product is fused
+    into the inverse kernel; on the u32 one it runs between the forward
+    and inverse kernels.  Outputs are bit-identical on every route."""
     plan = plan.to(a.device)
     fa = _as_batch(ntt_lanes(a, plan))
     fb = _as_batch(ntt_lanes(b, plan))

@@ -147,6 +147,12 @@ def _launch(stats: KernelStats, fn, x: torch.Tensor, *args) -> None:
     stats.launches += 1
 
 
+def _lib():
+    from ._build import library
+
+    return library("merge_u64")
+
+
 def _one_s(q: int) -> int:
     return (1 << 64) // q
 
@@ -157,10 +163,8 @@ def merge_u64_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     if x.device.type == "cpu":
         FORWARD.plain_calls += 1
         return merge_u64_fwd_plain(x, plan)
-    from ._build import library
-
     y = torch.empty_like(x)
-    _launch(FORWARD, library().merge_u64_forward, x, x.data_ptr(), y.data_ptr(),
+    _launch(FORWARD, _lib().merge_u64_forward, x, x.data_ptr(), y.data_ptr(),
             x.shape[0], plan.logn, split(plan.logn), plan.fwd_table.data_ptr(),
             plan.fwd_shoup.data_ptr(), plan.q, _one_s(plan.q), int(plan.xnp))
     return y
@@ -172,10 +176,8 @@ def merge_u64_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     if x.device.type == "cpu":
         INVERSE.plain_calls += 1
         return merge_u64_inv_plain(x, plan)
-    from ._build import library
-
     y = torch.empty_like(x)
-    _launch(INVERSE, library().merge_u64_inverse, x, x.data_ptr(), y.data_ptr(),
+    _launch(INVERSE, _lib().merge_u64_inverse, x, x.data_ptr(), y.data_ptr(),
             x.shape[0], plan.logn, split(plan.logn), plan.inv_table.data_ptr(),
             plan.inv_shoup.data_ptr(), plan.q, _one_s(plan.q), plan.n_inv,
             plan.n_inv_shoup, int(plan.xnp))
@@ -190,10 +192,8 @@ def merge_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor,
     if fa.device.type == "cpu":
         POLYMUL_INVERSE.plain_calls += 1
         return merge_u64_polymul_inv_plain(fa, fb, plan)
-    from ._build import library
-
     y = torch.empty_like(fa)
-    _launch(POLYMUL_INVERSE, library().merge_u64_polymul_inverse, fa,
+    _launch(POLYMUL_INVERSE, _lib().merge_u64_polymul_inverse, fa,
             fa.data_ptr(), fb.data_ptr(), y.data_ptr(), fa.shape[0], plan.logn,
             split(plan.logn), plan.inv_table.data_ptr(), plan.inv_shoup.data_ptr(),
             plan.q, plan.bit, plan.mu, plan.n_inv, plan.n_inv_shoup, int(plan.xnp))

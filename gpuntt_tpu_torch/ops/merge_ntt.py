@@ -3,15 +3,16 @@
 The port of the JAX package's XLA engine (ops/merge_ntt.py): logn
 butterfly stages over a (..., m, 2, t) reshape of the coefficient axis,
 with each stage's twiddles a slice of the bit-reversed table.  It runs
-on any device and serves every shape no kernel covers (u32, logn
-outside 12-17, caller factors that are not roots of unity, wide
-moduli), as `merge_ntt_lanes` does in the JAX package.  Every stage
+on any device and serves every shape no kernel covers (u64 logn
+outside 12-17, u32 logn outside 8-25, caller factors that are not
+roots of unity, u64 q >= 2^62, u32 q >= 2^30), as `merge_ntt_lanes`
+does in the JAX package.  Every stage
 keeps canonical residues, so the values between stages are those of
 the reference's kernels (ntt.cu:2076-2256) and of the golden NTTCPU.
 
 `ct_stages`/`gs_stages` take an optional stage range, so the main-path
-kernels' plain versions (hopper_merge.py) run the same network split
-at the kernels' phase boundary.
+kernels' plain versions (hopper_merge.py, hopper_merge32.py) run the
+same network split at the kernels' phase boundary.
 """
 
 from __future__ import annotations
@@ -100,7 +101,9 @@ class MergePlan:
         (`u64_to_numpy(plan.fwd_table)` for u64); `root`/`iroot` and
         `n_inv` as in NTTParameters; `poly` a ReductionPolynomial of
         either package, or its value.  The Shoup companions are derived
-        here.  `device` defaults to the first CUDA card, else the CPU."""
+        here.  `device` defaults to the first CUDA card; without one that
+        raises NTTDeviceError, and the CPU is used only when asked for
+        (device="cpu")."""
         from ..common.device import default_device
 
         poly = ReductionPolynomial(getattr(poly, "value", poly))

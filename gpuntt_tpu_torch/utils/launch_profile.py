@@ -1,0 +1,104 @@
+"""Where the device time goes: the merge entries under torch.profiler.
+
+    python -m gpuntt_tpu_torch.utils.launch_profile [iters]
+
+Needs a CUDA card (exits 1 without one).  For each cell — u64 2^16 x 128
+(the 61-bit pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool
+prime 469762049), all X^N + 1 — it runs `iters` (default 20) calls of
+ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
+two CUDA events, and prints for each entry:
+
+- the window's time per call on the events, and the device's busy and
+  idle share of it (the sum of the kernels' device time over the
+  window);
+- for each kernel launched, the launches per call and the device
+  microseconds per launch, with the rate that would be if the launch
+  read and wrote its (batch, N) int64 operand once each.
+
+The first line is the card's name and power limit as nvidia-smi gives
+them.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def _short(name: str) -> str:
+    """Kernel name without its signature: merge_u32::rows<true>, or
+    "torch: <kernel>" for PyTorch's own elementwise kernels."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    name = name.removeprefix("void ")
+    if name.startswith("merge_u"):
+        return name
+    return "torch: " + name.split("<")[0].split("::")[-1]
+
+
+def profile(fn, iters: int, operand_bytes: int) -> None:
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+    rows: dict[str, list[float]] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            row = rows.setdefault(_short(e.key), [0, 0.0])
+            row[0] += e.count
+            row[1] += t
+    busy = sum(t for _, t in rows.values())
+    print(f"  {window_us / iters:.3f} us per call on events; device busy "
+          f"{busy / window_us:.1%}, idle {1 - busy / window_us:.1%}")
+    for name, (count, t) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        per = t / count
+        rate = (f", {2 * operand_bytes / per / 1e6:.3f} TB/s at one read + one write"
+                if name.startswith("merge_u") else "")
+        print(f"    {name}: {count / iters:g} per call, {per:.3f} us per launch{rate}")
+
+
+def main(iters: int = 20) -> int:
+    if not torch.cuda.is_available():
+        print("launch_profile: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+    import gpuntt_tpu_torch as g
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    for dtype, logn, batch in ((np.uint64, 16, 128), (np.uint32, 16, 128),
+                               (np.uint32, 20, 16)):
+        p = g.NTTParameters(logn, g.ReductionPolynomial.X_N_plus, dtype)
+        plan = g.MergePlan.from_params(p, device=dev)
+        a, b = (torch.from_numpy(rng.integers(0, p.modulus.value, size=(batch, p.n),
+                                              dtype=np.int64)).to(dev)
+                for _ in range(2))
+        fa = g.ntt_lanes(a, plan)
+        bits = 64 if dtype == np.uint64 else 32
+        for entry, fn in (("ntt_lanes", lambda: g.ntt_lanes(a, plan)),
+                          ("intt_lanes", lambda: g.intt_lanes(fa, plan)),
+                          ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan))):
+            print(f"u{bits} 2^{logn}x{batch} {entry}:")
+            profile(fn, iters, a.numel() * 8)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(*(int(v) for v in sys.argv[1:])))

@@ -122,6 +122,31 @@ def test_arith32(q):
     _eq32(tb.centered32(ta, q), jb.centered32(ja, q))
 
 
+@pytest.mark.parametrize("q", Q32 + [find_ntt_primes(20, 14, 1)[0]])
+def test_arith32_lazy_and_forced(q):
+    """The pieces of the u32 kernels' reduce-on-load and butterflies:
+    the lazy Shoup product on ANY u32 word, one conditional subtract,
+    and x mod q for any word."""
+    import jax.numpy as jnp
+
+    a = _words32(q, 10)
+    ta, ja = torch.from_numpy(a.astype(np.int64)), jnp.asarray(a)
+    w = np.random.default_rng(11).integers(0, q, size=a.size, dtype=np.uint64).astype(np.uint32)
+    w[:3] = [0, 1, q - 1]
+    ws = tb.shoup_companion(w, q, 32)
+    tw, tws = (torch.from_numpy(v.astype(np.int64)) for v in (w, ws))
+    lazy = tb.shoup_mul32_lazy(ta, tw, tws, q)
+    _eq32(lazy, jb.shoup_mul32_lazy(ja, jnp.asarray(w), jnp.asarray(ws), q))
+    assert int(lazy.max()) < 2 * q
+    for c in (q, 2 * q):
+        _eq32(tb.cond_sub32(ta, c), jb.cond_sub32(ja, c))
+    m = Modulus(q, bits=32)
+    _eq32(tb.reduce_forced32(ta, q), jb.reduce_forced32(ja, q, m.bit, m.mu))
+    assert (tb.reduce_forced32(ta, q).numpy() == a.astype(np.int64) % q).all()
+    # only the low word of a lane is read
+    assert torch.equal(tb.reduce_forced32(ta + (5 << 32), q), tb.reduce_forced32(ta, q))
+
+
 def test_limb_primitives_against_python_ints():
     rng = np.random.default_rng(9)
     a = np.concatenate([np.array([0, 1, (1 << 63) - 1, 1 << 63, M64], dtype=np.uint64),

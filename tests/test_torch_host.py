@@ -110,15 +110,23 @@ def test_native_core_builds_outside_tracked_tree():
 
 
 def test_devices_on_this_host():
+    """The default device is the card; without one, a plan or model made
+    for it raises instead of quietly running on the host."""
     assert available_devices("cpu") == [torch.device("cpu")]
+    p = tg.NTTParameters(12, tg.ReductionPolynomial.X_N_plus, np.uint32)
     if torch.cuda.is_available():
-        assert default_device().type == "cuda"
+        assert default_device() == torch.device("cuda", 0)
+        assert tg.MergePlan.from_params(p).device.type == "cuda"
         assert "power_limit=" in tg.device_summary()
     else:
-        assert default_device() == torch.device("cpu")
-        with pytest.raises(tg.NTTDeviceError):
-            available_devices("cuda")
+        for make in (default_device, lambda: available_devices("cuda"),
+                     lambda: tg.MergePlan.from_params(p),
+                     lambda: tg.PolynomialMultiplier(p)):
+            with pytest.raises(tg.NTTDeviceError):
+                make()
+        assert available_devices() == [torch.device("cpu")]
         assert "platform=cpu" in tg.device_summary()
+    assert tg.MergePlan.from_params(p, device="cpu").device == torch.device("cpu")
 
 
 def _imports(path):
@@ -149,6 +157,13 @@ def test_port_runs_with_jax_unavailable():
         " dtype=np.uint64)\n"
         "y = g.ntt(x, g.MergePlan.from_params(p, device='cpu'))\n"
         "assert np.array_equal(y, g.NTTCPU(p).ntt(x))\n"
+        "p = g.NTTParameters(10, g.ReductionPolynomial.X_N_minus, np.uint32)\n"
+        "x = x[:, :p.n].astype(np.uint32) % np.uint32(p.modulus.value)\n"
+        "plan = g.MergePlan.from_params(p, device='cpu')\n"
+        "assert np.array_equal(g.ntt(x, plan), g.NTTCPU(p).ntt(x))\n"
+        "assert np.array_equal(g.intt(g.ntt(x, plan), plan), x)\n"
+        "from gpuntt_tpu_torch.ops import hopper_merge32 as h\n"
+        "assert h.FORWARD['K4'].plain_calls == 2 and h.INVERSE['K4'].plain_calls == 1\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "print('ran')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

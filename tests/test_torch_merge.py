@@ -8,10 +8,13 @@
   engine's merge_ntt_lanes / merge_intt_lanes, and what polymul_lanes
   computes off the TPU, at logn 12-14 (polymul_lanes itself is called
   in test_torch_slice.py).
-- The CUDA source itself, compiled by g++ through a host emulation of
-  the few CUDA constructs it uses (one thread per block, blocks in
-  order), against the plain versions at logn 12-17: this checks the
-  kernels' index arithmetic and twiddle addressing without a card.
+- The CUDA sources themselves, merge_u64.cu and merge_u32.cu, compiled
+  by g++ through a host emulation of the few CUDA constructs they use
+  (one thread per block, blocks in order, dynamic shared memory a host
+  array), against the plain versions: u64 at logn 12-17, u32 at every
+  tile shape of its split rule (logn 8-23).  This checks the kernels'
+  index arithmetic, twiddle addressing and shape refusals without a
+  card.
 - Wrapper contract: CPU tensors take the plain version (counted), other
   devices launch or raise, bad operands raise, and the route table.
 """
@@ -39,6 +42,7 @@ import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
+from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops.merge_ntt import (from_lanes, merge_intt_lanes,
                                             merge_ntt_lanes, to_lanes)
 
@@ -183,8 +187,10 @@ _SHIM = """
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
 static EmuDim3 threadIdx = {0}, blockIdx = {0};
+static uint32_t emu_smem[1 << 15];  // the largest dynamic tile
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -195,23 +201,32 @@ inline void __syncthreads() {}
 inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b) {
   return (unsigned long long)(((unsigned __int128)a * b) >> 64);
 }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 template <class F> void emu_launch(long long grid, F f) {
   for (long long b = 0; b < grid; ++b) { blockIdx.x = (unsigned)b; f(); }
 }
 """
 
+# library -> launch sites in its source
+_LAUNCHES = {"merge_u64": 6, "merge_u32": 4}
 
-def _emulated_source() -> str:
-    """merge_u64.cu with one thread per block (each thread-strided loop
+
+def _emulated_source(name: str) -> str:
+    """csrc/<name>.cu with one thread per block (each thread-strided loop
     then visits every index in order, and a stage's butterflies are
-    independent) and every <<<grid, ...>>> launch a loop over blocks."""
-    with open(os.path.join(CSRC, "merge_u64.cu")) as f:
+    independent), dynamic shared memory one host array, and every
+    <<<grid, kThreads, bytes, st>>> launch a loop over blocks."""
+    with open(os.path.join(CSRC, name + ".cu")) as f:
         src = f.read()
     assert "constexpr int kThreads = 256;" in src
     src = src.replace("constexpr int kThreads = 256;", "constexpr int kThreads = 1;")
-    launch = re.compile(r"(\w+(?:<\w+>)?)<<<(.+?), kThreads, 0, st>>>\(")
+    src = src.replace("extern __shared__ uint32_t smem[];", "uint32_t* smem = emu_smem;")
+    launch = re.compile(r"(\w+(?:<\w+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
     out, i = [], 0
     while (m := launch.search(src, i)) is not None:
         j, depth = m.end(), 1
@@ -221,30 +236,35 @@ def _emulated_source() -> str:
         out += [src[i:m.start()],
                 f"emu_launch({m.group(2)}, [&] {{ {m.group(1)}({src[m.end():j]}; }})"]
         i = j
-    assert len(out) == 12, "expected six kernel launches"
+    assert len(out) == 2 * _LAUNCHES[name], f"expected {_LAUNCHES[name]} launches"
     return "".join(out) + src[i:]
+
+
+def _emulate(tmp_path_factory, name: str) -> ctypes.CDLL:
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to compile the emulated kernels")
+    d = tmp_path_factory.mktemp(f"emu_{name}")
+    (d / "cuda_runtime.h").write_text(_SHIM)
+    (d / f"{name}_emu.cpp").write_text(_emulated_source(name))
+    shutil.copy(os.path.join(CSRC, f"{name}.cuh"), d)
+    so = d / "libemu.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{d}",
+                    "-o", str(so), str(d / f"{name}_emu.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    for entry, argtypes in _build._ENTRIES[name].items():
+        getattr(lib, entry).argtypes = argtypes
+    return lib
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ to compile the emulated kernels")
-    d = tmp_path_factory.mktemp("emu")
-    (d / "cuda_runtime.h").write_text(_SHIM)
-    (d / "merge_u64_emu.cpp").write_text(_emulated_source())
-    shutil.copy(os.path.join(CSRC, "merge_u64.cuh"), d)
-    so = d / "libemu.so"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{d}",
-                    "-o", str(so), str(d / "merge_u64_emu.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    p, u64, i32, i64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_longlong
-    lib.merge_u64_forward.argtypes = [i32, p, p, i64, i32, i32, p, p, u64, u64, i32, p]
-    lib.merge_u64_inverse.argtypes = [i32, p, p, i64, i32, i32, p, p, u64, u64, u64,
-                                      u64, i32, p]
-    lib.merge_u64_polymul_inverse.argtypes = [i32, p, p, p, i64, i32, i32, p, p, u64,
-                                              i32, u64, u64, u64, i32, p]
-    return lib
+    return _emulate(tmp_path_factory, "merge_u64")
+
+
+@pytest.fixture(scope="module")
+def emulated32(tmp_path_factory):
+    return _emulate(tmp_path_factory, "merge_u32")
 
 
 @pytest.mark.parametrize("poly", [tg.ReductionPolynomial.X_N_minus,
@@ -285,6 +305,60 @@ def test_cuda_source_emulated_refuses_bad_shapes(emulated):
     assert rc == 1  # cudaErrorInvalidValue: logn 11 has no tile shape
 
 
+U32_EMULATED = [(logn, poly, 2) for logn in (8, 12, 16, 17, 18)
+                for poly in (tg.ReductionPolynomial.X_N_minus,
+                             tg.ReductionPolynomial.X_N_plus)] + [
+    (8, tg.ReductionPolynomial.X_N_plus, 33),  # two blocks of rings, one short
+    (22, tg.ReductionPolynomial.X_N_minus, 1), (22, tg.ReductionPolynomial.X_N_plus, 1),
+    (23, tg.ReductionPolynomial.X_N_plus, 1)]  # the 128 KiB tile
+
+
+@pytest.mark.parametrize("logn,poly,batch", U32_EMULATED)
+def test_cuda_source_u32_emulated_matches_plain(emulated32, logn, poly, batch):
+    """merge_u32.cu's two entries on any u32 word, at every tile shape of
+    the split rule: one launch over whole rings (8, 12), the 32 KiB
+    two-phase tiles (16-22) and the 128 KiB one (23)."""
+    p = tg.NTTParameters(logn, poly, np.uint32)
+    plan = tg.MergePlan.from_params(p, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(logn).integers(
+        0, 1 << 32, size=(batch, p.n), dtype=np.int64))
+    la, q, one_s = hm32.split(logn), plan.q, (1 << 32) // plan.q
+    y, z = torch.empty_like(x), torch.empty_like(x)
+    assert emulated32.merge_u32_forward(0, x.data_ptr(), y.data_ptr(), batch, logn, la,
+                                        plan.fwd_table.data_ptr(),
+                                        plan.fwd_shoup.data_ptr(), q, one_s,
+                                        int(plan.xnp), None) == 0
+    assert torch.equal(y, hm32.merge_u32_fwd_plain(x, plan))
+    # the plain inverse takes seconds on the CPU from 2^22 on: there the
+    # inverse is held to the round trip of the forward just checked
+    src = x if logn < 22 else y
+    assert emulated32.merge_u32_inverse(0, src.data_ptr(), z.data_ptr(), batch, logn, la,
+                                        plan.inv_table.data_ptr(),
+                                        plan.inv_shoup.data_ptr(), q, one_s, plan.n_inv,
+                                        plan.n_inv_shoup, int(plan.xnp), None) == 0
+    assert torch.equal(z, hm32.merge_u32_inv_plain(x, plan) if logn < 22 else x % q)
+
+
+@pytest.mark.parametrize("logn,log_a,batch", [
+    (20, 0, 1),   # rows of 2^20 words: no tile holds them
+    (12, 2, 1),   # columns of a 2^13-word tile wider than the 2^10-word rows
+    (14, 1, 0),   # empty batch
+])
+def test_cuda_source_u32_emulated_refuses_bad_shapes(emulated32, logn, log_a, batch):
+    p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint32)
+    plan = tg.MergePlan.from_params(p, device="cpu")
+    x = torch.zeros((1, p.n), dtype=torch.int64)
+    for rc in (
+            emulated32.merge_u32_forward(0, x.data_ptr(), x.data_ptr(), batch, logn, log_a,
+                                         plan.fwd_table.data_ptr(),
+                                         plan.fwd_shoup.data_ptr(), plan.q, 1, 1, None),
+            emulated32.merge_u32_inverse(0, x.data_ptr(), x.data_ptr(), batch, logn, log_a,
+                                         plan.inv_table.data_ptr(),
+                                         plan.inv_shoup.data_ptr(), plan.q, 1, 1, 1, 1,
+                                         None)):
+        assert rc == 1  # cudaErrorInvalidValue
+
+
 # ------------------------------------------------------ wrapper contract
 
 
@@ -297,7 +371,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     hm.merge_u64_inv(fx, plan)
     hm.merge_u64_polymul_inv(fx, fx, plan)
     assert [(k.launches, k.plain_calls) for k in hm.KERNELS] == [(0, 1)] * 3
-    assert _build._lib is None  # nothing was built for CPU tensors
+    assert _build._libs == {}  # nothing was built for CPU tensors
 
     meta = plan.to("meta")
     with pytest.raises(tg.NTTDeviceError):
@@ -323,7 +397,7 @@ def test_route_table():
 
     assert [route(n) for n in (11, 12, 16, 17, 18)] == \
         ["engine", "hopper-merge", "hopper-merge", "hopper-merge", "engine"]
-    assert route(16, np.uint32) == "engine"
+    assert route(16, np.uint32) == "hopper-merge32"  # the rest in test_torch_merge32.py
     assert route(12, shape=(2, 2, 4096)) == "engine"
     assert route(12, layout=tg.NTTLayout.PerCoefficient) == "engine"
     q62, = tg.find_ntt_primes(63, 12, 1)
