@@ -27,8 +27,21 @@ at once) and runs, on the card:
    trip;
 8. u32 logn 8, X^N - 1, batch 4 against schoolbook, and a 30-bit q at
    logn 14 against NTTCPU;
-9. CUDA-event times of each kernel and of its plain version, at the
-   shape its path gave it.
+9. the u64 big-ring path, X^N + 1, the 61-bit pool prime, at 2^24 x 1
+   (the JAX package's big-ring cell) and 2^20 x 16 (the bytes of the u32
+   2^20 x 16 cell): ntt, intt and polymul through the public *_lanes
+   entries with the launch counts of K1-K3 and K7-K8 read around each
+   call, K7's counterpart against its plain version, every output
+   against the plain composition on the card and rows against the
+   native oracle (NTTCPU) on the host; the plan's build time and bytes;
+10. 2^27 x 1 (K8's counterpart on the nested rows) and 2^28 x 1 (the top
+   of the pool): forward and inverse against the plain composition, K8
+   against its plain version, the round trip, and at 2^28 the forward
+   against the native oracle;
+11. u64 logn 18, X^N - 1, batch 4: polymul against NTTCPU on two rows,
+   and a 62-bit and a 46-bit q at logn 20 against NTTCPU;
+12. CUDA-event times of each kernel and of its plain version, at the
+   shape its path gave it, and of the big-ring transforms end to end.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -36,8 +49,9 @@ so it does when no CUDA device is visible.  The line before the last is
 the JSON kernel table, with each kernel's bound: the larger of the time
 to move its bytes (each input read once, each output written once, at
 3.35 TB/s) and the time of its integer multiplies at 67 T/s (the
-float32 rate; the card's 32-bit integer rate is not above it).  The last
-line is {"ok": true, "device": {...}}.
+float32 rate; the card's 32-bit integer rate is not above it; a u64
+Shoup product counts 16 32-bit multiplies).  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,13 +82,17 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def bound_of(by: int, ops: int) -> tuple[float, str]:
+    """Least time to move `by` bytes and do `ops` 32-bit multiplies."""
+    t_by, t_ops = by / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
+    return (t_by, "bytes") if t_by >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int) -> tuple[float, str]:
     """Least time for a transform of (batch, 2^logn) int64 lanes that reads
     `operands` tensors and writes one: bytes against multiplies."""
-    by = (operands + 1) * batch * (8 << logn)
-    ops = batch * (1 << (logn - 1)) * logn * mul_per_bf
-    t_by, t_ops = by / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3
-    return (t_by, "bytes") if t_by >= t_ops else (t_ops, "operations")
+    return bound_of((operands + 1) * batch * (8 << logn),
+                    batch * (1 << (logn - 1)) * logn * mul_per_bf)
 
 
 def main() -> int:
@@ -89,6 +107,7 @@ def main() -> int:
     from gpuntt_tpu_torch.ops import barrett as bo
     from gpuntt_tpu_torch.ops import hopper_merge as hm
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
     from gpuntt_tpu_torch.utils.timing import time_cuda
 
@@ -99,6 +118,16 @@ def main() -> int:
     def reset():
         hm.reset_counts()
         hm32.reset_counts()
+        hml.reset_counts()
+
+    def counted() -> dict:
+        """{kernel: launches} of the u64 kernels that ran since reset();
+        raises if a plain version ran."""
+        torch.cuda.synchronize()
+        ks = (*hm.KERNELS, *hml.KERNELS)
+        if any(k.plain_calls for k in ks):
+            raise AssertionError(f"plain versions ran: {[(k.name, k.plain_calls) for k in ks]}")
+        return {k.name: k.launches for k in ks if k.launches}
 
     # -- 1. card and build
     print(card_line())
@@ -302,7 +331,148 @@ def main() -> int:
     check(hm32.FORWARD["K4"].launches == 3 and hm32.INVERSE["K4"].launches == 2,
           "u32 30-bit q ran the kernels")
 
-    # -- 9. times: plain, kernel, kernel, plain
+    # -- 9. the u64 big-ring path at full width, through the public entries
+    PLUS = g.ReductionPolynomial.X_N_plus
+    K1, K2, K3 = (k.name for k in hm.KERNELS)
+    CF, CI, RM = (k.name for k in hml.KERNELS)
+    big = {}
+    for logn_b, batch_b in ((24, 1), (20, 16)):
+        pb = g.NTTParameters(logn_b, PLUS, np.uint64)
+        planb = g.MergePlan.from_params(pb, device=dev)
+        cell = f"u64 2^{logn_b}x{batch_b}"
+        check(planb.fwd_table is None, f"{cell} plan holds no N-entry table")
+        t0 = time.perf_counter()
+        lp = hml.large_plan(planb)
+        torch.cuda.synchronize()
+        print(f"{cell} plan build {time.perf_counter() - t0:.3f} s, "
+              f"{lp.device_bytes()} bytes on the card (A={lp.A} B={lp.B} T={lp.tile})")
+        xb_np = rng.integers(0, pb.modulus.value, size=(batch_b, pb.n), dtype=np.uint64)
+        yb_np = rng.integers(0, pb.modulus.value, size=(batch_b, pb.n), dtype=np.uint64)
+        xb, yb = from_numpy_u64(xb_np, dev), from_numpy_u64(yb_np, dev)
+
+        reset()
+        fxb = g.ntt_lanes(xb, planb)
+        c_ntt = counted()
+        check(c_ntt == {K1: 1, CF: 1}, f"{cell} ntt_lanes launched K7 fwd and K1 once")
+        reset()
+        bxb = g.intt_lanes(fxb, planb)
+        c_intt = counted()
+        check(c_intt == {K2: 1, CI: 1}, f"{cell} intt_lanes launched K2 and K7 inv once")
+        reset()
+        pxy = g.polymul_lanes(xb, yb, planb)
+        c_mul = counted()
+        check(c_mul == {K1: 2, CF: 2, K3: 1, CI: 1},
+              f"{cell} polymul_lanes launched K7 fwd and K1 twice, K3 and K7 inv once")
+        if logn_b == 24:  # K7's cell: its launches on this main path
+            for name in (CF, CI):
+                launches[name] = sum(c.get(name, 0) for c in (c_ntt, c_intt, c_mul))
+
+        fx_plain = hml.merge_u64_large_plain(xb, lp)
+        check(torch.equal(fxb, fx_plain), f"{cell} ntt == plain composition, all rows")
+        check(torch.equal(bxb, hml.merge_u64_large_plain(fxb, lp, inverse=True)),
+              f"{cell} intt == plain composition")
+        check(torch.equal(bxb, xb), f"{cell} intt(ntt(x)) == x, all rows")
+        check(torch.equal(pxy, hml.merge_u64_large_polymul_inv_plain(
+            fx_plain, hml.merge_u64_large_plain(yb, lp), lp)),
+            f"{cell} polymul == plain composition, all rows")
+        for stats, fn, plain, src in (
+                (hml.COLFWD, hml.merge_u64_large_colfwd, hml.colfwd_plain, xb),
+                (hml.COLINV, hml.merge_u64_large_colinv, hml.colinv_plain, fxb)):
+            got, want = fn(src, lp), plain(src, lp)
+            e = int((got - want).abs().max().item())
+            err.setdefault(stats.name, e)
+            check(torch.equal(got, want), f"{cell} {stats.name} == plain version (max |diff| {e})")
+        genb = g.NTTCPU(pb)
+        for r in sorted({0, batch_b - 1}):
+            check(np.array_equal(to_numpy_u64(fxb[r]), genb.ntt(xb_np[r])),
+                  f"{cell} ntt row {r} == native oracle")
+            check(np.array_equal(to_numpy_u64(bxb[r]), xb_np[r]), f"{cell} intt row {r}")
+            want = genb.intt(genb.mult(genb.ntt(xb_np[r]), genb.ntt(yb_np[r])))
+            check(np.array_equal(to_numpy_u64(pxy[r]), want),
+                  f"{cell} polymul row {r} == native oracle")
+        big[logn_b] = (planb, lp, xb, yb, fxb, batch_b)
+        del bxb, pxy, fx_plain
+
+    # -- 10. 2^27 (K8 on the nested rows) and 2^28 (the top of the pool)
+    for logn_b in (27, 28):
+        pb = g.NTTParameters(logn_b, PLUS, np.uint64)
+        planb = g.MergePlan.from_params(pb, device=dev)
+        cell = f"u64 2^{logn_b}x1"
+        t0 = time.perf_counter()
+        lp = hml.large_plan(planb)
+        torch.cuda.synchronize()
+        print(f"{cell} plan build {time.perf_counter() - t0:.3f} s, "
+              f"{lp.device_bytes()} bytes on the card (A={lp.A} B={lp.B}, nested "
+              f"A={lp.nested.A} B={lp.nested.B}, rows {lp.nested.row_kernel})")
+        xb_np = rng.integers(0, pb.modulus.value, size=(1, pb.n), dtype=np.uint64)
+        xb = from_numpy_u64(xb_np, dev)
+        rows = RM if logn_b == 27 else K1
+        reset()
+        fxb = g.ntt_lanes(xb, planb)
+        c_ntt = counted()
+        check(c_ntt == {CF: 2, rows: 1}, f"{cell} ntt_lanes launched K7 fwd twice, "
+              f"{rows} once")
+        reset()
+        bxb = g.intt_lanes(fxb, planb)
+        c_intt = counted()
+        check(c_intt == {CI: 2, RM if logn_b == 27 else K2: 1},
+              f"{cell} intt_lanes launched K7 inv twice, the row inverse once")
+        if logn_b == 27:  # K8's cell: its launches on this main path
+            launches[RM] = c_ntt[RM] + c_intt[RM]
+        check(torch.equal(bxb, xb), f"{cell} intt(ntt(x)) == x")
+        del bxb
+        check(torch.equal(fxb, hml.merge_u64_large_plain(xb, lp)),
+              f"{cell} ntt == plain composition")
+        check(torch.equal(g.intt_lanes(fxb, planb),
+                          hml.merge_u64_large_plain(fxb, lp, inverse=True)),
+              f"{cell} intt == plain composition")
+        if logn_b == 27:
+            r = xb.view(-1, lp.nested.B)
+            for inverse in (False, True):
+                got = hml.merge_u64_large_rowmat(r, lp.nested.rows, inverse)
+                want = hml.rowmat_plain(r, lp.nested.rows, inverse)
+                e = int((got - want).abs().max().item())
+                err[RM] = max(err.get(RM, 0), e)
+                check(torch.equal(got, want), f"{cell} {RM} inverse={inverse} == plain "
+                      f"version on {r.shape[0]} rows (max |diff| {e})")
+            big[27] = (planb, lp, xb, None, fxb, 1)
+        else:
+            t0 = time.perf_counter()
+            check(np.array_equal(to_numpy_u64(fxb[0]), g.NTTCPU(pb).ntt(xb_np[0])),
+                  f"{cell} ntt == native oracle ({time.perf_counter() - t0:.1f} s on the host)")
+            big[28] = (planb, lp, xb, None, fxb, 1)
+        del xb_np
+
+    # -- 11. u64 logn 18 X^N - 1, and wide and narrow q at logn 20
+    ps = g.NTTParameters(18, g.ReductionPolynomial.X_N_minus, np.uint64)
+    xs = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64)
+    ys = rng.integers(0, ps.modulus.value, size=(4, ps.n), dtype=np.uint64)
+    reset()
+    got = g.polymul(xs, ys, g.MergePlan.from_params(ps, device=dev))
+    check(counted() == {K1: 2, CF: 2, K3: 1, CI: 1}, "u64 logn 18 polymul ran the kernels")
+    gens = g.NTTCPU(ps)
+    for r in (0, 3):
+        check(np.array_equal(got[r], gens.intt(gens.mult(gens.ntt(xs[r]), gens.ntt(ys[r])))),
+              f"u64 logn 18 X^N-1 polymul row {r} == NTTCPU")
+    for bits, poly in ((62, PLUS), (46, g.ReductionPolynomial.X_N_minus)):
+        qw = g.find_ntt_primes(bits, 20, 1)[0]
+        omega, psi = g.ntt_root_pair(qw, 20)
+        pw = g.NTTParameters(20, poly, np.uint64,
+                             factors=g.NTTFactors(g.Modulus64(qw), omega, psi))
+        planw = g.MergePlan.from_params(pw, device=dev)
+        xw = rng.integers(0, qw, size=(2, pw.n), dtype=np.uint64)
+        yw = rng.integers(0, qw, size=(2, pw.n), dtype=np.uint64)
+        genw = g.NTTCPU(pw)
+        reset()
+        fw = g.ntt(xw, planw)
+        check(np.array_equal(fw, genw.ntt(xw)), f"logn 20 {bits}-bit q={qw} ntt == NTTCPU")
+        check(np.array_equal(g.intt(fw, planw), xw), f"logn 20 {bits}-bit intt(ntt) == x")
+        check(np.array_equal(g.polymul(xw, yw, planw),
+                             genw.intt(genw.mult(genw.ntt(xw), genw.ntt(yw)))),
+              f"logn 20 {bits}-bit polymul == NTTCPU")
+        check(set(counted()) == {K1, K2, K3, CF, CI}, f"logn 20 {bits}-bit q ran the kernels")
+
+    # -- 12. times: plain, kernel, kernel, plain
     cases = {
         hm.FORWARD.name: (lambda: hm.merge_u64_fwd(a, plan),
                           lambda: hm.merge_u64_fwd_plain(a, plan),
@@ -325,6 +495,25 @@ def main() -> int:
             lambda fx=fx, pl=plan32: hm32.merge_u32_inv(fx, pl),
             lambda fx=fx, pl=plan32: hm32.merge_u32_inv_plain(fx, pl),
             bound_ms(batch32, logn32, 1, 3), cell)
+    _, lp24, x24, _, fx24, _ = big[24]
+    _, lp27, x27, _, _, _ = big[27]
+    r27 = x27.view(-1, lp27.nested.B)
+
+    def k7_bound(lp, batch, inverse):
+        # log A stages of N/2 Shoup products, two for the twist (a third
+        # for the inverse's A^-1) per word
+        n = batch << lp.logn
+        return bound_of(2 * 8 * n, 16 * (n // 2 * (lp.A.bit_length() - 1)
+                                         + (3 if inverse else 2) * n))
+
+    cases[CF] = (lambda: hml.merge_u64_large_colfwd(x24, lp24),
+                 lambda: hml.colfwd_plain(x24, lp24), k7_bound(lp24, 1, False), "u64 2^24x1")
+    cases[CI] = (lambda: hml.merge_u64_large_colinv(fx24, lp24),
+                 lambda: hml.colinv_plain(fx24, lp24), k7_bound(lp24, 1, True), "u64 2^24x1")
+    cases[RM] = (lambda: hml.merge_u64_large_rowmat(r27, lp27.nested.rows, False),
+                 lambda: hml.rowmat_plain(r27, lp27.nested.rows, False),
+                 bound_of(2 * 8 * r27.numel(), 16 * (r27.numel() // 2) * 9),
+                 f"u64 rows {r27.shape[0]}x{r27.shape[1]} (2^27)")
     for name, (kernel, plain, bound, cell) in cases.items():
         runs = [time_cuda(plain, repeats=5, inner=2), time_cuda(kernel),
                 time_cuda(kernel), time_cuda(plain, repeats=5, inner=2)]
@@ -342,6 +531,30 @@ def main() -> int:
     e2e, spread = time_cuda(lambda: g.polymul_lanes(x, x, plan32))
     print(f"time polymul_lanes u32 2^{logn32}x{batch32} end to end: {e2e:.4f} ms "
           f"(spread {spread:.3f})")
+    for logn_b in (24, 20, 27, 28):
+        planb, lp, xb, yb, fxb, batch_b = big[logn_b]
+        cell = f"u64 2^{logn_b}x{batch_b}"
+        heavy = logn_b >= 27  # a plain call takes a second or more
+        for entry, kernel, plain, src in (
+                ("ntt_lanes", g.ntt_lanes, hml.merge_u64_large_plain, xb),
+                ("intt_lanes", g.intt_lanes,
+                 lambda v, lp: hml.merge_u64_large_plain(v, lp, inverse=True), fxb)):
+            runs = [time_cuda(lambda: plain(src, lp), warmup=1, repeats=3 if heavy else 5,
+                              inner=1 if heavy else 2),
+                    time_cuda(lambda: kernel(src, planb), repeats=5 if heavy else 10),
+                    time_cuda(lambda: kernel(src, planb), repeats=5 if heavy else 10),
+                    time_cuda(lambda: plain(src, lp), warmup=1, repeats=3 if heavy else 5,
+                              inner=1 if heavy else 2)]
+            k_ms = (runs[1][0] + runs[2][0]) / 2
+            p_ms = (runs[0][0] + runs[3][0]) / 2
+            bound = bound_ms(batch_b, logn_b, 1, 16)
+            print(f"time {entry} {cell}: {k_ms:.5f} ms (spread "
+                  f"{max(runs[1][1], runs[2][1]):.3f}), plain {p_ms:.3f} ms (spread "
+                  f"{max(runs[0][1], runs[3][1]):.3f}), bound {bound[0]:.5f} ms "
+                  f"({bound[1]}), {bound[0] / k_ms:.1%} of it")
+        if yb is not None:
+            e2e, spread = time_cuda(lambda: g.polymul_lanes(xb, yb, planb))
+            print(f"time polymul_lanes {cell} end to end: {e2e:.4f} ms (spread {spread:.3f})")
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -350,7 +563,7 @@ def main() -> int:
          "max_abs_err": err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS)]}))
+        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

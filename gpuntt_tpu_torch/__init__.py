@@ -12,8 +12,9 @@ both word sizes so far:
 - CUDA kernels built from csrc/ at first launch, each with a plain
   PyTorch version that CPU tensors take: the u64 forward, inverse and
   fused polymul inverse for rings of 2^12..2^17 with q < 2^62
-  (ops.hopper_merge), and the u32 forward and inverse for rings of
-  2^8..2^25 with q < 2^30 (ops.hopper_merge32);
+  (ops.hopper_merge), the u64 big rings 2^18..2^28 as a column kernel
+  and row kernels composed (ops.hopper_merge_large), and the u32 forward
+  and inverse for rings of 2^8..2^25 with q < 2^30 (ops.hopper_merge32);
 - the merge entries of the transform API and PolynomialMultiplier.
 
 Entry points run on the first CUDA card unless the caller passes

@@ -52,49 +52,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 4096;  // words of shared memory per block (32 KiB)
+constexpr int kLogTile = 12;
 constexpr int kCols = 16;    // columns per column-phase block
 constexpr int kLogCols = 4;
-
-// Cooley-Tukey stages 0 .. logA-1 down the columns of an (A, kCols) tile.
-__device__ void ct_cols(uint64_t* s, int logA, const uint64_t* __restrict__ tw,
-                        const uint64_t* __restrict__ tws, uint64_t q, int xnp) {
-  const int work = (1 << (logA - 1)) * kCols;
-  for (int l = 0; l < logA; ++l) {
-    const int logt = logA - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int c = k & (kCols - 1), bf = k >> kLogCols;
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (((i << (logt + 1)) + r) << kLogCols) + c;
-      const int p1 = p0 + (1 << (logt + kLogCols));
-      const int idx = xnp ? (1 << l) + i : i;
-      const uint64_t u = s[p0];
-      const uint64_t v = shoup_mul(s[p1], tw[idx], tws[idx], q);
-      s[p0] = add_mod(u, v, q);
-      s[p1] = sub_mod(u, v, q);
-    }
-    __syncthreads();
-  }
-}
-
-// Gentleman-Sande stages logA-1 .. 0 down the columns.
-__device__ void gs_cols(uint64_t* s, int logA, const uint64_t* __restrict__ tw,
-                        const uint64_t* __restrict__ tws, uint64_t q, int xnp) {
-  const int work = (1 << (logA - 1)) * kCols;
-  for (int l = logA - 1; l >= 0; --l) {
-    const int logt = logA - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int c = k & (kCols - 1), bf = k >> kLogCols;
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (((i << (logt + 1)) + r) << kLogCols) + c;
-      const int p1 = p0 + (1 << (logt + kLogCols));
-      const int idx = xnp ? (1 << l) + i : i;
-      const uint64_t u = s[p0], v = s[p1];
-      s[p0] = add_mod(u, v, q);
-      s[p1] = shoup_mul(sub_mod(u, v, q), tw[idx], tws[idx], q);
-    }
-    __syncthreads();
-  }
-}
 
 // Cooley-Tukey stages logA .. logn-1 along `rows` rows of length B = 2^logB
 // whose first row is row a0 of the ring.
@@ -155,47 +115,50 @@ fwd_cols(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logn, int
     s[e] = reduce_any(x[off + ((size_t)(e >> kLogCols) << logB) + (e & (kCols - 1))],
                       q, one_s);
   __syncthreads();
-  ct_cols(s, logA, tw, tws, q, xnp);
+  ct_cols<kThreads>(s, logA, kLogCols, tw, tws, q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads)
     y[off + ((size_t)(e >> kLogCols) << logB) + (e & (kCols - 1))] = s[e];
 }
 
-// Forward phase 2: rows, in place on y.  Block = (ring, kTile / B rows).
+// Forward phase 2: rows, in place on y.  Block = (ring, 2^kLw / B rows):
+// kLw = kLogTile, or 11 for a 2^11 ring, which one block holds whole
+// (the rows of a 2^18 ring, hopper_merge_large.py).
+template <int kLw>
 __global__ void __launch_bounds__(kThreads)
 fwd_rows(uint64_t* __restrict__ y, int logn, int logA, const uint64_t* __restrict__ tw,
          const uint64_t* __restrict__ tws, uint64_t q, int xnp) {
-  __shared__ uint64_t s[kTile];
+  __shared__ uint64_t s[1 << kLw];
   const int logB = logn - logA;
-  const int rows = kTile >> logB;
+  const int rows = (1 << kLw) >> logB;
   const int per_ring = (1 << logA) / rows;
   const int a0 = (blockIdx.x % per_ring) * rows;
   uint64_t* base = y + ((size_t)(blockIdx.x / per_ring) << logn) + ((size_t)a0 << logB);
-  for (int e = threadIdx.x; e < kTile; e += kThreads) s[e] = base[e];
+  for (int e = threadIdx.x; e < (1 << kLw); e += kThreads) s[e] = base[e];
   __syncthreads();
   ct_rows(s, rows, a0, logA, logB, tw, tws, q, xnp);
-  for (int e = threadIdx.x; e < kTile; e += kThreads) base[e] = s[e];
+  for (int e = threadIdx.x; e < (1 << kLw); e += kThreads) base[e] = s[e];
 }
 
 // Inverse phase 1: rows.  kMul: the load is the Barrett product a o b
 // (polymul); otherwise it reduces a mod q.  -> y.
-template <bool kMul>
+template <bool kMul, int kLw>
 __global__ void __launch_bounds__(kThreads)
 inv_rows(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
          uint64_t* __restrict__ y, int logn, int logA, const uint64_t* __restrict__ tw,
          const uint64_t* __restrict__ tws, uint64_t q, uint64_t one_s, int bit,
          uint64_t mu, int xnp) {
-  __shared__ uint64_t s[kTile];
+  __shared__ uint64_t s[1 << kLw];
   const int logB = logn - logA;
-  const int rows = kTile >> logB;
+  const int rows = (1 << kLw) >> logB;
   const int per_ring = (1 << logA) / rows;
   const int a0 = (blockIdx.x % per_ring) * rows;
   const size_t off = ((size_t)(blockIdx.x / per_ring) << logn) + ((size_t)a0 << logB);
-  for (int e = threadIdx.x; e < kTile; e += kThreads)
+  for (int e = threadIdx.x; e < (1 << kLw); e += kThreads)
     s[e] = kMul ? barrett_mul(a[off + e], b[off + e], q, bit, mu)
                 : reduce_any(a[off + e], q, one_s);
   __syncthreads();
   gs_rows(s, rows, a0, logA, logB, tw, tws, q, xnp);
-  for (int e = threadIdx.x; e < kTile; e += kThreads) y[off + e] = s[e];
+  for (int e = threadIdx.x; e < (1 << kLw); e += kThreads) y[off + e] = s[e];
 }
 
 // Inverse phase 2: columns, then n^-1, in place on y.
@@ -212,27 +175,33 @@ inv_cols(uint64_t* __restrict__ y, int logn, int logA, const uint64_t* __restric
   for (int e = threadIdx.x; e < words; e += kThreads)
     s[e] = y[off + ((size_t)(e >> kLogCols) << logB) + (e & (kCols - 1))];
   __syncthreads();
-  gs_cols(s, logA, tw, tws, q, xnp);
+  gs_cols<kThreads>(s, logA, kLogCols, tw, tws, q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads)
     y[off + ((size_t)(e >> kLogCols) << logB) + (e & (kCols - 1))] =
         shoup_mul(s[e], n_inv, n_inv_s, q);
 }
 
+// log2 of the words a row block holds: kTile, or the whole 2^11 ring.
+int row_tile_log(int logn) { return logn < kLogTile ? logn : kLogTile; }
+
 // Shapes the tiles cover: a column tile of A x 16 words and whole rows
-// within kTile words, with at least one block of rows per ring.
+// within kTile words, at least one block of rows per ring (the whole
+// ring at logn 11, the smallest).
 bool shape_ok(long long batch, int logn, int logA) {
   const int logB = logn - logA;
   return batch > 0 && logA >= 1 && logB >= kLogCols && (kCols << logA) <= kTile &&
-         logn >= 12 && (1 << logB) <= kTile &&
+         logn >= 11 && (1 << logB) <= kTile &&
          batch * ((long long)1 << (logB - kLogCols)) < (1LL << 31) &&
-         batch * ((long long)1 << (logn - 12)) < (1LL << 31);
+         batch * ((long long)1 << (logn - row_tile_log(logn))) < (1LL << 31);
 }
 
 int grid_cols(long long batch, int logn, int logA) {
   return (int)(batch << (logn - logA - kLogCols));
 }
 
-int grid_rows(long long batch, int logn) { return (int)(batch << (logn - 12)); }
+int grid_rows(long long batch, int logn) {
+  return (int)(batch << (logn - row_tile_log(logn)));
+}
 
 int launch_status() {
   const cudaError_t e = cudaGetLastError();
@@ -259,7 +228,8 @@ int merge_u64_forward(int device, const uint64_t* x, uint64_t* y, long long batc
   fwd_cols<<<grid_cols(batch, logn, logA), kThreads, 0, st>>>(x, y, logn, logA, tw, tws,
                                                                q, one_s, xnp);
   if (int rc = launch_status()) return rc;
-  fwd_rows<<<grid_rows(batch, logn), kThreads, 0, st>>>(y, logn, logA, tw, tws, q, xnp);
+  auto rows = logn < kLogTile ? fwd_rows<11> : fwd_rows<kLogTile>;
+  rows<<<grid_rows(batch, logn), kThreads, 0, st>>>(y, logn, logA, tw, tws, q, xnp);
   return launch_status();
 }
 
@@ -271,8 +241,9 @@ int merge_u64_inverse(int device, const uint64_t* x, uint64_t* y, long long batc
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  inv_rows<false><<<grid_rows(batch, logn), kThreads, 0, st>>>(
-      x, nullptr, y, logn, logA, tw, tws, q, one_s, 0, 0, xnp);
+  auto rows = logn < kLogTile ? inv_rows<false, 11> : inv_rows<false, kLogTile>;
+  rows<<<grid_rows(batch, logn), kThreads, 0, st>>>(x, nullptr, y, logn, logA, tw, tws, q,
+                                                    one_s, 0, 0, xnp);
   if (int rc = launch_status()) return rc;
   inv_cols<<<grid_cols(batch, logn, logA), kThreads, 0, st>>>(y, logn, logA, tw, tws, q,
                                                               n_inv, n_inv_s, xnp);
@@ -288,8 +259,9 @@ int merge_u64_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  inv_rows<true><<<grid_rows(batch, logn), kThreads, 0, st>>>(
-      fa, fb, y, logn, logA, tw, tws, q, 0, bit, mu, xnp);
+  auto rows = logn < kLogTile ? inv_rows<true, 11> : inv_rows<true, kLogTile>;
+  rows<<<grid_rows(batch, logn), kThreads, 0, st>>>(fa, fb, y, logn, logA, tw, tws, q, 0,
+                                                    bit, mu, xnp);
   if (int rc = launch_status()) return rc;
   inv_cols<<<grid_cols(batch, logn, logA), kThreads, 0, st>>>(y, logn, logA, tw, tws, q,
                                                               n_inv, n_inv_s, xnp);

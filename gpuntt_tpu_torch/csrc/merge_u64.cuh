@@ -1,8 +1,11 @@
-// Exact u64 modular arithmetic for the merge NTT kernels (device side).
+// Exact u64 modular arithmetic for the merge NTT kernels (device side),
+// and the column stage loops that merge_u64.cu and merge_u64_large.cu
+// share.
 //
-// Each function computes what its namesake in ops/barrett.py computes,
-// on the operands the kernels give it.  Moduli satisfy q < 2^62, the
-// reference's documented Barrett domain (modular_arith.cuh:66-67).
+// Each arithmetic function computes what its namesake in ops/barrett.py
+// computes, on the operands the kernels give it.  Moduli satisfy
+// q < 2^62, the reference's documented Barrett domain
+// (modular_arith.cuh:66-67).
 
 #pragma once
 
@@ -48,6 +51,52 @@ __device__ __forceinline__ uint64_t barrett_mul(uint64_t a, uint64_t b, uint64_t
   const uint64_t w2 = (uint64_t)(((unsigned __int128)w * mu) >> (bit + 3));
   const uint64_t r = (uint64_t)z - w2 * q;
   return r >= q ? r - q : r;
+}
+
+// Cooley-Tukey stages 0 .. logA-1 of an A-point merge network down the
+// C = 2^logC columns of an (A, C) tile in shared memory, kT threads
+// striding over the butterflies; stage l, group i reads table entry
+// (X^N + 1 ? 2^l : 0) + i.  Inlined, so that a constant logC folds.
+template <int kT>
+__device__ __forceinline__ void ct_cols(uint64_t* s, int logA, int logC, const uint64_t* __restrict__ tw,
+                        const uint64_t* __restrict__ tws, uint64_t q, int xnp) {
+  const int work = 1 << (logA - 1 + logC);
+  for (int l = 0; l < logA; ++l) {
+    const int logt = logA - 1 - l;
+    for (int k = threadIdx.x; k < work; k += kT) {
+      const int c = k & ((1 << logC) - 1), bf = k >> logC;
+      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
+      const int p0 = (((i << (logt + 1)) + r) << logC) + c;
+      const int p1 = p0 + (1 << (logt + logC));
+      const int idx = xnp ? (1 << l) + i : i;
+      const uint64_t u = s[p0];
+      const uint64_t v = shoup_mul(s[p1], tw[idx], tws[idx], q);
+      s[p0] = add_mod(u, v, q);
+      s[p1] = sub_mod(u, v, q);
+    }
+    __syncthreads();
+  }
+}
+
+// Gentleman-Sande stages logA-1 .. 0 down the columns, no scaling.
+template <int kT>
+__device__ __forceinline__ void gs_cols(uint64_t* s, int logA, int logC, const uint64_t* __restrict__ tw,
+                        const uint64_t* __restrict__ tws, uint64_t q, int xnp) {
+  const int work = 1 << (logA - 1 + logC);
+  for (int l = logA - 1; l >= 0; --l) {
+    const int logt = logA - 1 - l;
+    for (int k = threadIdx.x; k < work; k += kT) {
+      const int c = k & ((1 << logC) - 1), bf = k >> logC;
+      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
+      const int p0 = (((i << (logt + 1)) + r) << logC) + c;
+      const int p1 = p0 + (1 << (logt + logC));
+      const int idx = xnp ? (1 << l) + i : i;
+      const uint64_t u = s[p0], v = s[p1];
+      s[p0] = add_mod(u, v, q);
+      s[p1] = shoup_mul(sub_mod(u, v, q), tw[idx], tws[idx], q);
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace merge_u64

@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels at first use.
 
-Each source in csrc/ (merge_u64.cu, merge_u32.cu) is compiled by its own
-nvcc call into a shared library with a plain C interface and loaded with
-ctypes: `library(name)` builds and loads one, `build_all()` starts every
-missing build at once and waits for them together.  Builds land in the
-gitignored csrc/build/ directory under names that carry a hash of each
-library's sources and the flags, so an edited source never loads a stale
-build; concurrent first uses each build to a private temporary name and
-rename it into place.  Importing this module needs no nvcc: only the
-first launch on a CUDA tensor builds.
+Each source in csrc/ (merge_u64.cu, merge_u64_large.cu, merge_u32.cu) is
+compiled by its own nvcc call into a shared library with a plain C
+interface and loaded with ctypes: `library(name)` builds and loads one,
+`build_all()` starts every missing build at once and waits for them
+together.  Builds land in the gitignored csrc/build/ directory under
+names that carry a hash of the library's source, every header in csrc/
+(a source may include another's) and the flags, so an edited source
+never loads a stale build; concurrent first uses each build to a
+private temporary name and rename it into place.  Importing this module
+needs no nvcc: only the first launch on a CUDA tensor builds.
 """
 
 from __future__ import annotations
@@ -41,6 +42,14 @@ _ENTRIES = {
         "merge_u64_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _p, _u64,
                                       _i32, _u64, _u64, _u64, _i32, _p],
     },
+    "merge_u64_large": {
+        "merge_u64_large_colfwd": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,
+                                   _i32, _u64, _u64, _i32, _p],
+        "merge_u64_large_colinv": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,
+                                   _i32, _u64, _u64, _u64, _u64, _i32, _p],
+        "merge_u64_large_rowmat": [_i32, _p, _p, _i64, _i32, _p, _p, _u64, _u64, _u64,
+                                   _u64, _i32, _i32, _p],
+    },
     "merge_u32": {
         "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _i32,
                               _p],
@@ -65,8 +74,9 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for ext in (".cu", ".cuh"):
-        with open(os.path.join(_CSRC, name + ext), "rb") as f:
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in (name + ".cu", *headers):
+        with open(os.path.join(_CSRC, path), "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 

@@ -26,6 +26,14 @@ one first):
 - u64, q < 2^62, logn 12-17 -> the hand-written kernels of
   hopper_merge.py ("hopper-merge"), both directions and the fused
   polymul;
+- u64, q < 2^62, logn 18-28 -> the big-ring composition of
+  hopper_merge_large.py ("hopper-merge-large"): K7's counterpart on the
+  columns, and on the rows K8's (B <= 512), hopper_merge.py's (2^11..2^17)
+  or a nested plan; the polymul fuses its product into K3's row inverse
+  at logn 18-25, as the JAX route does, and runs it unfused at 26-28.
+  The u64 logn-17 inverse stays on hopper_merge.py: the JAX package
+  sends it to its large-ring route only for a v5e VMEM limit
+  (gpuntt_tpu/ops/dispatch.py:66-70) that the card does not have;
 - u32, q < 2^30, logn 8-25 -> those of hopper_merge32.py
   ("hopper-merge32"), both directions; the u32 polymul is the forward
   kernel twice, the plain Barrett product, then the inverse kernel, as
@@ -33,6 +41,9 @@ one first):
 - everything else -> the torch butterfly engine ("engine").
 
 The wrappers run their plain versions for CPU tensors.
+
+`staged_ntt_lanes` / `staged_polymul_lanes` keep the JAX package's
+big-ring entries (logn 24-28): thin calls into the same route.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
 from . import hopper_merge as hm
 from . import hopper_merge32 as hm32
+from . import hopper_merge_large as hml
 from .merge_ntt import MergePlan, from_lanes, merge_intt_lanes, merge_ntt_lanes, to_lanes
 
 
@@ -62,12 +74,15 @@ class NTTConfig:
 
 
 def _kernel_path(plan: MergePlan, x_shape, layout: NTTLayout) -> str:
-    """"hopper-merge", "hopper-merge32" or "engine" for a transform (same
-    in both directions; the JAX package's TPU thresholds do not apply)."""
+    """"hopper-merge", "hopper-merge-large", "hopper-merge32" or "engine"
+    for a transform (same in both directions; the JAX package's TPU
+    thresholds do not apply)."""
     if layout != NTTLayout.PerPolynomial or len(x_shape) != 2 or not plan.genuine_root:
         return "engine"
     if hm.covers(plan):
         return "hopper-merge"
+    if hml.covers(plan):
+        return "hopper-merge-large"
     if hm32.covers(plan):
         return "hopper-merge32"
     return "engine"
@@ -76,6 +91,7 @@ def _kernel_path(plan: MergePlan, x_shape, layout: NTTLayout) -> str:
 # path -> (forward, inverse) on a contiguous (batch, N) lane tensor
 _TRANSFORMS = {
     "hopper-merge": (hm.merge_u64_fwd, hm.merge_u64_inv),
+    "hopper-merge-large": (hml.merge_u64_large_fwd, hml.merge_u64_large_inv),
     "hopper-merge32": (hm32.merge_u32_fwd, hm32.merge_u32_inv),
     "engine": (merge_ntt_lanes, merge_intt_lanes),
 }
@@ -139,17 +155,58 @@ def pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan):
 
 def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)): cyclic for X_N_minus, negacyclic for
-    X_N_plus.  On the u64 kernel route the pointwise product is fused
-    into the inverse kernel; on the u32 one it runs between the forward
-    and inverse kernels.  Outputs are bit-identical on every route."""
+    X_N_plus.  On the u64 kernel routes the pointwise product is fused
+    into the inverse kernel (K3; for big rings where its rows run on K3,
+    logn 18-25); elsewhere it runs between the forward and inverse
+    transforms.  Outputs are bit-identical on every route."""
     plan = plan.to(a.device)
     fa = _as_batch(ntt_lanes(a, plan))
     fb = _as_batch(ntt_lanes(b, plan))
-    if _kernel_path(plan, fa.shape, NTTLayout.PerPolynomial) == "hopper-merge":
+    path = _kernel_path(plan, fa.shape, NTTLayout.PerPolynomial)
+    if path == "hopper-merge":
         out = hm.merge_u64_polymul_inv(fa, fb, plan)
+    elif path == "hopper-merge-large" and (lp := hml.large_plan(plan)).fuses_product:
+        out = hml.merge_u64_large_polymul_inv(fa, fb, lp)
     else:
         out = intt_lanes(pointwise_mult_lanes(fa, fb, plan), plan)
     return out.reshape(a.shape)
+
+
+# ---------------------------------------------- big-ring entries (24-28)
+
+
+def staged_ntt_lanes(x_lanes: torch.Tensor, plan: MergePlan,
+                     layout: NTTLayout = NTTLayout.PerPolynomial, inverse: bool = False,
+                     signed_input: bool = False, signed_output: bool = False):
+    """The JAX package's eager big-ring entry (gpuntt_tpu/ops/dispatch.py:
+    295-370): the transform of a 2-D lane tensor at logn 24-28 on the
+    kernel route, or None where that entry returns None — a tensor off
+    the card (the JAX entry asks for a TPU backend), another logn, a
+    shape that is not 2-D, u32 with q >= 2^30 or logn > 25, u64 with
+    q >= 2^62, factors that are no root of unity."""
+    if (not x_lanes.is_cuda or not 24 <= plan.logn <= 28 or x_lanes.dim() != 2
+            or not plan.genuine_root):
+        return None
+    if plan.q >= (1 << (62 if plan.is64 else 30)) or (not plan.is64 and plan.logn > 25):
+        return None
+    if signed_input:
+        x_lanes = (bo.reduce_signed64(x_lanes, plan.q) if plan.is64
+                   else bo.reduce_signed32(x_lanes, plan.q))
+    y = (intt_lanes if inverse else ntt_lanes)(x_lanes, plan, layout=layout)
+    if signed_output:
+        return bo.centered64(y, plan.q) if plan.is64 else bo.centered32(y, plan.q)
+    return y
+
+
+def staged_polymul_lanes(a_lanes: torch.Tensor, b_lanes: torch.Tensor, plan: MergePlan):
+    """The JAX package's eager big-ring polymul (gpuntt_tpu/ops/dispatch.py:
+    383-408): polymul_lanes at u64 logn 24-28 on the card, or None where
+    that entry returns None (off the card, u32, q >= 2^62, another logn,
+    a shape that is not 2-D, factors that are no root of unity)."""
+    if (not a_lanes.is_cuda or not plan.is64 or plan.q >= (1 << 62)
+            or not 24 <= plan.logn <= 28 or a_lanes.dim() != 2 or not plan.genuine_root):
+        return None
+    return polymul_lanes(a_lanes, b_lanes, plan)
 
 
 # ------------------------------------------------------ numpy convenience

@@ -19,6 +19,11 @@ the same stage, in the engine's torch ops, so a mismatch can be traced
 to a phase; they run on any device, which is how the kernels are
 checked on the card.
 
+The kernels take logn 11-17.  Dispatch routes rings of 2^12..2^17 to
+them (`covers`, as the JAX package's "mxu" route starts at 2^12); logn
+11 serves the rows of a 2^18 ring, which hopper_merge_large.py splits
+128 x 2^11 as the JAX package does.
+
 Every launch adds one to its kernel's `launches`, every plain-version
 call through a wrapper one to `plain_calls`; `reset_counts()` zeroes
 both.
@@ -70,8 +75,14 @@ def split(logn: int) -> int:
 
 
 def covers(plan: MergePlan) -> bool:
-    """Plans whose transforms the kernels take: u64, q < 2^62, logn 12-17."""
+    """Plans whose transforms dispatch sends here: u64, q < 2^62, logn 12-17."""
     return plan.is64 and plan.q < (1 << 62) and 12 <= plan.logn <= 17
+
+
+def takes(plan: MergePlan) -> bool:
+    """Plans the kernels take: those `covers`, and the logn-11 rows of a
+    2^18 ring."""
+    return plan.is64 and plan.q < (1 << 62) and 11 <= plan.logn <= 17
 
 
 # ------------------------------------------------------------ plain versions
@@ -121,9 +132,9 @@ def merge_u64_polymul_inv_plain(fa, fb, plan: MergePlan):
 
 
 def _check(plan: MergePlan, *xs: torch.Tensor) -> None:
-    if not covers(plan):
+    if not takes(plan):
         raise NTTDispatchError(
-            f"merge_u64 kernels take u64 plans with q < 2^62 and logn 12-17, "
+            f"merge_u64 kernels take u64 plans with q < 2^62 and logn 11-17, "
             f"got q={plan.q} logn={plan.logn} is64={plan.is64}")
     for x in xs:
         if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != plan.n

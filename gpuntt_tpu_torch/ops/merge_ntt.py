@@ -4,7 +4,7 @@ The port of the JAX package's XLA engine (ops/merge_ntt.py): logn
 butterfly stages over a (..., m, 2, t) reshape of the coefficient axis,
 with each stage's twiddles a slice of the bit-reversed table.  It runs
 on any device and serves every shape no kernel covers (u64 logn
-outside 12-17, u32 logn outside 8-25, caller factors that are not
+outside 12-28, u32 logn outside 8-25, caller factors that are not
 roots of unity, u64 q >= 2^62, u32 q >= 2^30), as `merge_ntt_lanes`
 does in the JAX package.  Every stage
 keeps canonical residues, so the values between stages are those of
@@ -26,7 +26,7 @@ import torch
 
 from ..arith.modulus import Modulus
 from ..params.bitrev import bitrev_permute
-from ..params.merge import NTTParameters, ReductionPolynomial
+from ..params.merge import NTTParameters, ReductionPolynomial, _power_table
 from . import barrett as bo
 from .limb import from_numpy_u64, signed, to_numpy_u64
 
@@ -40,10 +40,21 @@ class ButterflyOps(NamedTuple):
 @dataclass(frozen=True, eq=False)
 class MergePlan:
     """Transform plan: bit-reversed twiddle tables with their Shoup
-    companions, as int64 tensors on one device, plus the modulus
+    companions, as int64 tensors on `device`, plus the modulus
     constants.  `root`/`iroot` are the root pair the tables were built
     from; dispatch routes to the kernels only when they are a genuine
-    root of unity and its inverse (`genuine_root`)."""
+    root of unity and its inverse (`genuine_root`).
+
+    A u64 plan that the big-ring kernels take in both directions
+    (`bigring`: q < 2^62, a genuine root, logn 18-28) skips its N-entry
+    tables, as the JAX package's does (gpuntt_tpu/ops/merge_ntt.py:
+    140-190): the kernels' plan (hopper_merge_large.LargePlan) is
+    exponent algebra over the root, and four 2^28-entry tables are 8 GiB.
+    The four table fields are then None; `with_tables()` builds them for
+    the engine, which calls it.  The JAX package refuses that rebuild
+    inside a trace, where the tables would become compiled constants;
+    eager torch has no trace, so the rebuild is always allowed and costs
+    only the memory and the seconds."""
 
     logn: int
     q: int
@@ -55,19 +66,18 @@ class MergePlan:
     is64: bool
     root: int
     iroot: int
-    fwd_table: torch.Tensor  # bit-reversed order
-    fwd_shoup: torch.Tensor
-    inv_table: torch.Tensor
-    inv_shoup: torch.Tensor
+    fwd_table: torch.Tensor | None  # bit-reversed order; None when skipped
+    fwd_shoup: torch.Tensor | None
+    inv_table: torch.Tensor | None
+    inv_shoup: torch.Tensor | None
+    device: torch.device
     _moved: dict = dataclasses.field(default_factory=dict, repr=False)
+    # lazily built: "tables" (with_tables), "large" (the big-ring plan)
+    _lazy: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n(self) -> int:
         return 1 << self.logn
-
-    @property
-    def device(self) -> torch.device:
-        return self.fwd_table.device
 
     @property
     def xnp(self) -> bool:
@@ -82,14 +92,24 @@ class MergePlan:
         return (pow(self.root, order, self.q) == 1
                 and self.root * self.iroot % self.q == 1)
 
+    @property
+    def bigring(self) -> bool:
+        """Every transform of this plan takes the big-ring kernels (the
+        route "hopper-merge-large"), so it needs no N-entry table."""
+        return (self.is64 and self.q < (1 << 62) and 18 <= self.logn <= 28
+                and self.genuine_root)
+
     @staticmethod
-    def from_params(p: NTTParameters, device=None) -> "MergePlan":
-        return MergePlan.from_arrays(
+    def from_params(p: NTTParameters, device=None,
+                    tables: bool | str = "auto") -> "MergePlan":
+        """The plan of `p`.  tables="auto" skips the N-entry tables of a
+        `bigring` plan, True builds them always, False never."""
+        plan = MergePlan.from_arrays(
             p.modulus.value, p.logn, p.poly_reduction, p.root_of_unity,
-            p.inverse_root_of_unity, p.n_inv,
-            bitrev_permute(p.forward_root_of_unity_table),
-            bitrev_permute(p.inverse_root_of_unity_table),
-            device=device, dtype=p.dtype)
+            p.inverse_root_of_unity, p.n_inv, None, None, device=device, dtype=p.dtype)
+        if tables is True or (tables == "auto" and not plan.bigring):
+            return plan.with_tables()
+        return plan
 
     @staticmethod
     def from_arrays(q: int, logn: int, poly: ReductionPolynomial, root: int,
@@ -98,11 +118,12 @@ class MergePlan:
         """Plan from plain numbers and numpy tables — the converter that
         carries a plan across from the JAX package.  The tables are in
         the engines' bit-reversed order, as the JAX MergePlan holds them
-        (`u64_to_numpy(plan.fwd_table)` for u64); `root`/`iroot` and
-        `n_inv` as in NTTParameters; `poly` a ReductionPolynomial of
-        either package, or its value.  The Shoup companions are derived
-        here.  `device` defaults to the first CUDA card; without one that
-        raises NTTDeviceError, and the CPU is used only when asked for
+        (`u64_to_numpy(plan.fwd_table)` for u64), or both None for a plan
+        without them (see the class note); `root`/`iroot` and `n_inv` as
+        in NTTParameters; `poly` a ReductionPolynomial of either package,
+        or its value.  The Shoup companions are derived here.  `device`
+        defaults to the first CUDA card; without one that raises
+        NTTDeviceError, and the CPU is used only when asked for
         (device="cpu")."""
         from ..common.device import default_device
 
@@ -110,35 +131,62 @@ class MergePlan:
         device = torch.device(device) if device is not None else default_device()
         is64 = np.dtype(dtype) == np.uint64
         word = 64 if is64 else 32
-        fwd = np.asarray(fwd_table, dtype=np.uint64)
-        inv = np.asarray(inv_table, dtype=np.uint64)
-        if len(fwd) != len(inv) or len(fwd) not in (1 << logn, 1 << max(logn - 1, 0)):
-            raise ValueError(f"tables of length {len(fwd)}/{len(inv)} do not "
-                             f"fit logn={logn}")
-
-        def dev(table):
-            return from_numpy_u64(np.asarray(table, dtype=np.uint64), device)
-
         m = Modulus(int(q), bits=word)
-        return MergePlan(
+        plan = MergePlan(
             logn=int(logn), q=m.value, bit=m.bit, mu=m.mu, n_inv=int(n_inv),
             n_inv_shoup=(int(n_inv) << word) // m.value,
             reduction_poly=poly, is64=is64, root=int(root), iroot=int(iroot),
-            fwd_table=dev(fwd), fwd_shoup=dev(bo.shoup_companion(fwd, m.value, word)),
-            inv_table=dev(inv), inv_shoup=dev(bo.shoup_companion(inv, m.value, word)))
+            fwd_table=None, fwd_shoup=None, inv_table=None, inv_shoup=None,
+            device=device)
+        if fwd_table is None and inv_table is None:
+            return plan
+        return plan._with(np.asarray(fwd_table, dtype=np.uint64),
+                          np.asarray(inv_table, dtype=np.uint64))
+
+    def _with(self, fwd: np.ndarray, inv: np.ndarray) -> "MergePlan":
+        """This plan holding the bit-reversed tables `fwd`, `inv`."""
+        if len(fwd) != len(inv) or len(fwd) not in (self.n, 1 << max(self.logn - 1, 0)):
+            raise ValueError(f"tables of length {len(fwd)}/{len(inv)} do not "
+                             f"fit logn={self.logn}")
+        word = 64 if self.is64 else 32
+
+        def dev(table):
+            return from_numpy_u64(np.asarray(table, dtype=np.uint64), self.device)
+
+        return dataclasses.replace(
+            self, _moved={}, _lazy={},
+            fwd_table=dev(fwd), fwd_shoup=dev(bo.shoup_companion(fwd, self.q, word)),
+            inv_table=dev(inv), inv_shoup=dev(bo.shoup_companion(inv, self.q, word)))
+
+    def with_tables(self) -> "MergePlan":
+        """This plan with its N-entry tables, built from the root pair on
+        first call and cached (the engine's; see the class note)."""
+        if self.fwd_table is not None:
+            return self
+        if "tables" not in self._lazy:
+            size = self.n if self.xnp else self.n >> 1
+            self._lazy["tables"] = self._with(
+                bitrev_permute(np.asarray(_power_table(self.root, self.q, size),
+                                          dtype=np.uint64)),
+                bitrev_permute(np.asarray(_power_table(self.iroot, self.q, size),
+                                          dtype=np.uint64)))
+        return self._lazy["tables"]
 
     def to(self, device) -> "MergePlan":
-        """This plan with its tables on `device` (copies are cached)."""
+        """This plan with its tables on `device` (copies are cached).  A
+        plan without tables moves its big-ring plan, if it has one."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device == self.device:
             return self
         if device not in self._moved:
+            tables = {f: (getattr(self, f) if getattr(self, f) is None
+                          else getattr(self, f).to(device))
+                      for f in ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")}
+            lazy = {"large": self._lazy["large"].to(device)} if "large" in self._lazy else {}
             self._moved[device] = dataclasses.replace(
-                self, _moved={},
-                **{f: getattr(self, f).to(device) for f in
-                   ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")})
+                self, _moved={}, _lazy=lazy, device=device, **tables)
         return self._moved[device]
 
     def ops(self) -> ButterflyOps:
@@ -198,6 +246,7 @@ def gs_stages(x, table, shoup, ops: ButterflyOps, log_size: int, xnp: bool,
 
 def merge_ntt_lanes(x, plan: MergePlan):
     """Forward merged NTT along the last axis (ntt.cu:2076-2256)."""
+    plan = plan.with_tables()
     return ct_stages(x, plan.fwd_table, plan.fwd_shoup, plan.ops(), plan.logn,
                      plan.xnp)
 
@@ -207,6 +256,7 @@ def merge_intt_lanes(x, plan: MergePlan, scale: bool = True):
 
     n^-1 scaling happens once at the end, matching the reference's
     last-kernel placement (ntt.cu:1170-1192)."""
+    plan = plan.with_tables()
     ops = plan.ops()
     x = gs_stages(x, plan.inv_table, plan.inv_shoup, ops, plan.logn, plan.xnp)
     if scale:

@@ -2,9 +2,10 @@
 
     python -m gpuntt_tpu_torch.utils.launch_profile [iters]
 
-Needs a CUDA card (exits 1 without one).  For each cell — u64 2^16 x 128
-(the 61-bit pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool
-prime 469762049), all X^N + 1 — it runs `iters` (default 20) calls of
+Needs a CUDA card (exits 1 without one).  For each cell — u64 2^16 x 128,
+and the big rings u64 2^20 x 16 and 2^24 x 1 (the 61-bit pool prime),
+u32 2^16 x 128 and u32 2^20 x 16 (the pool prime 469762049), all
+X^N + 1 — it runs `iters` (default 20) calls of
 ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
 two CUDA events, and prints for each entry:
 
@@ -83,8 +84,8 @@ def main(iters: int = 20) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    for dtype, logn, batch in ((np.uint64, 16, 128), (np.uint32, 16, 128),
-                               (np.uint32, 20, 16)):
+    for dtype, logn, batch in ((np.uint64, 16, 128), (np.uint64, 20, 16), (np.uint64, 24, 1),
+                               (np.uint32, 16, 128), (np.uint32, 20, 16)):
         p = g.NTTParameters(logn, g.ReductionPolynomial.X_N_plus, dtype)
         plan = g.MergePlan.from_params(p, device=dev)
         a, b = (torch.from_numpy(rng.integers(0, p.modulus.value, size=(batch, p.n),

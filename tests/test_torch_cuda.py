@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card (marker `cuda`; skipped without one).
 
 Each kernel against its plain PyTorch version on the same card, at
-every logn the kernels take (u64 12-17, u32 8-25) and both reduction
-polynomials, on any input word; wide and narrow moduli against the
-golden NTTCPU; the u32 route's launch counters; the wrappers'
-refusals; CUDA-event timing.  Exact equality throughout.
+every logn the kernels take (u64 11-17, the u64 big rings 18-28, u32
+8-25) and both reduction polynomials, on any input word; wide and
+narrow moduli against the golden NTTCPU, and the big rings against the
+native oracle at 2^24; the launch counters of the u32 and big-ring
+routes; the wrappers' refusals; CUDA-event timing.  Exact equality
+throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
 only the port is installed:
@@ -19,6 +21,9 @@ import torch
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+from gpuntt_tpu_torch.ops import barrett as bo
+from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
 from gpuntt_tpu_torch.utils.timing import time_cuda
 
@@ -35,7 +40,7 @@ def card():
 
 
 @pytest.mark.parametrize("poly", POLYS)
-@pytest.mark.parametrize("logn", [12, 13, 14, 15, 16, 17])
+@pytest.mark.parametrize("logn", [11, 12, 13, 14, 15, 16, 17])
 def test_kernels_match_plain_on_card(card, logn, poly):
     p = tg.NTTParameters(logn, poly, np.uint64)
     plan = tg.MergePlan.from_params(p, device=card)
@@ -73,6 +78,110 @@ def test_wide_and_narrow_moduli_on_card(card, bits, poly):
         np.testing.assert_array_equal(tg.intt(x, plan), gen.intt(x))
         np.testing.assert_array_equal(tg.polymul(x, y, plan),
                                       gen.intt(gen.mult(gen.ntt(x), gen.ntt(y))))
+
+
+def _large_counts():
+    return {k.name: (k.launches, k.plain_calls) for k in (*hm.KERNELS, *hml.KERNELS)
+            if k.launches or k.plain_calls}
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn,batch", [(n, 1) for n in range(18, 29)] + [(20, 16)])
+def test_large_kernels_match_plain_on_card(card, logn, batch, poly):
+    """Every big ring at batch 1, and 2^20 x 16: K7 forward and inverse,
+    and the whole transforms, which launch K8 (logn 27) or K1/K2 on the
+    rows, against their plain versions on any u64 word; the round trip."""
+    p = tg.NTTParameters(logn, poly, np.uint64)
+    plan = tg.MergePlan.from_params(p, device=card)
+    assert plan.fwd_table is None  # no N-entry table on this route
+    lp = hml.large_plan(plan)
+    x = from_numpy_u64(np.random.default_rng(logn).integers(
+        0, 1 << 64, size=(batch, p.n), dtype=np.uint64, endpoint=False), card)
+    hm.reset_counts()
+    hml.reset_counts()
+    cf, ci = hml.merge_u64_large_colfwd(x, lp), hml.merge_u64_large_colinv(x, lp)
+    torch.cuda.synchronize()
+    assert _large_counts() == {hml.COLFWD.name: (1, 0), hml.COLINV.name: (1, 0)}
+    assert torch.equal(cf, hml.colfwd_plain(x, lp))
+    assert torch.equal(ci, hml.colinv_plain(x, lp))
+    del cf, ci
+    hml.reset_counts()
+    fx = tg.ntt_lanes(x, plan)
+    torch.cuda.synchronize()
+    leaf = lp.nested or lp
+    rows = hml.ROWMAT if leaf.row_kernel == "K8" else hm.FORWARD
+    assert _large_counts() == {hml.COLFWD.name: (2 if lp.nested else 1, 0),
+                               rows.name: (1, 0)}
+    assert torch.equal(fx, hml.merge_u64_large_plain(x, lp))
+    ix = tg.intt_lanes(fx, plan)
+    assert torch.equal(ix, hml.merge_u64_large_plain(fx, lp, inverse=True))
+    assert torch.equal(ix, bo.reduce_forced64(x, p.modulus.value))
+
+
+@pytest.mark.parametrize("poly", POLYS)
+def test_large_route_against_native_on_card(card, poly):
+    """2^24 x 2 against the native oracle: ntt, intt and polymul (fused
+    into K3's row inverse at this size)."""
+    p = tg.NTTParameters(24, poly, np.uint64)
+    plan = tg.MergePlan.from_params(p, device=card)
+    gen = tg.NTTCPU(p)
+    rng = np.random.default_rng(24)
+    x = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
+    y = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
+    hm.reset_counts()
+    np.testing.assert_array_equal(tg.ntt(x, plan), gen.ntt(x))
+    np.testing.assert_array_equal(tg.intt(x, plan), gen.intt(x))
+    np.testing.assert_array_equal(tg.polymul(x, y, plan),
+                                  gen.intt(gen.mult(gen.ntt(x), gen.ntt(y))))
+    assert [k.launches for k in hm.KERNELS] == [3, 1, 1]
+
+
+def test_staged_entries_on_card(card):
+    """The JAX package's big-ring entries: the route's outputs at logn 24
+    (u64 and u32, signed input and output), None below 24."""
+    p = tg.NTTParameters(24, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = tg.MergePlan.from_params(p, device=card)
+    x = from_numpy_u64(np.random.default_rng(3).integers(
+        0, p.modulus.value, size=(1, p.n), dtype=np.uint64), card)
+    fx = tg.ntt_lanes(x, plan)
+    assert torch.equal(td.staged_ntt_lanes(x, plan), fx)
+    assert torch.equal(td.staged_ntt_lanes(fx, plan, inverse=True, signed_output=True),
+                       bo.centered64(x, p.modulus.value))
+    assert torch.equal(td.staged_ntt_lanes(bo.centered64(x, p.modulus.value), plan,
+                                           signed_input=True), fx)
+    assert torch.equal(td.staged_polymul_lanes(x, x, plan), tg.polymul_lanes(x, x, plan))
+    p32, plan32 = _u32_plan(24, tg.ReductionPolynomial.X_N_plus, card)
+    x32 = torch.from_numpy(np.random.default_rng(4).integers(
+        0, p32.modulus.value, size=(1, p32.n), dtype=np.int64)).to(card)
+    assert torch.equal(td.staged_ntt_lanes(x32, plan32), tg.ntt_lanes(x32, plan32))
+    assert td.staged_polymul_lanes(x32, x32, plan32) is None  # u64 only, as in JAX
+    p20 = tg.NTTParameters(20, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    plan20 = tg.MergePlan.from_params(p20, device=card)
+    assert td.staged_ntt_lanes(x[:, :p20.n].contiguous(), plan20) is None
+
+
+@pytest.mark.parametrize("logn", [18, 26])
+def test_polynomial_multiplier_reaches_large_route_on_card(card, logn):
+    """PolynomialMultiplier at a big ring: the fused product at logn 18,
+    the unfused one at 26, both equal to the plain pipeline."""
+    p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    model = tg.PolynomialMultiplier(p, device=card)
+    assert {n for n, _ in model.named_buffers()} == {"anchor"}
+    rng = np.random.default_rng(logn)
+    a, b = (from_numpy_u64(rng.integers(0, p.modulus.value, size=(1, p.n),
+                                        dtype=np.uint64), card) for _ in range(2))
+    hm.reset_counts()
+    hml.reset_counts()
+    out = model(a, b)
+    torch.cuda.synchronize()
+    lp = hml.large_plan(model.plan)
+    fused = logn <= 25
+    assert hm.POLYMUL_INVERSE.launches == int(fused)
+    assert hm.INVERSE.launches == int(not fused)
+    assert hml.COLFWD.launches == 2 and hml.COLINV.launches == 1
+    fa, fb = (hml.merge_u64_large_plain(v, lp) for v in (a, b))
+    prod = bo.barrett_mul64(fa, fb, lp.q, model.plan.bit, model.plan.mu)
+    assert torch.equal(out, hml.merge_u64_large_plain(prod, lp, inverse=True))
 
 
 def _u32_plan(logn, poly, card, bits=None):

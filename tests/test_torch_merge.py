@@ -8,13 +8,14 @@
   engine's merge_ntt_lanes / merge_intt_lanes, and what polymul_lanes
   computes off the TPU, at logn 12-14 (polymul_lanes itself is called
   in test_torch_slice.py).
-- The CUDA sources themselves, merge_u64.cu and merge_u32.cu, compiled
-  by g++ through a host emulation of the few CUDA constructs they use
-  (one thread per block, blocks in order, dynamic shared memory a host
-  array), against the plain versions: u64 at logn 12-17, u32 at every
-  tile shape of its split rule (logn 8-23).  This checks the kernels'
-  index arithmetic, twiddle addressing and shape refusals without a
-  card.
+- The CUDA sources themselves, merge_u64.cu, merge_u64_large.cu and
+  merge_u32.cu, compiled by g++ through a host emulation of the few CUDA
+  constructs they use (one thread per block, blocks in order, dynamic
+  shared memory a host array), against the plain versions: u64 at logn
+  11-17, the big-ring column and row kernels at small splits (A = 4..512,
+  B = 8..2048, a nested plan), u32 at every tile shape of its split rule
+  (logn 8-23).  This checks the kernels' index arithmetic, twiddle
+  addressing and shape refusals without a card.
 - Wrapper contract: CPU tensors take the plain version (counted), other
   devices launch or raise, bad operands raise, and the route table.
 """
@@ -40,9 +41,11 @@ from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import _build
+from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops.merge_ntt import (from_lanes, merge_intt_lanes,
                                             merge_ntt_lanes, to_lanes)
 
@@ -190,7 +193,8 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
 static EmuDim3 threadIdx = {0}, blockIdx = {0};
-static uint32_t emu_smem[1 << 15];  // the largest dynamic tile
+static uint32_t emu_smem[1 << 15];  // the largest dynamic tiles, u32 ...
+alignas(16) static uint64_t emu_smem64[1 << 13];  // ... and u64
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -213,7 +217,7 @@ template <class F> void emu_launch(long long grid, F f) {
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 6, "merge_u32": 4}
+_LAUNCHES = {"merge_u64": 6, "merge_u64_large": 4, "merge_u32": 4}
 
 
 def _emulated_source(name: str) -> str:
@@ -226,6 +230,7 @@ def _emulated_source(name: str) -> str:
     assert "constexpr int kThreads = 256;" in src
     src = src.replace("constexpr int kThreads = 256;", "constexpr int kThreads = 1;")
     src = src.replace("extern __shared__ uint32_t smem[];", "uint32_t* smem = emu_smem;")
+    src = src.replace("extern __shared__ uint64_t smem[];", "uint64_t* smem = emu_smem64;")
     launch = re.compile(r"(\w+(?:<\w+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
     out, i = [], 0
     while (m := launch.search(src, i)) is not None:
@@ -246,7 +251,9 @@ def _emulate(tmp_path_factory, name: str) -> ctypes.CDLL:
     d = tmp_path_factory.mktemp(f"emu_{name}")
     (d / "cuda_runtime.h").write_text(_SHIM)
     (d / f"{name}_emu.cpp").write_text(_emulated_source(name))
-    shutil.copy(os.path.join(CSRC, f"{name}.cuh"), d)
+    for header in os.listdir(CSRC):
+        if header.endswith(".cuh"):
+            shutil.copy(os.path.join(CSRC, header), d)
     so = d / "libemu.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{d}",
                     "-o", str(so), str(d / f"{name}_emu.cpp")],
@@ -267,9 +274,14 @@ def emulated32(tmp_path_factory):
     return _emulate(tmp_path_factory, "merge_u32")
 
 
+@pytest.fixture(scope="module")
+def emulated_large(tmp_path_factory):
+    return _emulate(tmp_path_factory, "merge_u64_large")
+
+
 @pytest.mark.parametrize("poly", [tg.ReductionPolynomial.X_N_minus,
                                   tg.ReductionPolynomial.X_N_plus])
-@pytest.mark.parametrize("logn", [12, 13, 14, 15, 16, 17])
+@pytest.mark.parametrize("logn", [11, 12, 13, 14, 15, 16, 17])
 def test_cuda_source_emulated_matches_plain(emulated, logn, poly):
     p = tg.NTTParameters(logn, poly, np.uint64)
     plan = tg.MergePlan.from_params(p, device="cpu")
@@ -296,13 +308,124 @@ def test_cuda_source_emulated_matches_plain(emulated, logn, poly):
 
 
 def test_cuda_source_emulated_refuses_bad_shapes(emulated):
-    p = tg.NTTParameters(11, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    p = tg.NTTParameters(10, tg.ReductionPolynomial.X_N_plus, np.uint64)
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = torch.zeros((1, p.n), dtype=torch.int64)
-    rc = emulated.merge_u64_forward(0, x.data_ptr(), x.data_ptr(), 1, 11, 4,
+    rc = emulated.merge_u64_forward(0, x.data_ptr(), x.data_ptr(), 1, 10, 3,
                                     plan.fwd_table.data_ptr(), plan.fwd_shoup.data_ptr(),
                                     plan.q, 1, 1, None)
-    assert rc == 1  # cudaErrorInvalidValue: logn 11 has no tile shape
+    assert rc == 1  # cudaErrorInvalidValue: logn 10 has no tile shape
+
+
+def _emulated_steps(lib, lib64):
+    """hopper_merge_large's composition with every kernel the emulated
+    CUDA source: K7 and K8 from merge_u64_large.cu, K1-K3 from
+    merge_u64.cu."""
+    def col(entry, inverse):
+        def run(x, lp):
+            c, y = lp.col, torch.empty_like(x)
+            tabs = ((c.inv_table, c.inv_shoup, lp.wt_inv, lp.wt_inv_shoup, lp.ws_inv,
+                     lp.ws_inv_shoup) if inverse else
+                    (c.fwd_table, c.fwd_shoup, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd,
+                     lp.ws_fwd_shoup))
+            scale = (c.n_inv, c.n_inv_shoup) if inverse else ()
+            assert getattr(lib, entry)(
+                0, x.data_ptr(), y.data_ptr(), x.shape[0], c.logn, lp.B.bit_length() - 1,
+                *(t.data_ptr() for t in tabs), lp.tile.bit_length() - 1, lp.q,
+                (1 << 64) // lp.q, *scale, int(c.xnp), None) == 0
+            return y
+        return run
+
+    def rowmat(x, plan, inverse):
+        table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
+                        else (plan.fwd_table, plan.fwd_shoup))
+        y = torch.empty_like(x)
+        assert lib.merge_u64_large_rowmat(
+            0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn, table.data_ptr(),
+            shoup.data_ptr(), plan.q, (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup,
+            int(inverse), int(plan.xnp), None) == 0
+        return y
+
+    def rows(inverse):
+        def run(x, plan):
+            y, la = torch.empty_like(x), hm.split(plan.logn)
+            table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
+                            else (plan.fwd_table, plan.fwd_shoup))
+            args = (plan.q, (1 << 64) // plan.q) + (
+                (plan.n_inv, plan.n_inv_shoup) if inverse else ())
+            entry = lib64.merge_u64_inverse if inverse else lib64.merge_u64_forward
+            assert entry(0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn, la,
+                         table.data_ptr(), shoup.data_ptr(), *args, int(plan.xnp),
+                         None) == 0
+            return y
+        return run
+
+    return hml._Steps(col("merge_u64_large_colfwd", False),
+                      col("merge_u64_large_colinv", True), rowmat, rows(False), rows(True),
+                      None)
+
+
+# (logn, a_col, tile, max_row_logn): every shape class of the big-ring kernels
+LARGE_EMULATED = [
+    (8, 4, 16, 17),      # K8 rows of 64, a factored W of four tiles
+    (9, 16, 8, 17),      # a wider column tile over rows of 32
+    (12, 512, None, 17),  # A = 512 (the largest column), rows of 8, C = B
+    (16, 256, None, 17),  # C = 32 columns of 256 per block, K8 rows of 256
+    (15, 16, 256, 17),   # rows of 2^11 on the logn-11 K1/K2
+    (14, 8, None, 9),    # rows of 2^11 beyond max_row_logn: a nested 4 x 512 plan
+]
+
+
+@pytest.mark.parametrize("poly", [tg.ReductionPolynomial.X_N_minus,
+                                  tg.ReductionPolynomial.X_N_plus])
+@pytest.mark.parametrize("logn,a_col,tile,max_row", LARGE_EMULATED)
+def test_cuda_source_large_emulated_matches_plain(emulated_large, emulated, logn, a_col,
+                                                  tile, max_row, poly):
+    """merge_u64_large.cu's three entries, each against its plain version
+    on any u64 word, and the whole composition through the emulated
+    sources against the plain composition."""
+    p = tg.NTTParameters(logn, poly, np.uint64)
+    q = p.modulus.value
+    lp = hml.LargePlan.from_spec(q, logn, p.root_of_unity, p.inverse_root_of_unity,
+                                 poly == tg.ReductionPolynomial.X_N_plus, p.n_inv,
+                                 a_col=a_col, tile=tile, max_row_logn=max_row,
+                                 row_kwargs=dict(a_col=4), device="cpu")
+    x = to_lanes(np.random.default_rng(logn).integers(0, 1 << 64, size=(2, p.n),
+                                                       dtype=np.uint64), True)
+    steps = _emulated_steps(emulated_large, emulated)
+    assert torch.equal(steps.colfwd(x, lp), hml.colfwd_plain(x, lp))
+    assert torch.equal(steps.colinv(x, lp), hml.colinv_plain(x, lp))
+    if lp.row_kernel == "K8":
+        r = x.reshape(-1, lp.B)[:-3].contiguous()  # the last block short of rows
+        for inverse in (False, True):
+            assert torch.equal(steps.rowmat(r, lp.rows, inverse),
+                               hml.rowmat_plain(r, lp.rows, inverse))
+    fx = hml._transform(x, lp, False, steps)
+    assert torch.equal(fx, hml.merge_u64_large_plain(x, lp))
+    assert torch.equal(hml._transform(fx, lp, True, steps), bo.reduce_forced64(x, q))
+
+
+@pytest.mark.parametrize("entry,args", [
+    ("colfwd", dict(logA=10)),        # A = 1024: past the 2^13-word tile at C = 8
+    ("colfwd", dict(logA=0)),         # no column stage
+    ("colinv", dict(logT=7)),         # a tile wider than the rows
+    ("colinv", dict(batch=0)),
+    ("rowmat", dict(logB=10)),        # K8 rows of 1024: past its 512
+    ("rowmat", dict(batch=0)),
+])
+def test_cuda_source_large_emulated_refuses_bad_shapes(emulated_large, entry, args):
+    x = torch.zeros(1 << 14, dtype=torch.int64)
+    a = dict(batch=1, logA=3, logB=6, logT=4) | args
+    p = x.data_ptr()
+    if entry == "rowmat":
+        rc = emulated_large.merge_u64_large_rowmat(0, p, p, a["batch"], a["logB"], p, p,
+                                                   97, 1, 1, 1, 0, 0, None)
+    else:
+        scale = (1, 1) if entry == "colinv" else ()
+        rc = getattr(emulated_large, f"merge_u64_large_{entry}")(
+            0, p, p, a["batch"], a["logA"], a["logB"], p, p, p, p, p, p, a["logT"], 97, 1,
+            *scale, 0, None)
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 U32_EMULATED = [(logn, poly, 2) for logn in (8, 12, 16, 17, 18)
@@ -382,10 +505,10 @@ def test_wrappers_take_plain_versions_on_cpu_only():
         hm.merge_u64_fwd(x.t(), plan)
     with pytest.raises(tg.NTTDispatchError):
         hm.merge_u64_polymul_inv(x, x[:1], plan)
-    p11 = tg.NTTParameters(11, tg.ReductionPolynomial.X_N_minus, np.uint64)
-    with pytest.raises(tg.NTTDispatchError):
-        hm.merge_u64_fwd(x[:, :p11.n].contiguous(),
-                         tg.MergePlan.from_params(p11, device="cpu"))
+    p10 = tg.NTTParameters(10, tg.ReductionPolynomial.X_N_minus, np.uint64)
+    with pytest.raises(tg.NTTDispatchError):  # logn 11 is the kernels' smallest ring
+        hm.merge_u64_fwd(x[:, :p10.n].contiguous(),
+                         tg.MergePlan.from_params(p10, device="cpu"))
 
 
 def test_route_table():
@@ -396,7 +519,7 @@ def test_route_table():
         return td._kernel_path(plan, shape or (4, p.n), layout)
 
     assert [route(n) for n in (11, 12, 16, 17, 18)] == \
-        ["engine", "hopper-merge", "hopper-merge", "hopper-merge", "engine"]
+        ["engine", "hopper-merge", "hopper-merge", "hopper-merge", "hopper-merge-large"]
     assert route(16, np.uint32) == "hopper-merge32"  # the rest in test_torch_merge32.py
     assert route(12, shape=(2, 2, 4096)) == "engine"
     assert route(12, layout=tg.NTTLayout.PerCoefficient) == "engine"
