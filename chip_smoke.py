@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's merge NTT paths once on one CUDA card.
+"""Drive the port's merge and 4-step NTT paths once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -40,8 +40,18 @@ at once) and runs, on the card:
    against the native oracle;
 11. u64 logn 18, X^N - 1, batch 4: polymul against NTTCPU on two rows,
    and a 62-bit and a 46-bit q at logn 20 against NTTCPU;
-12. CUDA-event times of each kernel and of its plain version, at the
-   shape its path gave it, and of the big-ring transforms end to end.
+12. the 4-step path, X^N - 1, the pool prime of NTTParameters4Step, u64
+   and u32 at 2^24 x 1 (the JAX package's fourstep24 cell: 256 x 65536,
+   rows on K1/K2 or the u32 family) and 2^16 x 128 (128 x 512, rows on
+   K10 or K11's row twin): fourstep_ntt_lanes, fourstep_intt_lanes and
+   the two _full entries through the public functions, with the launch
+   counts read around each call; every output against the plain
+   composition on the card, the round trip, rows against NTT4StepCPU,
+   each kernel against its plain version; the kernel plan's build time
+   and bytes; then u64 2^16 x 4, X^N + 1, against NTT4StepCPU;
+13. CUDA-event times of each kernel and of its plain version, at the
+   shape its path gave it, and of the big-ring and 4-step transforms
+   end to end.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -105,10 +115,12 @@ def main() -> int:
     import gpuntt_tpu_torch as g
     from gpuntt_tpu_torch.ops import _build
     from gpuntt_tpu_torch.ops import barrett as bo
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
     from gpuntt_tpu_torch.ops import hopper_merge as hm
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops import hopper_merge_large as hml
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
+    from gpuntt_tpu_torch.ops.merge_ntt import from_lanes
     from gpuntt_tpu_torch.utils.timing import time_cuda
 
     dev = torch.device("cuda", 0)
@@ -119,6 +131,7 @@ def main() -> int:
         hm.reset_counts()
         hm32.reset_counts()
         hml.reset_counts()
+        hf.reset_counts()
 
     def counted() -> dict:
         """{kernel: launches} of the u64 kernels that ran since reset();
@@ -472,7 +485,111 @@ def main() -> int:
               f"logn 20 {bits}-bit polymul == NTTCPU")
         check(set(counted()) == {K1, K2, K3, CF, CI}, f"logn 20 {bits}-bit q ran the kernels")
 
-    # -- 12. times: plain, kernel, kernel, plain
+    # -- 12. the 4-step path: u64 and u32, 2^24 x 1 and 2^16 x 128, X^N - 1
+    MINUS = g.ReductionPolynomial.X_N_minus
+    T = g.transpose_lanes
+
+    def counted4() -> dict:
+        """{kernel: launches} of every kernel since reset(); raises if a
+        plain version ran."""
+        torch.cuda.synchronize()
+        ks = (*hf.KERNELS, *hm.KERNELS, *hm32.KERNELS, *hml.KERNELS)
+        if any(k.plain_calls for k in ks):
+            raise AssertionError(f"plain versions ran: {[(k.name, k.plain_calls) for k in ks]}")
+        return {k.name: k.launches for k in ks if k.launches}
+
+    four = {}
+    for dtype, logn_f, batch_f in ((np.uint64, 24, 1), (np.uint64, 16, 128),
+                                   (np.uint32, 24, 1), (np.uint32, 16, 128)):
+        is64 = dtype == np.uint64
+        pf = g.NTTParameters4Step(logn_f, MINUS, dtype)
+        cell = f"4-step u{64 if is64 else 32} 2^{logn_f}x{batch_f}"
+        t0 = time.perf_counter()
+        planf = g.FourStepPlan.from_params(pf, device=dev)
+        kp = hf.kernel_plan(planf)
+        torch.cuda.synchronize()
+        print(f"{cell} plan build {time.perf_counter() - t0:.3f} s, {kp.device_bytes()} bytes "
+              f"of kernel tables on the card (n1={kp.n1} n2={kp.n2} T={kp.tile} "
+              f"Tw={kp.w_tile}, rows on {kp.row_kernel})")
+        n1, n2 = kp.n1, kp.n2
+        xf_np = rng.integers(0, pf.modulus.value, size=(batch_f, pf.n), dtype=np.uint64)
+        xf = from_numpy_u64(xf_np, dev)
+        col_k, row_k = (hf.COL64, hf.ROW64) if is64 else (hf.COL32, hf.ROW32)
+        if n2 <= hf.ROW_MAT_MAX:
+            rows_fwd = rows_inv = row_k
+        elif is64:
+            rows_fwd, rows_inv = hm.FORWARD, hm.INVERSE
+        else:
+            k = hm32.tpu_kernel(n2.bit_length() - 1)
+            rows_fwd, rows_inv = hm32.FORWARD[k], hm32.INVERSE[k]
+        outs, runs = {}, {}
+        for entry, fn, rows in (("ntt_lanes", g.fourstep_ntt_lanes, rows_fwd),
+                                ("intt_lanes", g.fourstep_intt_lanes, rows_inv),
+                                ("ntt_full", g.fourstep_ntt_full, rows_fwd),
+                                ("intt_full", g.fourstep_intt_full, rows_inv)):
+            reset()
+            outs[entry] = fn(xf, planf)
+            runs[entry] = counted4()
+            check(runs[entry] == {col_k.name: 1, rows.name: 1},
+                  f"{cell} {entry} launched {col_k.name} and {rows.name} once, no plain "
+                  f"version ({runs[entry]})")
+        for k in (col_k, row_k):
+            if (k is col_k) == (logn_f == 24):  # each kernel's launches in its timed cell
+                launches[k.name] = sum(r.get(k.name, 0) for r in runs.values())
+        check("w" not in planf._lazy, f"{cell} built no (n1, n2) W table")
+
+        pairs = {"ntt_lanes": hf.fourstep_plain(xf, kp),
+                 "intt_lanes": hf.fourstep_plain(xf, kp, True),
+                 "ntt_full": T(hf.fourstep_plain(T(xf, n1, n2), kp), n1, n2),
+                 "intt_full": T(hf.fourstep_plain(T(xf, n2, n1), kp, True), n1, n2)}
+        for entry, want in pairs.items():
+            check(torch.equal(outs[entry], want),
+                  f"{cell} {entry} == plain composition, all {batch_f} rows")
+        del pairs
+        check(torch.equal(g.fourstep_intt_full(outs["ntt_full"], planf), xf),
+              f"{cell} intt_full(ntt_full(x)) == x, all rows")
+        genf = g.NTT4StepCPU(pf)
+        for r in sorted({0, batch_f - 1}):
+            t0 = time.perf_counter()
+            xr = xf_np[r].astype(dtype)
+            check(np.array_equal(from_lanes(outs["ntt_full"][r], is64), genf.ntt(xr))
+                  and np.array_equal(from_lanes(outs["intt_full"][r], is64), genf.intt(xr)),
+                  f"{cell} ntt_full, intt_full row {r} == NTT4StepCPU "
+                  f"({time.perf_counter() - t0:.1f} s on the host)")
+        col_fn = hf.fourstep_u64_col if is64 else hf.fourstep_u32_col
+        row_fn = hf.fourstep_u64_row if is64 else hf.fourstep_u32_row
+        row_plain = hml.rowmat_plain if is64 else hf.row32_plain
+        for inverse in (False, True):
+            got, want = col_fn(xf, kp, inverse), hf.col_plain(xf, kp, inverse)
+            e = int((got - want).abs().max().item())
+            err[col_k.name] = max(err.get(col_k.name, 0), e)
+            check(torch.equal(got, want),
+                  f"{cell} {col_k.name} inverse={inverse} == plain version (max |diff| {e})")
+            if n2 <= hf.ROW_MAT_MAX:
+                r = got.view(-1, n2)
+                got, want = row_fn(r, kp.rows, inverse), row_plain(r, kp.rows, inverse)
+                e = int((got - want).abs().max().item())
+                err[row_k.name] = max(err.get(row_k.name, 0), e)
+                check(torch.equal(got, want), f"{cell} {row_k.name} inverse={inverse} == "
+                      f"plain version on {r.shape[0]} rows (max |diff| {e})")
+        four[(is64, logn_f)] = (planf, kp, xf, batch_f)
+        del outs
+
+    pf = g.NTTParameters4Step(16, PLUS, np.uint64)
+    planf = g.FourStepPlan.from_params(pf, device=dev)
+    xf_np = rng.integers(0, pf.modulus.value, size=(4, pf.n), dtype=np.uint64)
+    xf = from_numpy_u64(xf_np, dev)
+    reset()
+    ff = g.fourstep_ntt_full(xf, planf)
+    bf = g.fourstep_intt_full(ff, planf)
+    check(counted4() == {hf.COL64.name: 2, hf.ROW64.name: 2},
+          "4-step u64 2^16x4 X^N+1 launched K9 and K10 twice each")
+    genf = g.NTT4StepCPU(pf)
+    check(np.array_equal(to_numpy_u64(ff), np.stack([genf.ntt(v) for v in xf_np])),
+          "4-step u64 2^16x4 X^N+1 ntt_full == NTT4StepCPU, all rows")
+    check(torch.equal(bf, xf), "4-step u64 2^16x4 X^N+1 intt_full(ntt_full(x)) == x")
+
+    # -- 13. times: plain, kernel, kernel, plain
     cases = {
         hm.FORWARD.name: (lambda: hm.merge_u64_fwd(a, plan),
                           lambda: hm.merge_u64_fwd_plain(a, plan),
@@ -514,6 +631,29 @@ def main() -> int:
                  lambda: hml.rowmat_plain(r27, lp27.nested.rows, False),
                  bound_of(2 * 8 * r27.numel(), 16 * (r27.numel() // 2) * 9),
                  f"u64 rows {r27.shape[0]}x{r27.shape[1]} (2^27)")
+
+    def col_bound(kp, batch, mul):
+        # log n1 / 2 butterflies and two twist products per word, each a
+        # Shoup product of `mul` 32-bit multiplies
+        n, log1 = batch << kp.logn, kp.n1.bit_length() - 1
+        return bound_of(2 * 8 * n, mul * (n // 2 * log1 + 2 * n))
+
+    for is64, mul in ((True, 16), (False, 3)):
+        _, kp, xf, batch_f = four[(is64, 24)]
+        col_fn = hf.fourstep_u64_col if is64 else hf.fourstep_u32_col
+        cases[(hf.COL64 if is64 else hf.COL32).name] = (
+            lambda f=col_fn, x=xf, kp=kp: f(x, kp, False),
+            lambda x=xf, kp=kp: hf.col_plain(x, kp, False), col_bound(kp, batch_f, mul),
+            f"4-step u{64 if is64 else 32} 2^24x1")
+        _, kp, xf, batch_f = four[(is64, 16)]
+        r = hf.col_plain(xf, kp, False).view(-1, kp.n2)
+        row_fn = hf.fourstep_u64_row if is64 else hf.fourstep_u32_row
+        row_plain = hml.rowmat_plain if is64 else hf.row32_plain
+        cases[(hf.ROW64 if is64 else hf.ROW32).name] = (
+            lambda f=row_fn, r=r, kp=kp: f(r, kp.rows, False),
+            lambda f=row_plain, r=r, kp=kp: f(r, kp.rows, False),
+            bound_of(2 * 8 * r.numel(), mul * (r.numel() // 2) * (kp.n2.bit_length() - 1)),
+            f"4-step u{64 if is64 else 32} 2^16x128 rows {r.shape[0]}x{r.shape[1]}")
     for name, (kernel, plain, bound, cell) in cases.items():
         runs = [time_cuda(plain, repeats=5, inner=2), time_cuda(kernel),
                 time_cuda(kernel), time_cuda(plain, repeats=5, inner=2)]
@@ -555,6 +695,27 @@ def main() -> int:
         if yb is not None:
             e2e, spread = time_cuda(lambda: g.polymul_lanes(xb, yb, planb))
             print(f"time polymul_lanes {cell} end to end: {e2e:.4f} ms (spread {spread:.3f})")
+    for (is64, logn_f), (planf, kp, xf, batch_f) in four.items():
+        cell = f"4-step u{64 if is64 else 32} 2^{logn_f}x{batch_f}"
+        bound = bound_ms(batch_f, logn_f, 1, 16 if is64 else 3)
+        for entry, fn, plain in (
+                ("ntt_lanes", g.fourstep_ntt_lanes, lambda: hf.fourstep_plain(xf, kp)),
+                ("intt_lanes", g.fourstep_intt_lanes,
+                 lambda: hf.fourstep_plain(xf, kp, True)),
+                ("ntt_full", g.fourstep_ntt_full, None),
+                ("intt_full", g.fourstep_intt_full, None)):
+            p_runs = [time_cuda(plain, repeats=5, inner=2)] if plain else []
+            k_runs = [time_cuda(lambda: fn(xf, planf)) for _ in range(2)]
+            if plain:
+                p_runs.append(time_cuda(plain, repeats=5, inner=2))
+            k_ms = (k_runs[0][0] + k_runs[1][0]) / 2
+            line = (f"time {entry} {cell}: {k_ms:.5f} ms "
+                    f"(spread {max(r[1] for r in k_runs):.3f})")
+            if p_runs:
+                line += (f", plain {(p_runs[0][0] + p_runs[1][0]) / 2:.3f} ms "
+                         f"(spread {max(r[1] for r in p_runs):.3f})")
+            print(f"{line}, bound {bound[0]:.5f} ms ({bound[1]}), "
+                  f"{bound[0] / k_ms:.1%} of it")
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -563,7 +724,7 @@ def main() -> int:
          "max_abs_err": err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS)]}))
+        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """gpuntt_tpu_torch — the gpuntt_tpu NTT framework on PyTorch and CUDA.
 
 A port of the JAX package `gpuntt_tpu` to PyTorch, with hand-written
-kernels for NVIDIA Hopper (sm_90a).  It covers the merge NTT paths of
-both word sizes so far:
+kernels for NVIDIA Hopper (sm_90a).  It covers the merge and 4-step NTT
+paths of both word sizes so far:
 
 - the host layers (moduli, prime and root pools, twiddle tables, golden
   models) copied from gpuntt_tpu;
@@ -14,8 +14,13 @@ both word sizes so far:
   fused polymul inverse for rings of 2^12..2^17 with q < 2^62
   (ops.hopper_merge), the u64 big rings 2^18..2^28 as a column kernel
   and row kernels composed (ops.hopper_merge_large), and the u32 forward
-  and inverse for rings of 2^8..2^25 with q < 2^30 (ops.hopper_merge32);
-- the merge entries of the transform API and PolynomialMultiplier.
+  and inverse for rings of 2^8..2^25 with q < 2^30 (ops.hopper_merge32),
+  and the 4-step's column and row kernels at logn 12-24, both word sizes
+  (ops.hopper_fourstep);
+- the merge entries of the transform API and PolynomialMultiplier;
+- the 4-step entries (`fourstep_{ntt,intt}_{lanes,full}`,
+  `transpose_lanes`), FourStepPlan, NTTParameters4Step and the golden
+  NTT4StepCPU.
 
 Entry points run on the first CUDA card unless the caller passes
 device="cpu"; without a card, a plan made for the default device raises
@@ -40,9 +45,19 @@ from .params.merge import (
     NTTType,
     ReductionPolynomial,
 )
+from .params.fourstep import MATRIX_DIMENSIONS, NTTParameters4Step
+from .reference.fourstep_cpu import NTT4StepCPU
 from .reference.merge_cpu import NTTCPU
 from .reference.schoolbook import schoolbook_poly_multiplication
 from .ops.merge_ntt import MergePlan
+from .ops.fourstep import (
+    FourStepPlan,
+    fourstep_intt_full,
+    fourstep_intt_lanes,
+    fourstep_ntt_full,
+    fourstep_ntt_lanes,
+    transpose_lanes,
+)
 from .ops.dispatch import (
     NTTConfig,
     intt,
@@ -81,6 +96,15 @@ __all__ = [
     "NTTType",
     "ReductionPolynomial",
     "NTTCPU",
+    "MATRIX_DIMENSIONS",
+    "NTTParameters4Step",
+    "NTT4StepCPU",
+    "FourStepPlan",
+    "fourstep_ntt_lanes",
+    "fourstep_intt_lanes",
+    "fourstep_ntt_full",
+    "fourstep_intt_full",
+    "transpose_lanes",
     "schoolbook_poly_multiplication",
     "MergePlan",
     "NTTConfig",

@@ -71,13 +71,17 @@ def get_lib():
         ci = ctypes.c_int
         sz = ctypes.c_size_t
 
-        # the entry points the merge slice uses (nttref.cpp has more)
+        # the entry points the merge and 4-step slices use (nttref.cpp has more)
         lib.power_table_u64.argtypes = [u64, u64, p64, sz]
         lib.shoup_table_u64.argtypes = [p64, u64, p64, sz]
+        lib.w_table_forward_u64.argtypes = [u64, u64, ci, ci, p64]
+        lib.w_table_inverse_u64.argtypes = [u64, u64, ci, ci, p64]
         lib.ntt_merge_u64.argtypes = [p64, ci, p64, u64, ci]
         lib.intt_merge_u64.argtypes = [p64, ci, p64, u64, ci]
         lib.ntt_merge_batch_u64.argtypes = [p64, ci, ci, p64, u64, ci]
         lib.intt_merge_batch_u64.argtypes = [p64, ci, ci, p64, u64, ci]
+        lib.core_ntt_rows_u64.argtypes = [p64, ci, ci, p64, u64]
+        lib.core_intt_rows_u64.argtypes = [p64, ci, ci, p64, u64]
         lib.pointwise_mult_u64.argtypes = [p64, p64, p64, sz, u64]
         _lib = lib
         return _lib
@@ -141,6 +145,26 @@ def intt_merge(data: np.ndarray, logn: int, table: np.ndarray, q: int, xnp: bool
     return d
 
 
+def _rows(entry, data2d: np.ndarray, table: np.ndarray, q: int) -> np.ndarray:
+    _check_q(q)
+    d = np.ascontiguousarray(data2d, dtype=np.uint64).copy()
+    rows, size = d.shape
+    entry(d, rows, int(size).bit_length() - 1, np.ascontiguousarray(table, dtype=np.uint64),
+          q)
+    return d
+
+
+def core_ntt_rows(data2d: np.ndarray, table: np.ndarray, q: int) -> np.ndarray:
+    """The 4-step golden model's core_ntt on each row of a 2-D array
+    (natural-order half table, X^N - 1 indexing for every polynomial)."""
+    return _rows(get_lib().core_ntt_rows_u64, data2d, table, q)
+
+
+def core_intt_rows(data2d: np.ndarray, table: np.ndarray, q: int) -> np.ndarray:
+    """core_intt on each row, without the n^-1 scaling."""
+    return _rows(get_lib().core_intt_rows_u64, data2d, table, q)
+
+
 def pointwise_mult(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
     _check_q(q)
     lib = get_lib()
@@ -149,3 +173,20 @@ def pointwise_mult(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
     out = np.empty_like(a)
     lib.pointwise_mult_u64(a.ravel(), b.ravel(), out.ravel(), a.size, q)
     return out
+
+
+def _w_table(entry, root: int, q: int, n1: int, n2: int) -> np.ndarray:
+    _check_q(q)
+    out = np.empty(n1 * n2, dtype=np.uint64)
+    entry(root, q, n1, n2, out)
+    return out
+
+
+def w_table_forward(root: int, q: int, n1: int, n2: int) -> np.ndarray:
+    """The 4-step forward W, flattened: root^(bitrev(i, log n1) * j)."""
+    return _w_table(get_lib().w_table_forward_u64, root, q, n1, n2)
+
+
+def w_table_inverse(invroot: int, q: int, n1: int, n2: int) -> np.ndarray:
+    """The 4-step inverse W, flattened: invroot^(i * bitrev(j, log n2))."""
+    return _w_table(get_lib().w_table_inverse_u64, invroot, q, n1, n2)

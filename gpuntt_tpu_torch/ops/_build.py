@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-Each source in csrc/ (merge_u64.cu, merge_u64_large.cu, merge_u32.cu) is
-compiled by its own nvcc call into a shared library with a plain C
-interface and loaded with ctypes: `library(name)` builds and loads one,
+Each source in csrc/ (merge_u64.cu, merge_u64_large.cu, merge_u32.cu,
+fourstep.cu) is compiled by its own nvcc call into a shared library with
+a plain C interface and loaded with ctypes: `library(name)` builds and loads one,
 `build_all()` starts every missing build at once and waits for them
 together.  Builds land in the gitignored csrc/build/ directory under
 names that carry a hash of the library's source, every header in csrc/
@@ -55,6 +55,11 @@ _ENTRIES = {
                               _p],
         "merge_u32_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _u32,
                               _u32, _i32, _p],
+    },
+    "fourstep": {
+        f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p, _p,
+                                  _p, _p, word, word, _p]
+        for w, word in (("u64", _u64), ("u32", _u32)) for d in ("fwd", "inv")
     },
 }
 

@@ -25,7 +25,10 @@ on the card.
 The counts are kept per TPU kernel replaced, by the logn range that
 served the call: every launch adds one to that kernel's `launches`,
 every plain-version call through a wrapper one to its `plain_calls`;
-`reset_counts()` zeroes them.
+`reset_counts()` zeroes them.  `forward`/`inverse` count under the
+stats they are given: the 4-step's rows of 128-512 words (logn 7-9,
+which `takes` admits and dispatch's `covers` does not) count under
+K11's row kernel (hopper_fourstep.py).
 """
 
 from __future__ import annotations
@@ -74,8 +77,14 @@ def split(logn: int) -> int:
 
 
 def covers(plan: MergePlan) -> bool:
-    """Plans whose transforms the kernels take: u32, q < 2^30, logn 8-25."""
+    """Plans whose transforms dispatch sends here: u32, q < 2^30, logn 8-25."""
     return not plan.is64 and plan.q < (1 << 30) and 8 <= plan.logn <= 25
+
+
+def takes(plan: MergePlan) -> bool:
+    """Plans the kernels take: those `covers`, and the logn-7 rows of the
+    4-step (its 128-word rows; the tile holds whole rings up to logn 13)."""
+    return not plan.is64 and plan.q < (1 << 30) and 7 <= plan.logn <= 25
 
 
 # ------------------------------------------------------------ plain versions
@@ -121,9 +130,9 @@ def merge_u32_inv_plain(x, plan: MergePlan):
 
 
 def _check(plan: MergePlan, x: torch.Tensor) -> None:
-    if not covers(plan):
+    if not takes(plan):
         raise NTTDispatchError(
-            f"merge_u32 kernels take u32 plans with q < 2^30 and logn 8-25, "
+            f"merge_u32 kernels take u32 plans with q < 2^30 and logn 7-25, "
             f"got q={plan.q} logn={plan.logn} is64={plan.is64}")
     if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != plan.n
             or not x.is_contiguous() or x.device != plan.device):
@@ -141,10 +150,9 @@ def _lib():
     return library("merge_u32")
 
 
-def merge_u32_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
-    """Forward merged NTT of each row (bit-reversed output order)."""
+def forward(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+    """merge_u32_fwd with its launch counted under `stats`."""
     _check(plan, x)
-    stats = FORWARD[tpu_kernel(plan.logn)]
     if x.device.type == "cpu":
         stats.plain_calls += 1
         return merge_u32_fwd_plain(x, plan)
@@ -155,10 +163,9 @@ def merge_u32_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     return y
 
 
-def merge_u32_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
-    """Inverse merged NTT of each row, n^-1 scaling included."""
+def inverse(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+    """merge_u32_inv with its launch counted under `stats`."""
     _check(plan, x)
-    stats = INVERSE[tpu_kernel(plan.logn)]
     if x.device.type == "cpu":
         stats.plain_calls += 1
         return merge_u32_inv_plain(x, plan)
@@ -168,3 +175,13 @@ def merge_u32_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
             plan.inv_shoup.data_ptr(), plan.q, (1 << 32) // plan.q, plan.n_inv,
             plan.n_inv_shoup, int(plan.xnp))
     return y
+
+
+def merge_u32_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+    """Forward merged NTT of each row (bit-reversed output order)."""
+    return forward(FORWARD[tpu_kernel(plan.logn)], x, plan)
+
+
+def merge_u32_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+    """Inverse merged NTT of each row, n^-1 scaling included."""
+    return inverse(INVERSE[tpu_kernel(plan.logn)], x, plan)

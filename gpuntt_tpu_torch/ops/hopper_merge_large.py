@@ -107,13 +107,14 @@ def _pows(base: int, q: int, size: int) -> np.ndarray:
 
 
 def _merge_plan(q: int, logn: int, xnp: bool, root: int, iroot: int, n_inv: int,
-                device) -> MergePlan:
+                device, dtype=np.uint64) -> MergePlan:
     """A 2^logn-point merge plan from its root pair (sub-plans)."""
     size = 1 << logn if xnp else 1 << (logn - 1)
     poly = ReductionPolynomial.X_N_plus if xnp else ReductionPolynomial.X_N_minus
     return MergePlan.from_arrays(q, logn, poly, root, iroot, n_inv,
                                  bitrev_permute(_pows(root, q, size)),
-                                 bitrev_permute(_pows(iroot, q, size)), device=device)
+                                 bitrev_permute(_pows(iroot, q, size)), device=device,
+                                 dtype=dtype)
 
 
 def _w_factor(bases, tile: int, B: int, q: int) -> tuple[np.ndarray, np.ndarray]:
@@ -317,28 +318,39 @@ class LargePlan:
 
     def to(self, device) -> "LargePlan":
         """This plan with every table on `device`."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        if device == self.device:
-            return self
-        return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), (torch.Tensor, MergePlan, LargePlan))})
+        return plan_to(self, device)
 
     def device_bytes(self) -> int:
         """Bytes of every table this plan holds, sub-plans included."""
-        total = 0
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, torch.Tensor):
-                total += v.numel() * v.element_size()
-            elif isinstance(v, LargePlan):
-                total += v.device_bytes()
-            elif isinstance(v, MergePlan):
-                total += sum(t.numel() * t.element_size() for t in
-                             (v.fwd_table, v.fwd_shoup, v.inv_table, v.inv_shoup))
-        return total
+        return plan_bytes(self)
+
+
+def plan_to(plan, device):
+    """A kernel plan (a frozen dataclass with a `device`) with every
+    tensor and sub-plan it holds on `device`."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device == plan.device:
+        return plan
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).to(device) for f in dataclasses.fields(plan)
+        if isinstance(getattr(plan, f.name), (torch.Tensor, MergePlan, LargePlan))})
+
+
+def plan_bytes(plan) -> int:
+    """Bytes of every table a kernel plan holds, sub-plans included."""
+    total = 0
+    for f in dataclasses.fields(plan):
+        v = getattr(plan, f.name)
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, MergePlan):
+            total += sum(t.numel() * t.element_size() for t in
+                         (v.fwd_table, v.fwd_shoup, v.inv_table, v.inv_shoup))
+        elif isinstance(v, LargePlan):
+            total += plan_bytes(v)
+    return total
 
 
 def _route_a_col(logn: int) -> int | None:
@@ -444,25 +456,32 @@ def merge_u64_large_colinv(x: torch.Tensor, lp: LargePlan) -> torch.Tensor:
     return _col(COLINV, "merge_u64_large_colinv", x, lp, inverse=True)
 
 
-def merge_u64_large_rowmat(x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.Tensor:
-    """K8 on a contiguous (rows, B) tensor, B = 2..512, with the B-point
-    row plan: the forward merge NTT of every row, or its inverse."""
+def rowmat(stats: KernelStats, x: torch.Tensor, plan: MergePlan,
+           inverse: bool) -> torch.Tensor:
+    """merge_u64_large_rowmat with its launch counted under `stats` (the
+    4-step's rows count under K10, hopper_fourstep.py)."""
     if not (plan.is64 and plan.q < (1 << 62) and 1 <= plan.logn <= 9):
         raise NTTDispatchError(
             f"merge_u64_large_rowmat takes u64 row plans with q < 2^62 and "
             f"logn 1-9, got q={plan.q} logn={plan.logn} is64={plan.is64}")
     _check(x, plan.n, plan.device)
     if x.device.type == "cpu":
-        ROWMAT.plain_calls += 1
+        stats.plain_calls += 1
         return rowmat_plain(x, plan, inverse)
     table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
                     else (plan.fwd_table, plan.fwd_shoup))
     y = torch.empty_like(x)
-    _launch(ROWMAT, _lib().merge_u64_large_rowmat, x, x.data_ptr(), y.data_ptr(),
+    _launch(stats, _lib().merge_u64_large_rowmat, x, x.data_ptr(), y.data_ptr(),
             x.shape[0], plan.logn, table.data_ptr(), shoup.data_ptr(), plan.q,
             (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup, int(inverse),
             int(plan.xnp))
     return y
+
+
+def merge_u64_large_rowmat(x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.Tensor:
+    """K8 on a contiguous (rows, B) tensor, B = 2..512, with the B-point
+    row plan: the forward merge NTT of every row, or its inverse."""
+    return rowmat(ROWMAT, x, plan, inverse)
 
 
 # --------------------------------------------------------------- composition

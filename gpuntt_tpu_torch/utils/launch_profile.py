@@ -1,13 +1,17 @@
-"""Where the device time goes: the merge entries under torch.profiler.
+"""Where the device time goes: the merge and 4-step entries under
+torch.profiler.
 
     python -m gpuntt_tpu_torch.utils.launch_profile [iters]
 
-Needs a CUDA card (exits 1 without one).  For each cell — u64 2^16 x 128,
-and the big rings u64 2^20 x 16 and 2^24 x 1 (the 61-bit pool prime),
-u32 2^16 x 128 and u32 2^20 x 16 (the pool prime 469762049), all
-X^N + 1 — it runs `iters` (default 20) calls of
+Needs a CUDA card (exits 1 without one).  For each merge cell — u64
+2^16 x 128, and the big rings u64 2^20 x 16 and 2^24 x 1 (the 61-bit
+pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool prime
+469762049), all X^N + 1 — it runs `iters` (default 20) calls of
 ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
-two CUDA events, and prints for each entry:
+two CUDA events; for each 4-step cell — u64 and u32 at 2^24 x 1 and
+2^16 x 128, X^N - 1, the pool primes of NTTParameters4Step — the same
+of fourstep_ntt_lanes and fourstep_intt_lanes.  It prints for each
+entry:
 
 - the window's time per call on the events, and the device's busy and
   idle share of it (the sum of the kernels' device time over the
@@ -29,12 +33,15 @@ import numpy as np
 import torch
 
 
+_OURS = ("merge_u", "fourstep")  # the namespaces of csrc/
+
+
 def _short(name: str) -> str:
     """Kernel name without its signature: merge_u32::rows<true>, or
     "torch: <kernel>" for PyTorch's own elementwise kernels."""
     name = name.replace("(anonymous namespace)::", "").split("(")[0]
     name = name.removeprefix("void ")
-    if name.startswith("merge_u"):
+    if name.startswith(_OURS):
         return name
     return "torch: " + name.split("<")[0].split("::")[-1]
 
@@ -69,7 +76,7 @@ def profile(fn, iters: int, operand_bytes: int) -> None:
     for name, (count, t) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
         per = t / count
         rate = (f", {2 * operand_bytes / per / 1e6:.3f} TB/s at one read + one write"
-                if name.startswith("merge_u") else "")
+                if name.startswith(_OURS) else "")
         print(f"    {name}: {count / iters:g} per call, {per:.3f} us per launch{rate}")
 
 
@@ -97,6 +104,17 @@ def main(iters: int = 20) -> int:
                           ("intt_lanes", lambda: g.intt_lanes(fa, plan)),
                           ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan))):
             print(f"u{bits} 2^{logn}x{batch} {entry}:")
+            profile(fn, iters, a.numel() * 8)
+    for dtype, logn, batch in ((np.uint64, 24, 1), (np.uint64, 16, 128), (np.uint32, 24, 1),
+                               (np.uint32, 16, 128)):
+        p = g.NTTParameters4Step(logn, g.ReductionPolynomial.X_N_minus, dtype)
+        plan = g.FourStepPlan.from_params(p, device=dev)
+        a = torch.from_numpy(rng.integers(0, p.modulus.value, size=(batch, p.n),
+                                          dtype=np.int64)).to(dev)
+        bits = 64 if dtype == np.uint64 else 32
+        for entry, fn in (("fourstep_ntt_lanes", lambda: g.fourstep_ntt_lanes(a, plan)),
+                          ("fourstep_intt_lanes", lambda: g.fourstep_intt_lanes(a, plan))):
+            print(f"4-step u{bits} 2^{logn}x{batch} {entry}:")
             profile(fn, iters, a.numel() * 8)
     return 0
 

@@ -2,11 +2,12 @@
 
 Each kernel against its plain PyTorch version on the same card, at
 every logn the kernels take (u64 11-17, the u64 big rings 18-28, u32
-8-25) and both reduction polynomials, on any input word; wide and
-narrow moduli against the golden NTTCPU, and the big rings against the
-native oracle at 2^24; the launch counters of the u32 and big-ring
-routes; the wrappers' refusals; CUDA-event timing.  Exact equality
-throughout.
+8-25, the 4-step's 12-24 in both word sizes) and both reduction
+polynomials, on any input word; wide and narrow moduli against the
+golden NTTCPU, the big rings against the native oracle at 2^24 and the
+4-step against NTT4StepCPU there; the launch counters of the u32,
+big-ring and 4-step routes; the wrappers' refusals; CUDA-event timing.
+Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
 only the port is installed:
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.ops import hopper_fourstep as hf
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
@@ -274,6 +276,118 @@ def test_numpy_entries_round_trip_on_card(card):
     np.testing.assert_array_equal(to_numpy_u64(tg.ntt_lanes(from_numpy_u64(x, card), plan)),
                                   tg.NTTCPU(p).ntt(x))
     np.testing.assert_array_equal(tg.intt(tg.ntt(x, plan), plan), x)
+
+
+def _fourstep_plan(logn, poly, dtype, card):
+    p = tg.NTTParameters4Step(logn, poly, dtype)
+    return p, tg.FourStepPlan.from_params(p, device=card)
+
+
+def _words(shape, is64, seed, card):
+    """Any input word: full 64-bit patterns, or values below 2^32 (u32)."""
+    x = np.random.default_rng(seed).integers(0, 1 << (64 if is64 else 32), size=shape,
+                                             dtype=np.uint64, endpoint=False)
+    return from_numpy_u64(x, card)
+
+
+def _fourstep_counts():
+    return {k.name: (k.launches, k.plain_calls)
+            for k in (*hf.KERNELS, *hm.KERNELS, *hm32.KERNELS) if k.launches or k.plain_calls}
+
+
+def _fourstep_reset():
+    for mod in (hf, hm, hm32):
+        mod.reset_counts()
+
+
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(12, 25))
+def test_fourstep_kernels_match_plain_on_card(card, logn, poly, dtype):
+    """K9 / K11's column twin in both directions, the rows (K10, K11's
+    row twin, or the merge kernels above 512 words) and the whole
+    transforms, against their plain versions, at every logn of
+    MATRIX_DIMENSIONS, batch 1, on any input word."""
+    p, plan = _fourstep_plan(logn, poly, dtype, card)
+    kp = hf.kernel_plan(plan)
+    is64 = dtype == np.uint64
+    col = hf.fourstep_u64_col if is64 else hf.fourstep_u32_col
+    x = _words((1, p.n), is64, logn, card)
+    _fourstep_reset()
+    for inverse in (False, True):
+        y = col(x, kp, inverse)
+        assert torch.equal(y, hf.col_plain(x, kp, inverse)), inverse
+        if kp.n2 <= hf.ROW_MAT_MAX:
+            r = y.view(-1, kp.n2)
+            row = hf.fourstep_u64_row if is64 else hf.fourstep_u32_row
+            plain = hml.rowmat_plain if is64 else hf.row32_plain
+            assert torch.equal(row(r, kp.rows, inverse), plain(r, kp.rows, inverse))
+    torch.cuda.synchronize()
+    stats = [hf.COL64 if is64 else hf.COL32]
+    if kp.n2 <= hf.ROW_MAT_MAX:
+        stats.append(hf.ROW64 if is64 else hf.ROW32)
+    assert _fourstep_counts() == {s.name: (2, 0) for s in stats}
+    for inverse in (False, True):
+        assert torch.equal(hf.fourstep(x, kp, inverse), hf.fourstep_plain(x, kp, inverse))
+
+
+@pytest.mark.parametrize("poly", POLYS)
+def test_fourstep_entries_against_golden_on_card(card, poly):
+    """u64 2^24 (256 x 65536): the four entries through the public
+    functions, the _full pair against NTT4StepCPU (the native oracle),
+    the lanes pair against the plain composition; K9 and K1/K2 ran."""
+    p, plan = _fourstep_plan(24, poly, np.uint64, card)
+    x_np = np.random.default_rng(24).integers(0, p.modulus.value, size=(1, p.n),
+                                              dtype=np.uint64)
+    x = from_numpy_u64(x_np, card)
+    gen = tg.NTT4StepCPU(p)
+    _fourstep_reset()
+    fx = tg.fourstep_ntt_full(x, plan)
+    ix = tg.fourstep_intt_full(x, plan)
+    torch.cuda.synchronize()
+    assert _fourstep_counts() == {hf.COL64.name: (2, 0), hm.FORWARD.name: (1, 0),
+                                  hm.INVERSE.name: (1, 0)}
+    np.testing.assert_array_equal(to_numpy_u64(fx[0]), gen.ntt(x_np[0]))
+    np.testing.assert_array_equal(to_numpy_u64(ix[0]), gen.intt(x_np[0]))
+    assert torch.equal(tg.fourstep_intt_full(fx, plan), x)
+    kp = hf.kernel_plan(plan)
+    assert torch.equal(tg.fourstep_ntt_lanes(x, plan), hf.fourstep_plain(x, kp))
+    assert torch.equal(tg.fourstep_intt_lanes(x, plan), hf.fourstep_plain(x, kp, True))
+    assert "w" not in plan._lazy  # the kernel route built no W table
+
+
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+def test_fourstep_he_width_on_card(card, dtype):
+    """2^16 x 128 (128 x 512: rows on K10 / K11's row twin): the lanes
+    entries against the plain composition on every row, and the round
+    trip through the _full entries."""
+    p, plan = _fourstep_plan(16, tg.ReductionPolynomial.X_N_minus, dtype, card)
+    x = torch.from_numpy(np.random.default_rng(16).integers(
+        0, p.modulus.value, size=(128, p.n), dtype=np.int64)).to(card)
+    kp = hf.kernel_plan(plan)
+    _fourstep_reset()
+    fx = tg.fourstep_ntt_lanes(x, plan)
+    ix = tg.fourstep_intt_lanes(fx, plan)
+    torch.cuda.synchronize()
+    col, row = (hf.COL64, hf.ROW64) if kp.is64 else (hf.COL32, hf.ROW32)
+    assert _fourstep_counts() == {col.name: (2, 0), row.name: (2, 0)}
+    assert torch.equal(fx, hf.fourstep_plain(x, kp))
+    assert torch.equal(ix, hf.fourstep_plain(fx, kp, True))
+    assert torch.equal(tg.fourstep_intt_full(tg.fourstep_ntt_full(x, plan), plan), x)
+
+
+def test_fourstep_wrappers_refuse_on_card(card):
+    p, plan = _fourstep_plan(12, tg.ReductionPolynomial.X_N_plus, np.uint64, card)
+    kp = hf.kernel_plan(plan)
+    x = torch.zeros((2, p.n), dtype=torch.int64, device=card)
+    with pytest.raises(tg.NTTDispatchError):
+        hf.fourstep_u64_col(x.cpu(), kp, False)
+    with pytest.raises(tg.NTTDispatchError):
+        hf.fourstep_u64_col(x.to(torch.int32), kp, False)
+    with pytest.raises(tg.NTTDispatchError):
+        hf.fourstep_u32_col(x, kp, False)
+    with pytest.raises(tg.NTTDispatchError):
+        hf.fourstep_u64_row(x.view(-1, kp.n2).t(), kp.rows, True)
 
 
 def test_time_cuda(card):

@@ -32,7 +32,7 @@ COPIES = [
     "common/errors.py", "common/check.py", "arith/__init__.py",
     "arith/modulus.py", "arith/host.py", "params/bitrev.py", "params/merge.py",
     "_native/nttref.cpp", "reference/vecmod.py", "reference/merge_cpu.py",
-    "reference/schoolbook.py",
+    "reference/schoolbook.py", "params/fourstep.py", "reference/fourstep_cpu.py",
 ]
 
 
@@ -109,6 +109,32 @@ def test_native_core_builds_outside_tracked_tree():
     assert _native.power_table(3, 97, 8).tolist() == [pow(3, i, 97) for i in range(8)]
 
 
+@pytest.mark.parametrize("n1,n2", [(32, 128), (64, 512)])
+def test_fourstep_native_bindings_match(n1, n2):
+    """The four bindings the 4-step golden model calls, against
+    gpuntt_tpu._native's on the same inputs."""
+    from gpuntt_tpu import _native as jnative
+
+    logn = (n1 * n2).bit_length() - 1
+    p = tg.NTTParameters4Step(logn, tg.ReductionPolynomial.X_N_minus, np.uint64,
+                              dims=(n1, n2))
+    q = p.modulus.value
+    x = np.random.default_rng(n1).integers(0, q, size=(n1, n2), dtype=np.uint64)
+    for name, table in (("core_ntt_rows", p.n2_based_root_of_unity_table),
+                        ("core_intt_rows", p.n2_based_inverse_root_of_unity_table)):
+        got = getattr(_native, name)(x, table, q)
+        np.testing.assert_array_equal(got, getattr(jnative, name)(x, table, q), err_msg=name)
+        assert not np.array_equal(got, x)
+    for name, root in (("w_table_forward", p.root_of_unity),
+                       ("w_table_inverse", p.inverse_root_of_unity)):
+        got = getattr(_native, name)(root, q, n1, n2)
+        np.testing.assert_array_equal(got, getattr(jnative, name)(root, q, n1, n2),
+                                      err_msg=name)
+    assert got[n2 + 1] == pow(p.inverse_root_of_unity, n2 // 2, q)  # iroot^(1 * br(1))
+    # the parameters' W table: the bindings at n >= 2^14, Python below
+    np.testing.assert_array_equal(p.W_inverse_root_of_unity_table, got)
+
+
 def test_devices_on_this_host():
     """The default device is the card; without one, a plan or model made
     for it raises instead of quietly running on the host."""
@@ -164,6 +190,12 @@ def test_port_runs_with_jax_unavailable():
         "assert np.array_equal(g.intt(g.ntt(x, plan), plan), x)\n"
         "from gpuntt_tpu_torch.ops import hopper_merge32 as h\n"
         "assert h.FORWARD['K4'].plain_calls == 2 and h.INVERSE['K4'].plain_calls == 1\n"
+        "p = g.NTTParameters4Step(14, g.ReductionPolynomial.X_N_plus, np.uint64)\n"
+        "x = np.random.default_rng(1).integers(0, p.modulus.value, (2, p.n), dtype=np.uint64)\n"
+        "plan = g.FourStepPlan.from_params(p, device='cpu')\n"
+        "from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64\n"
+        "y = to_numpy_u64(g.fourstep_ntt_full(from_numpy_u64(x), plan))\n"
+        "assert np.array_equal(y, np.stack([g.NTT4StepCPU(p).ntt(r) for r in x]))\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "print('ran')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

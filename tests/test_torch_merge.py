@@ -217,7 +217,7 @@ template <class F> void emu_launch(long long grid, F f) {
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 6, "merge_u64_large": 4, "merge_u32": 4}
+_LAUNCHES = {"merge_u64": 6, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1}
 
 
 def _emulated_source(name: str) -> str:
@@ -231,7 +231,7 @@ def _emulated_source(name: str) -> str:
     src = src.replace("constexpr int kThreads = 256;", "constexpr int kThreads = 1;")
     src = src.replace("extern __shared__ uint32_t smem[];", "uint32_t* smem = emu_smem;")
     src = src.replace("extern __shared__ uint64_t smem[];", "uint64_t* smem = emu_smem64;")
-    launch = re.compile(r"(\w+(?:<\w+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
+    launch = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
     out, i = [], 0
     while (m := launch.search(src, i)) is not None:
         j, depth = m.end(), 1
@@ -428,9 +428,10 @@ def test_cuda_source_large_emulated_refuses_bad_shapes(emulated_large, entry, ar
     assert rc == 1  # cudaErrorInvalidValue
 
 
-U32_EMULATED = [(logn, poly, 2) for logn in (8, 12, 16, 17, 18)
+U32_EMULATED = [(logn, poly, 2) for logn in (7, 8, 12, 16, 17, 18)
                 for poly in (tg.ReductionPolynomial.X_N_minus,
                              tg.ReductionPolynomial.X_N_plus)] + [
+    (7, tg.ReductionPolynomial.X_N_minus, 130),  # the 4-step's rows of 128: 64 a block
     (8, tg.ReductionPolynomial.X_N_plus, 33),  # two blocks of rings, one short
     (22, tg.ReductionPolynomial.X_N_minus, 1), (22, tg.ReductionPolynomial.X_N_plus, 1),
     (23, tg.ReductionPolynomial.X_N_plus, 1)]  # the 128 KiB tile
@@ -439,8 +440,9 @@ U32_EMULATED = [(logn, poly, 2) for logn in (8, 12, 16, 17, 18)
 @pytest.mark.parametrize("logn,poly,batch", U32_EMULATED)
 def test_cuda_source_u32_emulated_matches_plain(emulated32, logn, poly, batch):
     """merge_u32.cu's two entries on any u32 word, at every tile shape of
-    the split rule: one launch over whole rings (8, 12), the 32 KiB
-    two-phase tiles (16-22) and the 128 KiB one (23)."""
+    the split rule: one launch over whole rings (7, 8, 12; logn 7 is the
+    4-step's rows), the 32 KiB two-phase tiles (16-22) and the 128 KiB
+    one (23)."""
     p = tg.NTTParameters(logn, poly, np.uint32)
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = torch.from_numpy(np.random.default_rng(logn).integers(
@@ -479,6 +481,137 @@ def test_cuda_source_u32_emulated_refuses_bad_shapes(emulated32, logn, log_a, ba
                                          plan.inv_table.data_ptr(),
                                          plan.inv_shoup.data_ptr(), plan.q, 1, 1, 1, 1,
                                          None)):
+        assert rc == 1  # cudaErrorInvalidValue
+
+
+@pytest.fixture(scope="module")
+def emulated_fourstep(tmp_path_factory):
+    return _emulate(tmp_path_factory, "fourstep")
+
+
+def _fourstep_col(lib, x, kp, inverse):
+    c, y = kp.col, torch.empty_like(x)
+    tabs = ((c.inv_table, c.inv_shoup, kp.wt_inv, kp.wt_inv_shoup, kp.ws_inv,
+             kp.ws_inv_shoup) if inverse else
+            (c.fwd_table, c.fwd_shoup, kp.wt_fwd, kp.wt_fwd_shoup, kp.ws_fwd,
+             kp.ws_fwd_shoup))
+    word = "u64" if kp.is64 else "u32"
+    assert getattr(lib, f"fourstep_{word}_col_{'inv' if inverse else 'fwd'}")(
+        0, x.data_ptr(), y.data_ptr(), x.shape[0], kp.n1.bit_length() - 1,
+        kp.n2.bit_length() - 1, kp.tile.bit_length() - 1, kp.w_tile.bit_length() - 1,
+        *(t.data_ptr() for t in tabs), kp.q, (1 << (64 if kp.is64 else 32)) // kp.q,
+        None) == 0
+    return y
+
+
+def _fourstep_kplan(logn, dims, dtype, poly):
+    from gpuntt_tpu_torch.ops import fourstep as tf
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+
+    p = tg.NTTParameters4Step(logn, poly, dtype, dims=dims)
+    return hf.kernel_plan(tf.FourStepPlan.from_params(p, device="cpu"))
+
+
+# (logn, n1, n2): every n1 of MATRIX_DIMENSIONS (32-256) and the largest
+# the kernels take (512), with several tiles of rows where n2 allows
+FOURSTEP_EMULATED = [(14, 32, 512), (13, 64, 128), (13, 128, 64), (14, 256, 64),
+                     (13, 512, 16)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+@pytest.mark.parametrize("logn,n1,n2", FOURSTEP_EMULATED)
+def test_cuda_source_fourstep_emulated_matches_plain(emulated_fourstep, logn, n1, n2,
+                                                     dtype):
+    """fourstep.cu's column entries (K9 and K11's column twin), both
+    directions, on any input word, against the plain version."""
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+
+    kp = _fourstep_kplan(logn, (n1, n2), dtype, tg.ReductionPolynomial.X_N_plus)
+    hi = 1 << (64 if kp.is64 else 32)
+    x = to_lanes(np.random.default_rng(logn + n1).integers(0, hi, size=(2, kp.n),
+                                                            dtype=np.uint64), True)
+    for inverse in (False, True):
+        assert torch.equal(_fourstep_col(emulated_fourstep, x, kp, inverse),
+                           hf.col_plain(x, kp, inverse))
+
+
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+@pytest.mark.parametrize("logn", [12, 17])
+def test_cuda_source_fourstep_composition_emulated(emulated_fourstep, emulated_large,
+                                                   emulated, emulated32, logn, dtype):
+    """The whole 4-step through emulated sources — the column kernels of
+    fourstep.cu, then rows of 128 words (logn 12: K10 on merge_u64_large.cu's
+    row entry, K11's row twin on merge_u32.cu) or 4096 (logn 17: K1/K2 on
+    merge_u64.cu, the u32 family) — against the plain composition."""
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+
+    kp = _fourstep_kplan(logn, None, dtype, tg.ReductionPolynomial.X_N_minus)
+
+    def row64(x, plan, inverse):
+        table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
+                        else (plan.fwd_table, plan.fwd_shoup))
+        y = torch.empty_like(x)
+        assert emulated_large.merge_u64_large_rowmat(
+            0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn, table.data_ptr(),
+            shoup.data_ptr(), plan.q, (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup,
+            int(inverse), 0, None) == 0
+        return y
+
+    def u32(inverse):
+        def run(x, plan, *_):
+            y, table, shoup = ((torch.empty_like(x), plan.inv_table, plan.inv_shoup)
+                               if inverse else
+                               (torch.empty_like(x), plan.fwd_table, plan.fwd_shoup))
+            scale = (plan.n_inv, plan.n_inv_shoup) if inverse else ()
+            entry = emulated32.merge_u32_inverse if inverse else emulated32.merge_u32_forward
+            assert entry(0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn,
+                         hm32.split(plan.logn), table.data_ptr(), shoup.data_ptr(), plan.q,
+                         (1 << 32) // plan.q, *scale, 0, None) == 0
+            return y
+        return run
+
+    def u64(inverse):
+        def run(x, plan):
+            y, table, shoup = ((torch.empty_like(x), plan.inv_table, plan.inv_shoup)
+                               if inverse else
+                               (torch.empty_like(x), plan.fwd_table, plan.fwd_shoup))
+            scale = (plan.n_inv, plan.n_inv_shoup) if inverse else ()
+            entry = emulated.merge_u64_inverse if inverse else emulated.merge_u64_forward
+            assert entry(0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn,
+                         hm.split(plan.logn), table.data_ptr(), shoup.data_ptr(), plan.q,
+                         (1 << 64) // plan.q, *scale, 0, None) == 0
+            return y
+        return run
+
+    def col(x, kp, inverse):
+        return _fourstep_col(emulated_fourstep, x, kp, inverse)
+
+    steps = (hf._Steps(col, row64, u64(False), u64(True)) if kp.is64 else
+             hf._Steps(col, lambda x, plan, inverse: u32(inverse)(x, plan),
+                       u32(False), u32(True)))
+    x = to_lanes(data(tg.NTTParameters4Step(logn, dtype=dtype), 2, logn), kp.is64)
+    for inverse in (False, True):
+        assert torch.equal(hf._transform(x, kp, inverse, steps),
+                           hf.fourstep_plain(x, kp, inverse))
+
+
+@pytest.mark.parametrize("word,args", [
+    ("u64", dict(log1=10, logT=2)),          # n1 = 1024: past the column kernels' 512
+    ("u32", dict(log1=10, logT=3)),
+    ("u64", dict(batch=1 << 20, log2=20)),   # 2^36 blocks: past the grid's 2^31
+    ("u64", dict(log1=5, logT=8)),           # a 2^13-word u64 tile: past 32 KiB
+    ("u32", dict(logT=7)),                   # a tile of more rows than the ring has
+    ("u64", dict(logTw=7)),                  # a W tile wider than the rows
+    ("u32", dict(batch=0)),
+])
+def test_cuda_source_fourstep_emulated_refuses_bad_shapes(emulated_fourstep, word, args):
+    x = torch.zeros(1 << 14, dtype=torch.int64)
+    a = dict(batch=1, log1=3, log2=6, logT=4, logTw=3) | args
+    p = x.data_ptr()
+    for d in ("fwd", "inv"):
+        rc = getattr(emulated_fourstep, f"fourstep_{word}_col_{d}")(
+            0, p, p, a["batch"], a["log1"], a["log2"], a["logT"], a["logTw"], p, p, p, p, p,
+            p, 97, 1, None)
         assert rc == 1  # cudaErrorInvalidValue
 
 
