@@ -105,6 +105,316 @@ def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int) -> tuple[flo
                     batch * (1 << (logn - 1)) * logn * mul_per_bf)
 
 
+def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
+    """14-17: the u64 RNS path (K12, K13, K14), through the public entries."""
+    import torch
+
+    import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch.ops import dispatch as td
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
+    from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
+    from gpuntt_tpu_torch.utils.timing import time_cuda
+
+    MINUS = g.ReductionPolynomial.X_N_minus
+    PLUS = g.ReductionPolynomial.X_N_plus
+    T = g.transpose_lanes
+    FWD, INV, PINV, CF, CI, RM, C4 = (k.name for k in hr.KERNELS)
+
+    def members(logn, mc, poly=MINUS, four=False):
+        params = g.NTTParameters4Step if four else g.NTTParameters
+        out = []
+        for q in g.find_ntt_primes(59, logn, mc):
+            omega, psi = g.ntt_root_pair(q, logn)
+            out.append(params(logn, poly, np.uint64,
+                              factors=g.NTTFactors(g.Modulus64(q), omega, psi)))
+        return out
+
+    def residues(qs, mod_idx, n):
+        return np.stack([rng.integers(0, qs[m], n, dtype=np.uint64) for m in mod_idx])
+
+    def counted() -> dict:
+        torch.cuda.synchronize()
+        ks = (*hr.KERNELS, *hm.KERNELS, *hml.KERNELS, *hf.KERNELS)
+        if any(k.plain_calls for k in ks):
+            raise AssertionError(f"plain versions ran: {[(k.name, k.plain_calls) for k in ks]}")
+        return {k.name: k.launches for k in ks if k.launches}
+
+    def same(name, got, want, what):
+        e = int((got - want).abs().max().item())
+        err[name] = max(err.get(name, 0), e)
+        check(torch.equal(got, want), f"{what} == plain version (max |diff| {e})")
+
+    def timed(name, kernel, plain, bound, cell, repeats=5):
+        runs = [time_cuda(plain, repeats=repeats, inner=2), time_cuda(kernel),
+                time_cuda(kernel), time_cuda(plain, repeats=repeats, inner=2)]
+        k_ms, p_ms = (runs[1][0] + runs[2][0]) / 2, (runs[0][0] + runs[3][0]) / 2
+        times[name], bounds[name] = (k_ms, p_ms), bound
+        print(f"time {name} {cell}: kernel {k_ms:.5f} ms (spread "
+              f"{max(runs[1][1], runs[2][1]):.3f}), plain {p_ms:.3f} ms (spread "
+              f"{max(runs[0][1], runs[3][1]):.3f}), bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{bound[0] / k_ms:.1%} of it")
+        return k_ms
+
+    def e2e(what, fn):
+        ms, spread = time_cuda(fn)
+        print(f"time {what}: {ms:.5f} ms (spread {spread:.3f})")
+        return ms
+
+    # -- 14. the headline: rns_polymul at u64 2^16 x 64, ladder 8, X^N - 1
+    ms8 = members(16, 8)
+    t0 = time.perf_counter()
+    plan = g.RNSMergePlan.from_params(ms8, device=dev)
+    torch.cuda.synchronize()
+    print(f"RNS u64 2^16 ladder 8 plan build {time.perf_counter() - t0:.3f} s, "
+          f"{plan.device_bytes()} bytes of stacked tables on the card")
+    n, cyc = plan.n, np.arange(64) % 8
+    a_np, b_np = residues(plan.qs, cyc, n), residues(plan.qs, cyc, n)
+    # stack 0 (rows 0-7) holds one integer polynomial pair, for the CRT check:
+    # a with 8 terms, b dense, coefficients below 2^62
+    a_terms = {int(i): int(v) for i, v in zip(rng.choice(n, 8, replace=False),
+                                             rng.integers(0, 1 << 62, 8, dtype=np.uint64))}
+    b_int = [int(v) for v in rng.integers(0, 1 << 62, n, dtype=np.uint64)]
+    for m, q in enumerate(plan.qs):
+        a_np[m] = 0
+        for i, v in a_terms.items():
+            a_np[m, i] = v % q
+        b_np[m] = np.array([v % q for v in b_int], dtype=np.uint64)
+    a, b = from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)
+    model = g.RNSPolynomialMultiplier(ms8, device=dev)
+
+    reset()
+    fa_np = g.ntt_rns(a_np, plan)
+    back_np = g.intt_rns(fa_np, plan)
+    prod_np = g.rns_polymul(a_np, b_np, plan)
+    mout = model(a.view(8, 8, n), b.view(8, 8, n))
+    run = counted()
+    check(run == {FWD: 5, INV: 1, PINV: 2},
+          f"RNS 2^16x64 L8 ntt_rns, intt_rns, rns_polymul and the model launched K12 "
+          f"only, no plain version ({run})")
+    launches.update({FWD: run[FWD], INV: run[INV], PINV: run[PINV]})
+
+    midx = torch.tensor(cyc, dtype=torch.int32, device=dev)
+    fa = from_numpy_u64(fa_np, dev)
+    fa_plain = hr.rns_u64_fwd_plain(a, plan, midx)
+    fb_plain = hr.rns_u64_fwd_plain(b, plan, midx)
+    same(FWD, fa, fa_plain, "RNS 2^16x64 L8 ntt_rns, all rows,")
+    same(INV, from_numpy_u64(back_np, dev), hr.rns_u64_inv_plain(fa, plan, midx),
+         "RNS 2^16x64 L8 intt_rns, all rows,")
+    check(np.array_equal(back_np, a_np), "RNS 2^16x64 L8 intt_rns(ntt_rns(a)) == a")
+    prod = from_numpy_u64(prod_np, dev)
+    same(PINV, prod, hr.rns_u64_polymul_inv_plain(fa_plain, fb_plain, plan, midx),
+         "RNS 2^16x64 L8 rns_polymul, all rows,")
+    check(torch.equal(mout.reshape(64, n), prod), "RNSPolynomialMultiplier == rns_polymul")
+    for r in (0, 13, 63):
+        gen = g.NTTCPU(ms8[r % 8])
+        check(np.array_equal(fa_np[r], gen.ntt(a_np[r])),
+              f"RNS ntt_rns row {r} == NTTCPU of member {r % 8}")
+        check(np.array_equal(prod_np[r], gen.intt(gen.mult(gen.ntt(a_np[r]),
+                                                           gen.ntt(b_np[r])))),
+              f"RNS rns_polymul row {r} == NTTCPU of member {r % 8}")
+    t0 = time.perf_counter()
+    big_q = 1
+    for q in plan.qs:
+        big_q *= q
+    want = [0] * n
+    for i, v in a_terms.items():
+        for j, w in enumerate(b_int):
+            want[(i + j) % n] += v * w
+    check(g.crt_reconstruct(prod_np[:8], plan.qs) == [w % big_q for w in want],
+          f"RNS rns_polymul stack 0, CRT-lifted, == the schoolbook product mod Q "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    # -- 15. the schedules: ladder 3 at logn 12 and 14 against the plain versions
+    for logn in (12, 14):
+        for poly in (MINUS, PLUS):
+            ms3 = members(logn, 3, poly)
+            plan3 = g.RNSMergePlan.from_params(ms3, device=dev)
+            cpu3 = g.RNSMergePlan.from_params(ms3, device="cpu")
+            x = residues((min(plan3.qs),) * 3, [0] * 6, plan3.n)
+            cell = f"RNS 2^{logn}x6 L3 {poly.name}"
+            calls = [(name, order, {}) for name in ("ntt_modulus_ordered", "intt_modulus_ordered")
+                     for order in ([2, 0, 1], [5, -1, 0])]
+            calls += [(name, [2, 0, 2, 5], {"batch_size": 4})
+                      for name in ("ntt_poly_ordered", "intt_poly_ordered")]
+            reset()
+            outs = [getattr(g, name)(x, plan3, order, **kw) for name, order, kw in calls]
+            run = counted()
+            check(run == {FWD: 3, INV: 3}, f"{cell} ordered entries launched K12 ({run})")
+            for (name, order, kw), got in zip(calls, outs):
+                check(np.array_equal(got, getattr(g, name)(x, cpu3, order, **kw)),
+                      f"{cell} {name} {order} {kw} == plain versions")
+            check(np.array_equal(outs[1], g.ntt_modulus_ordered(x, plan3, [2, 2, 0])),
+                  f"{cell} order [5, -1, 0] reads as [2, 2, 0]")
+
+    # -- 16. K12 at 2^17 x 12 and K13 at 2^18 x 12, ladder 3 (the JAX cells large-17/18)
+    large = {}
+    for logn in (17, 18):
+        ms3 = members(logn, 3)
+        t0 = time.perf_counter()
+        plan3 = g.RNSMergePlan.from_params(ms3, device=dev)
+        sp = hr.large_plan(plan3) if logn == 18 else None
+        torch.cuda.synchronize()
+        size = (sp.device_bytes() if sp else plan3.device_bytes())
+        print(f"RNS u64 2^{logn} ladder 3 plan build {time.perf_counter() - t0:.3f} s, "
+              f"{size} bytes of {'K13' if sp else 'K12'} tables on the card")
+        cyc3 = np.arange(12) % 3
+        x = from_numpy_u64(residues(plan3.qs, cyc3, plan3.n), dev)
+        y = from_numpy_u64(residues(plan3.qs, cyc3, plan3.n), dev)
+        m3 = torch.tensor(cyc3, dtype=torch.int32, device=dev)
+        cell = f"RNS 2^{logn}x12 L3"
+        reset()
+        fx = td.ntt_rns_lanes(x, plan3, cyc3)
+        bx = td.intt_rns_lanes(fx, plan3, cyc3)
+        pxy = td.rns_polymul_lanes(x, y, plan3, cyc3)
+        run = counted()
+        want_run = {FWD: 3, INV: 1, PINV: 1}
+        if sp:
+            want_run.update({CF: 3, CI: 2})
+            launches.update({CF: run[CF], CI: run[CI]})
+            check(plan3.fwd_tables is None and all(m.fwd_table is None for m in plan3.members),
+                  f"{cell} built no N-entry table")
+        check(run == want_run, f"{cell} ntt, intt and polymul launched {run}")
+        if sp:
+            fx_plain = hr.rns_u64_large_plain(x, sp, m3)
+            same(CF, fx, fx_plain, f"{cell} ntt_rns_lanes, all rows,")
+            same(CI, bx, hr.rns_u64_large_plain(fx, sp, m3, inverse=True),
+                 f"{cell} intt_rns_lanes")
+            same(PINV, pxy, hr.rns_u64_large_polymul_inv_plain(
+                fx_plain, hr.rns_u64_large_plain(y, sp, m3), sp, m3), f"{cell} polymul")
+        else:
+            fx_plain = hr.rns_u64_fwd_plain(x, plan3, m3)
+            same(FWD, fx, fx_plain, f"{cell} ntt_rns_lanes, all rows,")
+            same(INV, bx, hr.rns_u64_inv_plain(fx, plan3, m3), f"{cell} intt_rns_lanes")
+            same(PINV, pxy, hr.rns_u64_polymul_inv_plain(
+                fx_plain, hr.rns_u64_fwd_plain(y, plan3, m3), plan3, m3), f"{cell} polymul")
+        check(torch.equal(bx, x), f"{cell} intt(ntt(x)) == x")
+        for r in (0, 11):
+            gen = g.NTTCPU(ms3[r % 3])
+            check(np.array_equal(to_numpy_u64(fx[r]), gen.ntt(to_numpy_u64(x[r]))),
+                  f"{cell} row {r} == NTTCPU of member {r % 3}")
+        large[logn] = (plan3, sp, x, y, fx, m3, cyc3)
+
+    # -- 17. the RNS 4-step (K14): 2^16 x 64 (128 x 512) and 2^20 x 8 (32 x 32768), ladder 8
+    four = {}
+    for logn, batch in ((16, 64), (20, 8)):
+        ms4 = members(logn, 8, four=True)
+        t0 = time.perf_counter()
+        plan4 = g.RNSFourStepPlan.from_params(ms4, device=dev)
+        sp4 = hr.fourstep_plan(plan4)
+        torch.cuda.synchronize()
+        kp = sp4.first
+        print(f"RNS 4-step u64 2^{logn} ladder 8 plan build {time.perf_counter() - t0:.3f} s, "
+              f"{sp4.device_bytes()} bytes of K14 tables on the card (n1={kp.n1} n2={kp.n2})")
+        cyc8 = np.arange(batch) % 8
+        x_np = residues(plan4.qs, cyc8, plan4.n)
+        x = from_numpy_u64(x_np, dev)
+        m8 = torch.tensor(cyc8, dtype=torch.int32, device=dev)
+        cell = f"RNS 4-step 2^{logn}x{batch} L8"
+        rows = {RM: 1} if kp.n2 <= hf.ROW_MAT_MAX else None
+        outs, total = {}, {}
+        for entry, fn, inverse in (("ntt_lanes", g.rns_fourstep_ntt_lanes, False),
+                                   ("intt_lanes", g.rns_fourstep_intt_lanes, True),
+                                   ("ntt_full", g.rns_fourstep_ntt_full, False),
+                                   ("intt_full", g.rns_fourstep_intt_full, True)):
+            reset()
+            outs[entry] = fn(x, plan4, cyc8)
+            run = counted()
+            want_run = {C4: 1, **(rows or {INV if inverse else FWD: 1})}
+            check(run == want_run, f"{cell} {entry} launched {run}")
+            for k, v in run.items():
+                total[k] = total.get(k, 0) + v
+        if rows:
+            launches[RM] = total[RM]
+        else:
+            launches[C4] = total[C4]
+        n1, n2 = kp.n1, kp.n2
+        pairs = {"ntt_lanes": hr.rns_fourstep_plain(x, sp4, m8),
+                 "intt_lanes": hr.rns_fourstep_plain(x, sp4, m8, True),
+                 "ntt_full": T(hr.rns_fourstep_plain(T(x, n1, n2), sp4, m8), n1, n2),
+                 "intt_full": T(hr.rns_fourstep_plain(T(x, n2, n1), sp4, m8, True), n1, n2)}
+        for entry, want in pairs.items():
+            same(C4, outs[entry], want, f"{cell} {entry}, all {batch} rows,")
+        check(torch.equal(g.rns_fourstep_intt_full(outs["ntt_full"], plan4, cyc8), x),
+              f"{cell} intt_full(ntt_full(x)) == x")
+        for r in (0, batch - 1):
+            gen = g.NTT4StepCPU(ms4[r % 8])
+            check(np.array_equal(to_numpy_u64(outs["ntt_full"][r]), gen.ntt(x_np[r]))
+                  and np.array_equal(to_numpy_u64(outs["intt_full"][r]), gen.intt(x_np[r])),
+                  f"{cell} ntt_full, intt_full row {r} == NTT4StepCPU of member {r % 8}")
+        check(all("w" not in m._lazy for m in plan4.members), f"{cell} built no W table")
+        for inverse in (False, True):
+            y = hr.rns_fourstep_u64_col(x, sp4, m8, inverse)
+            same(C4, y, hr.col4_plain(x, sp4, m8, inverse), f"{cell} {C4} inverse={inverse}")
+            if rows:
+                r = y.view(-1, n2)
+                same(RM, hr.rns_u64_large_rowmat(r, sp4.rows, m8, n1.bit_length() - 1, inverse),
+                     hr.rowmat_plain(r, sp4.rows, m8, n1.bit_length() - 1, inverse),
+                     f"{cell} {RM} inverse={inverse} on {r.shape[0]} rows")
+        four[logn] = (plan4, sp4, x, m8, cyc8, batch)
+        del outs, pairs
+
+    # -- times: each RNS kernel at its cell (plain, kernel, kernel, plain), end to end
+    cell = "RNS u64 2^16x64 L8"
+    k12 = timed(FWD, lambda: hr.rns_u64_fwd(a, plan, midx),
+                lambda: hr.rns_u64_fwd_plain(a, plan, midx), bound_ms(64, 16, 1, 16), cell)
+    timed(INV, lambda: hr.rns_u64_inv(fa, plan, midx),
+          lambda: hr.rns_u64_inv_plain(fa, plan, midx), bound_ms(64, 16, 1, 16), cell)
+    timed(PINV, lambda: hr.rns_u64_polymul_inv(fa, fa_plain, plan, midx),
+          lambda: hr.rns_u64_polymul_inv_plain(fa, fa_plain, plan, midx),
+          bound_ms(64, 16, 2, 16), cell)
+    one = g.MergePlan.from_params(ms8[0], device=dev)
+    k1 = e2e("K1 merge_u64_forward (one modulus, member 0) u64 2^16x64",
+             lambda: hm.merge_u64_fwd(a, one))
+    print(f"K12 / K1 at u64 2^16x64: {k12 / k1:.3f}")
+    for what, fn in (("ntt_rns_lanes", lambda: td.ntt_rns_lanes(a, plan, cyc)),
+                     ("intt_rns_lanes", lambda: td.intt_rns_lanes(fa, plan, cyc)),
+                     ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a, b, plan, cyc)),
+                     ("RNSPolynomialMultiplier", lambda: model(a.view(8, 8, n), b.view(8, 8, n))),
+                     ("ntt_lanes (one modulus, yardstick)", lambda: g.ntt_lanes(a, one))):
+        e2e(f"{what} {cell} end to end", fn)
+    for logn in (17, 18):
+        plan3, sp, x, y, fx, m3, cyc3 = large[logn]
+        cell = f"RNS u64 2^{logn}x12 L3"
+        if sp:
+            nw = 12 << logn
+            for name, inverse, src in ((CF, False, x), (CI, True, fx)):
+                fn = hr.rns_u64_large_colinv if inverse else hr.rns_u64_large_colfwd
+                plain = hr.colinv_plain if inverse else hr.colfwd_plain
+                timed(name, lambda fn=fn, src=src: fn(src, sp, m3),
+                      lambda plain=plain, src=src: plain(src, sp, m3),
+                      bound_of(2 * 8 * nw, 16 * (nw // 2 * 7 + (3 if inverse else 2) * nw)),
+                      cell)
+        else:
+            e2e(f"{FWD} {cell}", lambda: hr.rns_u64_fwd(x, plan3, m3))
+            e2e(f"{INV} {cell}", lambda: hr.rns_u64_inv(fx, plan3, m3))
+            print(f"bound {cell} per K12 launch: {bound_ms(12, logn, 1, 16)}")
+        for what, fn in (("ntt_rns_lanes", lambda: td.ntt_rns_lanes(x, plan3, cyc3)),
+                         ("intt_rns_lanes", lambda: td.intt_rns_lanes(fx, plan3, cyc3)),
+                         ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(x, y, plan3, cyc3))):
+            e2e(f"{what} {cell} end to end", fn)
+    plan4, sp4, x, m8, cyc8, batch = four[16]
+    r = hr.col4_plain(x, sp4, m8, False).view(-1, sp4.first.n2)
+    shift = sp4.first.n1.bit_length() - 1
+    timed(RM, lambda: hr.rns_u64_large_rowmat(r, sp4.rows, m8, shift, False),
+          lambda: hr.rowmat_plain(r, sp4.rows, m8, shift, False),
+          bound_of(2 * 8 * r.numel(), 16 * (r.numel() // 2) * 9),
+          f"RNS 4-step 2^16x64 L8 rows {r.shape[0]}x{r.shape[1]}")
+    plan4, sp4, x, m8, cyc8, batch = four[20]
+    nw, log1 = batch << 20, sp4.first.n1.bit_length() - 1
+    timed(C4, lambda: hr.rns_fourstep_u64_col(x, sp4, m8, False),
+          lambda: hr.col4_plain(x, sp4, m8, False),
+          bound_of(2 * 8 * nw, 16 * (nw // 2 * log1 + 2 * nw)), "RNS 4-step 2^20x8 L8")
+    for logn, (plan4, sp4, x, m8, cyc8, batch) in sorted(four.items()):
+        cell = f"RNS 4-step u64 2^{logn}x{batch} L8"
+        print(f"bound {cell} per transform: {bound_ms(batch, logn, 1, 16)}")
+        for what, fn in (("rns_fourstep_ntt_lanes", g.rns_fourstep_ntt_lanes),
+                         ("rns_fourstep_intt_lanes", g.rns_fourstep_intt_lanes)):
+            e2e(f"{what} {cell} end to end", lambda fn=fn: fn(x, plan4, cyc8))
+
+
 def main() -> int:
     import torch
 
@@ -119,6 +429,7 @@ def main() -> int:
     from gpuntt_tpu_torch.ops import hopper_merge as hm
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
     from gpuntt_tpu_torch.ops.merge_ntt import from_lanes
     from gpuntt_tpu_torch.utils.timing import time_cuda
@@ -132,6 +443,7 @@ def main() -> int:
         hm32.reset_counts()
         hml.reset_counts()
         hf.reset_counts()
+        hr.reset_counts()
 
     def counted() -> dict:
         """{kernel: launches} of the u64 kernels that ran since reset();
@@ -716,6 +1028,7 @@ def main() -> int:
                          f"(spread {max(r[1] for r in p_runs):.3f})")
             print(f"{line}, bound {bound[0]:.5f} ms ({bound[1]}), "
                   f"{bound[0] / k_ms:.1%} of it")
+    rns_phase(dev, rng, reset, launches, err, times, bounds)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -724,7 +1037,7 @@ def main() -> int:
          "max_abs_err": err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS)]}))
+        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS, *hr.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,7 +20,13 @@ paths of both word sizes so far:
 - the merge entries of the transform API and PolynomialMultiplier;
 - the 4-step entries (`fourstep_{ntt,intt}_{lanes,full}`,
   `transpose_lanes`), FourStepPlan, NTTParameters4Step and the golden
-  NTT4StepCPU.
+  NTT4StepCPU;
+- the RNS entries (`ntt_rns`, `intt_rns`, the modulus- and
+  poly-ordered schedules, `rns_pointwise_mult(_lanes)`, `rns_polymul`),
+  RNSMergePlan, the RNS 4-step (`RNSFourStepPlan`,
+  `rns_fourstep_{ntt,intt}_{lanes,full}`) and RNSPolynomialMultiplier,
+  on the u64 RNS kernels (ops.hopper_rns: K12 at logn 12-17, K13 at
+  18-23, K14 for the 4-step at 14-23).
 
 Entry points run on the first CUDA card unless the caller passes
 device="cpu"; without a card, a plan made for the default device raises
@@ -62,16 +68,33 @@ from .ops.dispatch import (
     NTTConfig,
     intt,
     intt_lanes,
+    intt_modulus_ordered,
+    intt_poly_ordered,
+    intt_rns,
     ntt,
     ntt_lanes,
+    ntt_modulus_ordered,
+    ntt_poly_ordered,
+    ntt_rns,
     pointwise_mult,
     pointwise_mult_lanes,
     polymul,
     polymul_lanes,
+    rns_pointwise_mult,
+    rns_pointwise_mult_lanes,
+    rns_polymul,
+)
+from .ops.rns import RNSMergePlan
+from .ops.fourstep_rns import (
+    RNSFourStepPlan,
+    rns_fourstep_intt_full,
+    rns_fourstep_intt_lanes,
+    rns_fourstep_ntt_full,
+    rns_fourstep_ntt_lanes,
 )
 from .arith.host import (crt_reconstruct, find_ntt_primes, is_prime_u64,
                          ntt_root_pair)
-from .models.polymul import PolynomialMultiplier
+from .models.polymul import PolynomialMultiplier, RNSPolynomialMultiplier
 
 __version__ = "0.1.0"
 
@@ -116,9 +139,25 @@ __all__ = [
     "pointwise_mult_lanes",
     "polymul",
     "polymul_lanes",
+    "intt_modulus_ordered",
+    "intt_poly_ordered",
+    "intt_rns",
+    "ntt_modulus_ordered",
+    "ntt_poly_ordered",
+    "ntt_rns",
+    "rns_pointwise_mult",
+    "rns_pointwise_mult_lanes",
+    "rns_polymul",
+    "RNSMergePlan",
+    "RNSFourStepPlan",
+    "rns_fourstep_ntt_lanes",
+    "rns_fourstep_intt_lanes",
+    "rns_fourstep_ntt_full",
+    "rns_fourstep_intt_full",
     "crt_reconstruct",
     "find_ntt_primes",
     "is_prime_u64",
     "ntt_root_pair",
     "PolynomialMultiplier",
+    "RNSPolynomialMultiplier",
 ]

@@ -43,6 +43,15 @@
 // merge_u64_large.cu's K7, are held by per-stage barriers and
 // shared-memory latency.  Tensor cores, TMA and clusters are not used.
 //
+// RNS (K14, ops/hopper_rns.py): the u64 kernel, a template over where a
+// ring's constants come from (merge_u64.cuh), replaces
+//   rns_fourstep_u64_col_fwd / _inv  <- _rns_4step_col_kernel
+//                                       (gpuntt_tpu/ops/pallas_mxu_rns.py:629)
+// a block's tile lies in one ring, so it reads that ring's modulus from
+// the schedule once and the modulus's rows of the stacked column and W
+// tables.  The n2-point rows follow on merge_u64_large.cu's rns_u64_large_rowmat
+// (<= 512 words) or merge_u64.cu's rns_u64_* (K12).
+//
 // Lanes: u32 values ride in int64 lanes, as in merge_u32.cu; the tile
 // keeps 32-bit words.  Index width: global offsets are size_t, and
 // shape_ok keeps every grid within 2^31 blocks.
@@ -66,31 +75,32 @@ constexpr int log_tile() {
 
 // Block = (ring, tile of 2^logT rows of its (n2, n1) matrix); x -> y.
 // Reduce and transpose on load, column stages, twist on store.
-template <class W, bool kFwd>
+template <class W, bool kFwd, class F>
 __global__ void __launch_bounds__(kThreads)
 cols(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int log1, int log2, int logT,
-     int logTw, const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-     const uint64_t* __restrict__ wt, const uint64_t* __restrict__ wts,
-     const uint64_t* __restrict__ ws, const uint64_t* __restrict__ wss, W q, W one_s) {
+     int logTw, F fs) {
   extern __shared__ uint64_t smem[];
   W* s = reinterpret_cast<W*>(smem);
   const int tiles_log = log2 - logT, pitch = (1 << logT) + 1;
+  const size_t ring = blockIdx.x >> tiles_log;
+  const Ring f = fs.at(ring);
+  const W q = (W)f.q, one_s = (W)f.one_s;
   const int j0 = (int)(blockIdx.x & ((1u << tiles_log) - 1)) << logT;
-  const size_t ring = (size_t)(blockIdx.x >> tiles_log) << (log1 + log2);
+  const size_t base = ring << (log1 + log2);
   const int words = 1 << (log1 + logT), amask = (1 << log1) - 1, cmask = (1 << logT) - 1;
-  const uint64_t* xt = x + ring + ((size_t)j0 << log1);
+  const uint64_t* xt = x + base + ((size_t)j0 << log1);
   for (int e = threadIdx.x; e < words; e += kThreads)
     s[(e & amask) * pitch + (e >> log1)] = reduce_any((W)xt[e], q, one_s);
   __syncthreads();
   if (kFwd)
-    ct_tile<kThreads>(s, log1, logT, pitch, tw, tws, q);
+    ct_tile<kThreads>(s, log1, logT, pitch, f.tw, f.tws, q);
   else
-    gs_tile<kThreads>(s, log1, logT, pitch, tw, tws, q);
-  uint64_t* yt = y + ring + j0;
+    gs_tile<kThreads>(s, log1, logT, pitch, f.tw, f.tws, q);
+  uint64_t* yt = y + base + j0;
   for (int e = threadIdx.x; e < words; e += kThreads) {
     const int a = e >> logT, c = e & cmask;
     yt[((size_t)a << log2) + c] =
-        twist(s[a * pitch + c], a, j0 + c, log1, logTw, wt, wts, ws, wss, q);
+        twist(s[a * pitch + c], a, j0 + c, log1, logTw, f.wt, f.wts, f.ws, f.wss, q);
   }
 }
 
@@ -109,20 +119,36 @@ int launch_status() {
   return e == cudaSuccess ? 0 : (int)e;
 }
 
-template <class W, bool kFwd>
+template <class W, bool kFwd, class F>
 int launch_cols(int device, const uint64_t* x, uint64_t* y, long long batch, int log1,
-                int log2, int logT, int logTw, const uint64_t* tw, const uint64_t* tws,
-                const uint64_t* wt, const uint64_t* wts, const uint64_t* ws,
-                const uint64_t* wss, W q, W one_s, void* stream) {
+                int log2, int logT, int logTw, F f, void* stream) {
   if (!shape_ok<W>(batch, log1, log2, logT, logTw)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   // at most 36 KiB (u64, n1 = 512): under the 48 KB static limit
   const int bytes = (int)sizeof(W) * (((1 << logT) + 1) << log1);
-  cols<W, kFwd><<<(int)(batch << (log2 - logT)), kThreads, bytes, st>>>(
-      x, y, log1, log2, logT, logTw, tw, tws, wt, wts, ws, wss, q, one_s);
+  cols<W, kFwd, F><<<(int)(batch << (log2 - logT)), kThreads, bytes, st>>>(
+      x, y, log1, log2, logT, logTw, f);
   return launch_status();
+}
+
+// One modulus: its column table and W tables, q and one_s.
+OneModulus one(const uint64_t* tw, const uint64_t* tws, const uint64_t* wt,
+               const uint64_t* wts, const uint64_t* ws, const uint64_t* wss, uint64_t q,
+               uint64_t one_s) {
+  return OneModulus{Ring{tw, tws, wt, wts, ws, wss, q, one_s, 0, 0, 0, 0}};
+}
+
+// An RNS schedule (ring i uses modulus mod_idx[i]) over the stacked
+// tables: the n1 / 2-entry column table, the (n1, Tw) tile and
+// (n2 / Tw, n1) scale tables, each with its Shoup companion.
+Stacked rns(const int* mod_idx, int log1, int log2, int logTw, const uint64_t* tw,
+            const uint64_t* tws, const uint64_t* wt, const uint64_t* wts, const uint64_t* ws,
+            const uint64_t* wss, const uint64_t* consts) {
+  return Stacked{mod_idx, 0, Ring{tw, tws, wt, wts, ws, wss, 0, 0, 0, 0, 0, 0},
+                 1LL << (log1 - 1), 1LL << (log1 + logTw), 1LL << (log1 + log2 - logTw),
+                 consts};
 }
 
 }  // namespace
@@ -137,7 +163,10 @@ using namespace fourstep;
 // 2^logTw) and scale (2^(log2 - logTw), 2^log1) tables with theirs, all as
 // int64 words; logT the block's tile of rows.  Each launches on `stream`,
 // allocates nothing, does not synchronise, and returns the cudaError_t of
-// its launch (0 = none).
+// its launch (0 = none).  The rns_* entries take the same shapes with an
+// int32 schedule (ring i uses modulus mod_idx[i], every entry in [0,
+// mod_count)), those tables stacked on a leading (mod_count,) axis, and
+// the (mod_count, 6) constants of the stacked column plan.
 extern "C" {
 
 int fourstep_u64_col_fwd(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -145,8 +174,8 @@ int fourstep_u64_col_fwd(int device, const uint64_t* x, uint64_t* y, long long b
                          const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
                          const uint64_t* ws, const uint64_t* wss, uint64_t q, uint64_t one_s,
                          void* stream) {
-  return launch_cols<uint64_t, true>(device, x, y, batch, log1, log2, logT, logTw, tw, tws,
-                                     wt, wts, ws, wss, q, one_s, stream);
+  return launch_cols<uint64_t, true>(device, x, y, batch, log1, log2, logT, logTw,
+                                     one(tw, tws, wt, wts, ws, wss, q, one_s), stream);
 }
 
 int fourstep_u64_col_inv(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -154,8 +183,8 @@ int fourstep_u64_col_inv(int device, const uint64_t* x, uint64_t* y, long long b
                          const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
                          const uint64_t* ws, const uint64_t* wss, uint64_t q, uint64_t one_s,
                          void* stream) {
-  return launch_cols<uint64_t, false>(device, x, y, batch, log1, log2, logT, logTw, tw, tws,
-                                      wt, wts, ws, wss, q, one_s, stream);
+  return launch_cols<uint64_t, false>(device, x, y, batch, log1, log2, logT, logTw,
+                                      one(tw, tws, wt, wts, ws, wss, q, one_s), stream);
 }
 
 int fourstep_u32_col_fwd(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -163,8 +192,8 @@ int fourstep_u32_col_fwd(int device, const uint64_t* x, uint64_t* y, long long b
                          const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
                          const uint64_t* ws, const uint64_t* wss, uint32_t q, uint32_t one_s,
                          void* stream) {
-  return launch_cols<uint32_t, true>(device, x, y, batch, log1, log2, logT, logTw, tw, tws,
-                                     wt, wts, ws, wss, q, one_s, stream);
+  return launch_cols<uint32_t, true>(device, x, y, batch, log1, log2, logT, logTw,
+                                     one(tw, tws, wt, wts, ws, wss, q, one_s), stream);
 }
 
 int fourstep_u32_col_inv(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -172,8 +201,28 @@ int fourstep_u32_col_inv(int device, const uint64_t* x, uint64_t* y, long long b
                          const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
                          const uint64_t* ws, const uint64_t* wss, uint32_t q, uint32_t one_s,
                          void* stream) {
-  return launch_cols<uint32_t, false>(device, x, y, batch, log1, log2, logT, logTw, tw, tws,
-                                      wt, wts, ws, wss, q, one_s, stream);
+  return launch_cols<uint32_t, false>(device, x, y, batch, log1, log2, logT, logTw,
+                                      one(tw, tws, wt, wts, ws, wss, q, one_s), stream);
+}
+
+int rns_fourstep_u64_col_fwd(int device, const uint64_t* x, uint64_t* y, long long batch,
+                             int log1, int log2, int logT, int logTw, const int* mod_idx,
+                             const uint64_t* tw, const uint64_t* tws, const uint64_t* wt,
+                             const uint64_t* wts, const uint64_t* ws, const uint64_t* wss,
+                             const uint64_t* consts, void* stream) {
+  return launch_cols<uint64_t, true>(
+      device, x, y, batch, log1, log2, logT, logTw,
+      rns(mod_idx, log1, log2, logTw, tw, tws, wt, wts, ws, wss, consts), stream);
+}
+
+int rns_fourstep_u64_col_inv(int device, const uint64_t* x, uint64_t* y, long long batch,
+                             int log1, int log2, int logT, int logTw, const int* mod_idx,
+                             const uint64_t* tw, const uint64_t* tws, const uint64_t* wt,
+                             const uint64_t* wts, const uint64_t* ws, const uint64_t* wss,
+                             const uint64_t* consts, void* stream) {
+  return launch_cols<uint64_t, false>(
+      device, x, y, batch, log1, log2, logT, logTw,
+      rns(mod_idx, log1, log2, logTw, tw, tws, wt, wts, ws, wss, consts), stream);
 }
 
 }  // extern "C"

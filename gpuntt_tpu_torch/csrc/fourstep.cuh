@@ -39,7 +39,10 @@ using merge_u32::shoup_mul;
 using merge_u32::sub_mod;
 using merge_u32::twist;
 using merge_u64::add_mod;
+using merge_u64::OneModulus;
 using merge_u64::reduce_any;
+using merge_u64::Ring;
+using merge_u64::Stacked;
 using merge_u64::shoup_mul;
 using merge_u64::sub_mod;
 using merge_u64::twist;

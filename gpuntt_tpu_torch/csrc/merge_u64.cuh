@@ -1,6 +1,6 @@
 // Exact u64 modular arithmetic for the merge NTT kernels (device side),
-// and the column stage loops that merge_u64.cu and merge_u64_large.cu
-// share.
+// the column stage loops that merge_u64.cu and merge_u64_large.cu
+// share, and where a block finds the constants of its ring.
 //
 // Each arithmetic function computes what its namesake in ops/barrett.py
 // computes, on the operands the kernels give it.  Moduli satisfy
@@ -9,9 +9,82 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace merge_u64 {
+
+// The constants a block transforms its ring with: the transform's
+// bit-reversed table and its Shoup companion, a factored twist's tile
+// and scale tables with theirs (the column kernels; null elsewhere), and
+// the modulus's numbers (n_inv is whatever scaling the kernel applies
+// last; bit and mu are the Barrett constants of the fused product).
+struct Ring {
+  const uint64_t* tw;
+  const uint64_t* tws;
+  const uint64_t* wt;
+  const uint64_t* wts;
+  const uint64_t* ws;
+  const uint64_t* wss;
+  uint64_t q, one_s, n_inv, n_inv_s, mu;
+  int bit;
+};
+
+// Every kernel is a template over where its rings' constants come from;
+// `at(i)` gives those of ring i of the batch.  One modulus for the whole
+// batch: the launch's own arguments, the same for every ring.
+struct OneModulus {
+  Ring r;
+  __device__ __forceinline__ Ring at(size_t) const { return r; }
+};
+
+inline OneModulus one_modulus(const uint64_t* tw, const uint64_t* tws, uint64_t q,
+                              uint64_t one_s, uint64_t n_inv = 0, uint64_t n_inv_s = 0,
+                              int bit = 0, uint64_t mu = 0) {
+  return OneModulus{Ring{tw, tws, nullptr, nullptr, nullptr, nullptr, q, one_s, n_inv,
+                         n_inv_s, mu, bit}};
+}
+
+// RNS (the JAX package's stacked kernels, pallas_mxu_rns.py): ring i uses
+// modulus m = mod_idx[i >> shift], so a schedule of one entry per
+// polynomial serves its 2^shift rows.  `r` holds modulus 0's tables, the
+// starts of the stacked (mod_count, len) tables, whose moduli lie tw_len,
+// wt_len and ws_len entries apart, and `consts` the (mod_count, 6) words
+// q, one_s, n_inv, n_inv_s, bit, mu.  Every thread of a block reads the
+// same words: one broadcast load each, once per block.
+struct Stacked {
+  const int* mod_idx;
+  int shift;
+  Ring r;
+  long long tw_len, wt_len, ws_len;
+  const uint64_t* consts;
+  __device__ __forceinline__ Ring at(size_t i) const {
+    const long long m = mod_idx[i >> shift];
+    const uint64_t* c = consts + 6 * m;
+    Ring o = r;
+    o.tw += m * tw_len;
+    o.tws += m * tw_len;
+    o.wt += m * wt_len;
+    o.wts += m * wt_len;
+    o.ws += m * ws_len;
+    o.wss += m * ws_len;
+    o.q = c[0];
+    o.one_s = c[1];
+    o.n_inv = c[2];
+    o.n_inv_s = c[3];
+    o.bit = (int)c[4];
+    o.mu = c[5];
+    return o;
+  }
+};
+
+// A Stacked schedule over stacked tables of tw_len entries (wt, ws none).
+inline Stacked stacked(const int* mod_idx, int shift, const uint64_t* tw, const uint64_t* tws,
+                       long long tw_len, const uint64_t* consts) {
+  return Stacked{mod_idx, shift,
+                 Ring{tw, tws, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0, 0},
+                 tw_len, 0, 0, consts};
+}
 
 // (a + b) mod q for a, b < q: a + b < 2q < 2^63, no wrap.
 __device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b, uint64_t q) {

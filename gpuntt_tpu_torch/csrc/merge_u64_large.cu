@@ -41,6 +41,17 @@
 // launches are held by per-stage barrier and shared-memory latency.
 // Tensor cores, TMA and clusters are not used.
 //
+// RNS (K13, ops/hopper_rns.py): the same kernels replace the stacked ones
+// of gpuntt_tpu/ops/pallas_mxu_rns.py,
+//   rns_u64_large_colfwd  <- _rns_colfwd_kernel (:375)
+//   rns_u64_large_colinv  <- _rns_colinv_kernel (:388)
+//   rns_u64_large_rowmat  <- _rns_rowmat_kernel (:448)
+// as templates over where a ring's constants come from (merge_u64.cuh):
+// a block of the column kernels covers columns of one ring and reads its
+// modulus's stacked column and twist tables; a row block's rows lie in
+// one ring (rns_u64_large_rowmat refuses a schedule where they would
+// not), whose modulus it reads once.
+//
 // Index width: at 2^28 a ring is 2^28 words, so every global offset is a
 // size_t; col_shape_ok and row_shape_ok keep every grid within 2^31 blocks.
 
@@ -56,7 +67,12 @@ namespace {
 using merge_u64::add_mod;
 using merge_u64::ct_cols;
 using merge_u64::gs_cols;
+using merge_u64::one_modulus;
+using merge_u64::OneModulus;
 using merge_u64::reduce_any;
+using merge_u64::Ring;
+using merge_u64::Stacked;
+using merge_u64::stacked;
 using merge_u64::shoup_mul;
 using merge_u64::sub_mod;
 using merge_u64::twist;
@@ -66,65 +82,68 @@ constexpr int kLogColTile = 13;  // K7 tile: 2^13 words (64 KiB)
 constexpr int kLogRowTile = 12;  // K8 tile: 2^12 words (32 KiB)
 
 // K7 forward: block = (ring, C columns); x -> y.  Reduce, CT stages, twist.
+template <class F>
 __global__ void __launch_bounds__(kThreads)
 col_fwd(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logA, int logB,
-        int logC, const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-        const uint64_t* __restrict__ wt, const uint64_t* __restrict__ wts,
-        const uint64_t* __restrict__ ws, const uint64_t* __restrict__ wss, int logT,
-        uint64_t q, uint64_t one_s, int xnp) {
+        int logC, F fs, int logT, int xnp) {
   extern __shared__ uint64_t smem[];
+  const size_t ring = blockIdx.x >> (logB - logC);
+  const Ring f = fs.at(ring);
   const int b0 = (blockIdx.x & ((1 << (logB - logC)) - 1)) << logC;
-  const size_t off = ((size_t)(blockIdx.x >> (logB - logC)) << (logA + logB)) + b0;
+  const size_t off = (ring << (logA + logB)) + b0;
   const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
   for (int e = threadIdx.x; e < words; e += kThreads)
-    smem[e] = reduce_any(x[off + ((size_t)(e >> logC) << logB) + (e & cmask)], q, one_s);
+    smem[e] = reduce_any(x[off + ((size_t)(e >> logC) << logB) + (e & cmask)], f.q, f.one_s);
   __syncthreads();
-  ct_cols<kThreads>(smem, logA, logC, tw, tws, q, xnp);
+  ct_cols<kThreads>(smem, logA, logC, f.tw, f.tws, f.q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads) {
     const int a = e >> logC, c = e & cmask;
     y[off + ((size_t)a << logB) + c] =
-        twist(smem[e], a, b0 + c, logA, logT, wt, wts, ws, wss, q);
+        twist(smem[e], a, b0 + c, logA, logT, f.wt, f.wts, f.ws, f.wss, f.q);
   }
 }
 
 // K7 inverse: block = (ring, C columns); x -> y.  Reduce and twist by
-// W^-1, GS stages, then c_inv (A^-1 for the standard scaling).
+// W^-1, GS stages, then c_inv = f.n_inv (A^-1 for the standard scaling).
+template <class F>
 __global__ void __launch_bounds__(kThreads)
 col_inv(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logA, int logB,
-        int logC, const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-        const uint64_t* __restrict__ wt, const uint64_t* __restrict__ wts,
-        const uint64_t* __restrict__ ws, const uint64_t* __restrict__ wss, int logT,
-        uint64_t q, uint64_t one_s, uint64_t c_inv, uint64_t c_inv_s, int xnp) {
+        int logC, F fs, int logT, int xnp) {
   extern __shared__ uint64_t smem[];
+  const size_t ring = blockIdx.x >> (logB - logC);
+  const Ring f = fs.at(ring);
   const int b0 = (blockIdx.x & ((1 << (logB - logC)) - 1)) << logC;
-  const size_t off = ((size_t)(blockIdx.x >> (logB - logC)) << (logA + logB)) + b0;
+  const size_t off = (ring << (logA + logB)) + b0;
   const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
   for (int e = threadIdx.x; e < words; e += kThreads) {
     const int a = e >> logC, c = e & cmask;
-    smem[e] = twist(reduce_any(x[off + ((size_t)a << logB) + c], q, one_s), a, b0 + c,
-                    logA, logT, wt, wts, ws, wss, q);
+    smem[e] = twist(reduce_any(x[off + ((size_t)a << logB) + c], f.q, f.one_s), a, b0 + c,
+                    logA, logT, f.wt, f.wts, f.ws, f.wss, f.q);
   }
   __syncthreads();
-  gs_cols<kThreads>(smem, logA, logC, tw, tws, q, xnp);
+  gs_cols<kThreads>(smem, logA, logC, f.tw, f.tws, f.q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads)
     y[off + ((size_t)(e >> logC) << logB) + (e & cmask)] =
-        shoup_mul(smem[e], c_inv, c_inv_s, q);
+        shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q);
 }
 
 // K8: whole B-point rows, 2^kLogRowTile / B of them per block; x -> y.
-// Forward: CT stages.  Inverse: GS stages, then n_inv (B^-1).
-template <bool kFwd>
+// Forward: CT stages.  Inverse: GS stages, then n_inv (B^-1).  The
+// block's first row r0 names its ring (an RNS schedule's entry r0 >>
+// shift: the rows of a block lie in one ring, row_shape_ok).
+template <bool kFwd, class F>
 __global__ void __launch_bounds__(kThreads)
-row_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long nrows,
-        int logB, const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-        uint64_t q, uint64_t one_s, uint64_t n_inv, uint64_t n_inv_s, int xnp) {
+row_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long nrows, int logB,
+        F fs, int xnp) {
   __shared__ uint64_t s[1 << kLogRowTile];
   const int log_rows = kLogRowTile - logB;
   const long long r0 = (long long)blockIdx.x << log_rows;
+  const Ring f = fs.at(r0);
   const int rows = nrows - r0 < (1LL << log_rows) ? (int)(nrows - r0) : 1 << log_rows;
   const size_t off = (size_t)r0 << logB;
   const int words = rows << logB, work = rows << (logB - 1);
-  for (int e = threadIdx.x; e < words; e += kThreads) s[e] = reduce_any(x[off + e], q, one_s);
+  for (int e = threadIdx.x; e < words; e += kThreads)
+    s[e] = reduce_any(x[off + e], f.q, f.one_s);
   __syncthreads();
   for (int st = 0; st < logB; ++st) {
     const int l = kFwd ? st : logB - 1 - st, logt = logB - 1 - l;
@@ -135,19 +154,19 @@ row_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long nrow
       const int idx = xnp ? (1 << l) + i : i;
       const uint64_t u = s[p0];
       if (kFwd) {
-        const uint64_t v = shoup_mul(s[p1], tw[idx], tws[idx], q);
-        s[p0] = add_mod(u, v, q);
-        s[p1] = sub_mod(u, v, q);
+        const uint64_t v = shoup_mul(s[p1], f.tw[idx], f.tws[idx], f.q);
+        s[p0] = add_mod(u, v, f.q);
+        s[p1] = sub_mod(u, v, f.q);
       } else {
         const uint64_t v = s[p1];
-        s[p0] = add_mod(u, v, q);
-        s[p1] = shoup_mul(sub_mod(u, v, q), tw[idx], tws[idx], q);
+        s[p0] = add_mod(u, v, f.q);
+        s[p1] = shoup_mul(sub_mod(u, v, f.q), f.tw[idx], f.tws[idx], f.q);
       }
     }
     __syncthreads();
   }
   for (int e = threadIdx.x; e < words; e += kThreads)
-    y[off + e] = kFwd ? s[e] : shoup_mul(s[e], n_inv, n_inv_s, q);
+    y[off + e] = kFwd ? s[e] : shoup_mul(s[e], f.n_inv, f.n_inv_s, f.q);
 }
 
 // log2 of K7's column count: the tile holds 2^kLogColTile words, or the
@@ -185,6 +204,59 @@ int launch_status() {
   return e == cudaSuccess ? 0 : (int)e;
 }
 
+// K7 in either direction, on a checked shape.
+template <class F>
+int col(int device, bool fwd, const uint64_t* x, uint64_t* y, long long batch, int logA,
+        int logB, int logT, F f, int xnp, cudaStream_t st) {
+  if (!col_shape_ok(batch, logA, logB, logT)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int logC = col_log(logA, logB), bytes = 8 << (logA + logC);
+  const int grid = (int)(batch << (logB - logC));
+  if (fwd) {
+    if (int rc = fit_smem(col_fwd<F>, bytes)) return rc;
+    col_fwd<F><<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
+  } else {
+    if (int rc = fit_smem(col_inv<F>, bytes)) return rc;
+    col_inv<F><<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
+  }
+  return launch_status();
+}
+
+// K8 in either direction, on a checked shape.
+template <class F>
+int rows(int device, bool inverse, const uint64_t* x, uint64_t* y, long long nrows, int logB,
+         F f, int xnp, cudaStream_t st) {
+  if (!row_shape_ok(nrows, logB)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int log_rows = kLogRowTile - logB;
+  const int grid = (int)((nrows + (1LL << log_rows) - 1) >> log_rows);
+  if (inverse)
+    row_mat<false, F><<<grid, kThreads, 0, st>>>(x, y, nrows, logB, f, xnp);
+  else
+    row_mat<true, F><<<grid, kThreads, 0, st>>>(x, y, nrows, logB, f, xnp);
+  return launch_status();
+}
+
+// An RNS schedule of `entries` moduli for `rings` rings, 2^shift each.
+bool schedule_ok(long long rings, long long entries, int shift) {
+  return shift >= 0 && shift < 31 && entries > 0 && (entries << shift) == rings;
+}
+
+// The column kernels' stacked tables: the A-point column table (A entries
+// for X^N + 1, A / 2 for X^N - 1), the (A, T) tile and (B / T, A) scale
+// tables of the twist, each with its Shoup companion.
+Stacked col_tables(const int* mod_idx, int logA, int logB, int logT, const uint64_t* tw,
+                   const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
+                   const uint64_t* ws, const uint64_t* wss, const uint64_t* consts,
+                   int xnp) {
+  return Stacked{mod_idx, 0,
+                 Ring{tw, tws, wt, wts, ws, wss, 0, 0, 0, 0, 0, 0},
+                 xnp ? 1LL << logA : 1LL << (logA - 1), 1LL << (logA + logT),
+                 1LL << (logA + logB - logT), consts};
+}
+
 }  // namespace
 }  // namespace merge_u64_large
 
@@ -197,7 +269,11 @@ using namespace merge_u64_large;
 // plan's bit-reversed table (A entries for X^N + 1, A / 2 for X^N - 1)
 // with its Shoup companion, and the W tile (2^logA, 2^logT) and scale
 // (2^(logB - logT), 2^logA) tables with theirs.  The row entry takes
-// (nrows, 2^logB) rows and the row plan's table.
+// (nrows, 2^logB) rows and the row plan's table.  The rns_* entries (K13)
+// take the same shapes with an int32 schedule (ring i uses modulus
+// mod_idx[i], every entry in [0, mod_count); the row entry's ring is row
+// >> shift), those tables stacked on a leading (mod_count,) axis, and the
+// (mod_count, 6) constants of the stacked column or row plan.
 extern "C" {
 
 int merge_u64_large_colfwd(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -205,15 +281,9 @@ int merge_u64_large_colfwd(int device, const uint64_t* x, uint64_t* y, long long
                            const uint64_t* wt, const uint64_t* wts, const uint64_t* ws,
                            const uint64_t* wss, int logT, uint64_t q, uint64_t one_s,
                            int xnp, void* stream) {
-  if (!col_shape_ok(batch, logA, logB, logT)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int logC = col_log(logA, logB), bytes = 8 << (logA + logC);
-  if (int rc = fit_smem(col_fwd, bytes)) return rc;
-  col_fwd<<<(int)(batch << (logB - logC)), kThreads, bytes, st>>>(
-      x, y, logA, logB, logC, tw, tws, wt, wts, ws, wss, logT, q, one_s, xnp);
-  return launch_status();
+  OneModulus f = one_modulus(tw, tws, q, one_s);
+  f.r.wt = wt, f.r.wts = wts, f.r.ws = ws, f.r.wss = wss;
+  return col(device, true, x, y, batch, logA, logB, logT, f, xnp, (cudaStream_t)stream);
 }
 
 int merge_u64_large_colinv(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -221,35 +291,49 @@ int merge_u64_large_colinv(int device, const uint64_t* x, uint64_t* y, long long
                            const uint64_t* wt, const uint64_t* wts, const uint64_t* ws,
                            const uint64_t* wss, int logT, uint64_t q, uint64_t one_s,
                            uint64_t c_inv, uint64_t c_inv_s, int xnp, void* stream) {
-  if (!col_shape_ok(batch, logA, logB, logT)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int logC = col_log(logA, logB), bytes = 8 << (logA + logC);
-  if (int rc = fit_smem(col_inv, bytes)) return rc;
-  col_inv<<<(int)(batch << (logB - logC)), kThreads, bytes, st>>>(
-      x, y, logA, logB, logC, tw, tws, wt, wts, ws, wss, logT, q, one_s, c_inv, c_inv_s,
-      xnp);
-  return launch_status();
+  OneModulus f = one_modulus(tw, tws, q, one_s, c_inv, c_inv_s);
+  f.r.wt = wt, f.r.wts = wts, f.r.ws = ws, f.r.wss = wss;
+  return col(device, false, x, y, batch, logA, logB, logT, f, xnp, (cudaStream_t)stream);
 }
 
 int merge_u64_large_rowmat(int device, const uint64_t* x, uint64_t* y, long long nrows,
                            int logB, const uint64_t* tw, const uint64_t* tws, uint64_t q,
                            uint64_t one_s, uint64_t n_inv, uint64_t n_inv_s, int inverse,
                            int xnp, void* stream) {
-  if (!row_shape_ok(nrows, logB)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int log_rows = kLogRowTile - logB;
-  const int grid = (int)((nrows + (1LL << log_rows) - 1) >> log_rows);
-  if (inverse)
-    row_mat<false><<<grid, kThreads, 0, st>>>(x, y, nrows, logB, tw, tws, q, one_s, n_inv,
-                                              n_inv_s, xnp);
-  else
-    row_mat<true><<<grid, kThreads, 0, st>>>(x, y, nrows, logB, tw, tws, q, one_s, 0, 0,
-                                             xnp);
-  return launch_status();
+  return rows(device, inverse, x, y, nrows, logB, one_modulus(tw, tws, q, one_s, n_inv, n_inv_s),
+              xnp, (cudaStream_t)stream);
+}
+
+int rns_u64_large_colfwd(int device, const uint64_t* x, uint64_t* y, long long batch,
+                         int logA, int logB, const int* mod_idx, const uint64_t* tw,
+                         const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
+                         const uint64_t* ws, const uint64_t* wss, int logT,
+                         const uint64_t* consts, int xnp, void* stream) {
+  return col(device, true, x, y, batch, logA, logB, logT,
+             col_tables(mod_idx, logA, logB, logT, tw, tws, wt, wts, ws, wss, consts, xnp),
+             xnp, (cudaStream_t)stream);
+}
+
+int rns_u64_large_colinv(int device, const uint64_t* x, uint64_t* y, long long batch,
+                         int logA, int logB, const int* mod_idx, const uint64_t* tw,
+                         const uint64_t* tws, const uint64_t* wt, const uint64_t* wts,
+                         const uint64_t* ws, const uint64_t* wss, int logT,
+                         const uint64_t* consts, int xnp, void* stream) {
+  return col(device, false, x, y, batch, logA, logB, logT,
+             col_tables(mod_idx, logA, logB, logT, tw, tws, wt, wts, ws, wss, consts, xnp),
+             xnp, (cudaStream_t)stream);
+}
+
+int rns_u64_large_rowmat(int device, const uint64_t* x, uint64_t* y, long long nrows,
+                         int logB, const int* mod_idx, long long entries, int shift,
+                         const uint64_t* tw, const uint64_t* tws, const uint64_t* consts,
+                         int inverse, int xnp, void* stream) {
+  // a block's rows must lie in one ring: 2^(kLogRowTile - logB) <= 2^shift
+  if (!schedule_ok(nrows, entries, shift) || kLogRowTile - logB > shift)
+    return (int)cudaErrorInvalidValue;
+  return rows(device, inverse, x, y, nrows, logB,
+              stacked(mod_idx, shift, tw, tws, xnp ? 1LL << logB : 1LL << (logB - 1), consts),
+              xnp, (cudaStream_t)stream);
 }
 
 }  // extern "C"

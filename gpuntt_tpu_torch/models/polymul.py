@@ -12,7 +12,8 @@ hopper_merge.py (logn 12-17) and hopper_merge_large.py (18-28), u32
 params those of hopper_merge32.py, all through polymul_lanes.  A
 big-ring plan holds no N-entry table (MergePlan.bigring): its module
 registers an empty `anchor` buffer instead, whose device the plan
-follows.
+follows.  `RNSPolynomialMultiplier` is the port of the JAX package's
+RNS model, on the RNS route of dispatch (rns_polymul_lanes).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.dispatch import polymul_lanes
+from ..ops.dispatch import _rns_mod_idx, polymul_lanes, rns_polymul_lanes
 from ..ops.merge_ntt import MergePlan, from_lanes, to_lanes
+from ..ops.rns import RNSMergePlan
 from ..params.merge import NTTParameters
 
 _TABLES = ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")
@@ -64,4 +66,70 @@ class PolynomialMultiplier(torch.nn.Module):
         plan = self.plan
         out = super().__call__(to_lanes(np.asarray(a), plan.is64, plan.device),
                                to_lanes(np.asarray(b), plan.is64, plan.device))
+        return from_lanes(out, plan.is64)
+
+
+_STACKS = ("fwd_tables", "fwd_shoup", "inv_tables", "inv_shoup", "consts")
+
+
+class RNSPolynomialMultiplier(torch.nn.Module):
+    """Residue-wise products over an RNS prime ladder — the HE evaluation
+    workload the RNS engines exist for (gpuntt_tpu/models/polymul.py:67).
+
+    Operands are (mod_count, N) residue stacks (row i modulo the i-th
+    member's q_i) or (..., mod_count, N) batches of them; the cyclic
+    modulus schedule of the RNS dispatch (q_index = b % mod_count)
+    matches that row order, so the residue batches ride the RNS kernels
+    (K12 at logn 12-17, K13 at 18-23, u64 with q < 2^62).
+    `crt_reconstruct` lifts results back to Z_{prod q_i}.  The plan's
+    stacked tables and constants are registered buffers, so `.to(device)`
+    moves them; a big-ring ladder holds no stacked table and registers
+    `consts` alone.  `forward(a, b)` takes lane tensors; calling the
+    module on numpy arrays keeps the JAX signature."""
+
+    def __init__(self, members, device=None):
+        super().__init__()
+        self._plan = RNSMergePlan.from_params(members, device=device)
+        self.mod_count = self._plan.mod_count
+        self.qs = self._plan.qs
+        for name in _STACKS:
+            if getattr(self._plan, name) is not None:
+                self.register_buffer(name, getattr(self._plan, name))
+
+    @property
+    def plan(self) -> RNSMergePlan:
+        """The plan over this module's buffers, wherever they now live."""
+        plan = self._plan
+        if self.consts is plan.consts:
+            return plan
+        if plan.fwd_tables is None:  # a big-ring ladder: its K13 plan moves along
+            self._plan = plan.to(self.consts.device)
+        else:
+            self._plan = RNSMergePlan._build(
+                plan.logn, plan.reduction_poly, plan.is64, plan.members,
+                {n: getattr(self, n) for n in _STACKS[:4]}, self.consts, self.consts.device,
+                plan.params)
+        return self._plan
+
+    def _check(self, a_shape, b_shape) -> None:
+        if len(a_shape) < 2 or a_shape != b_shape or a_shape[-2] != self.mod_count:
+            raise ValueError(
+                f"operands must be (..., {self.mod_count}, N) residue stacks, got "
+                f"{tuple(a_shape)} and {tuple(b_shape)}")
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        self._check(a.shape, b.shape)
+        n = a.shape[-1]
+        a2, b2 = a.reshape(-1, n), b.reshape(-1, n)
+        out = rns_polymul_lanes(a2, b2, self.plan, _rns_mod_idx(a2.shape[0], self.mod_count))
+        return out.reshape(a.shape)
+
+    def __call__(self, a, b):
+        if isinstance(a, torch.Tensor):
+            return super().__call__(a, b)
+        a, b = np.asarray(a), np.asarray(b)
+        self._check(a.shape, b.shape)
+        plan = self.plan
+        out = super().__call__(to_lanes(a, plan.is64, plan.device),
+                               to_lanes(b, plan.is64, plan.device))
         return from_lanes(out, plan.is64)

@@ -41,6 +41,10 @@ _ENTRIES = {
                               _u64, _i32, _p],
         "merge_u64_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _p, _u64,
                                       _i32, _u64, _u64, _u64, _i32, _p],
+        **{f"rns_u64_{e}": [_i32, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p, _p,
+                            _i32, _p] for e in ("forward", "inverse")},
+        "rns_u64_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p,
+                                    _p, _p, _i32, _p],
     },
     "merge_u64_large": {
         "merge_u64_large_colfwd": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,
@@ -49,6 +53,10 @@ _ENTRIES = {
                                    _i32, _u64, _u64, _u64, _u64, _i32, _p],
         "merge_u64_large_rowmat": [_i32, _p, _p, _i64, _i32, _p, _p, _u64, _u64, _u64,
                                    _u64, _i32, _i32, _p],
+        **{f"rns_u64_large_{d}": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,
+                                  _p, _i32, _p, _i32, _p] for d in ("colfwd", "colinv")},
+        "rns_u64_large_rowmat": [_i32, _p, _p, _i64, _i32, _p, _i64, _i32, _p, _p, _p, _i32,
+                                 _i32, _p],
     },
     "merge_u32": {
         "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _i32,
@@ -57,9 +65,12 @@ _ENTRIES = {
                               _u32, _i32, _p],
     },
     "fourstep": {
-        f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p, _p,
-                                  _p, _p, word, word, _p]
-        for w, word in (("u64", _u64), ("u32", _u32)) for d in ("fwd", "inv")
+        **{f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p,
+                                     _p, _p, _p, word, word, _p]
+           for w, word in (("u64", _u64), ("u32", _u32)) for d in ("fwd", "inv")},
+        **{f"rns_fourstep_u64_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p,
+                                         _p, _p, _p, _p, _p, _p, _p]
+           for d in ("fwd", "inv")},
     },
 }
 

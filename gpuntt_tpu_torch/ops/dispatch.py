@@ -44,6 +44,18 @@ The wrappers run their plain versions for CPU tensors.
 
 `staged_ntt_lanes` / `staged_polymul_lanes` keep the JAX package's
 big-ring entries (logn 24-28): thin calls into the same route.
+
+The RNS entries (gpuntt_tpu/ops/dispatch.py:481-848) take numpy arrays
+and an RNSMergePlan (ops/rns.py): ntt_rns / intt_rns (row b under
+modulus b % mod_count), ntt/intt_modulus_ordered, ntt/intt_poly_ordered,
+rns_pointwise_mult(_lanes) and rns_polymul, over the lanes-level
+pipelines ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes (the last
+is what RNSPolynomialMultiplier calls).
+Route (`_rns_kernel_path`), for a (batch, N) tensor and u64 members that
+all have q < 2^62 and a genuine root: logn 12-17 -> K12
+("hopper-rns"), logn 18-23 -> K13 ("hopper-rns-large"), both in
+hopper_rns.py; everything else (u32, other logn, wide q) -> the engine
+of ops/rns.py.
 """
 
 from __future__ import annotations
@@ -58,7 +70,10 @@ from . import barrett as bo
 from . import hopper_merge as hm
 from . import hopper_merge32 as hm32
 from . import hopper_merge_large as hml
+from . import hopper_rns as hr
 from .merge_ntt import MergePlan, from_lanes, merge_intt_lanes, merge_ntt_lanes, to_lanes
+from .rns import (RNSMergePlan, per_modulus, rns_intt_lanes, rns_ntt_lanes,
+                  schedule_index)
 
 
 @dataclass(frozen=True)
@@ -263,3 +278,191 @@ def polymul(x, y, plan: MergePlan) -> np.ndarray:
     xl = to_lanes(np.asarray(x), plan.is64, plan.device)
     yl = to_lanes(np.asarray(y), plan.is64, plan.device)
     return from_lanes(polymul_lanes(xl, yl, plan), plan.is64)
+
+
+# --------------------------------------------------------- RNS + ordered
+
+
+def _rns_mod_idx(batch: int, mod_count: int) -> np.ndarray:
+    """Default cyclic modulus schedule: batch b -> modulus b % mod_count
+    (ntt.cu RNS kernels, q_index = block_y % mod_count)."""
+    return np.arange(batch, dtype=np.int64) % mod_count
+
+
+def _order_mod_idx(batch: int, plan: RNSMergePlan, order) -> np.ndarray:
+    """The schedule of the pointwise and polymul entries: cyclic, or
+    `order[b % len(order)]` with every entry in [0, mod_count)."""
+    if order is None:
+        return _rns_mod_idx(batch, plan.mod_count)
+    order = np.asarray(order, dtype=np.int64)
+    if order.size and (order.min() < 0 or order.max() >= plan.mod_count):
+        raise ValueError(f"order entries must be in [0, {plan.mod_count}), got {order}")
+    return _ordered(batch, order)
+
+
+def _rns_kernel_path(plan: RNSMergePlan, x_shape) -> str:
+    """"hopper-rns" (K12), "hopper-rns-large" (K13) or "engine" for an RNS
+    transform of a (batch, N) tensor: u64 ladders whose members all have
+    q < 2^62 and a genuine root, logn 12-17 and 18-23.  The JAX package's
+    q < 2^60 is a limit of its digit arithmetic; the Shoup butterflies are
+    exact below 2^62.  u32 ladders take the engine, as the JAX package
+    takes XLA for them."""
+    if len(x_shape) != 2 or not plan.genuine_root:
+        return "engine"
+    if hr.covers(plan):
+        return "hopper-rns"
+    if hr.covers_large(plan):
+        return "hopper-rns-large"
+    return "engine"
+
+
+def _rns_transform(x: torch.Tensor, plan: RNSMergePlan, mod_idx, inverse: bool):
+    plan = plan.to(x.device)
+    mod_idx = schedule_index(mod_idx, plan.mod_count)
+    path = _rns_kernel_path(plan, x.shape)
+    if path == "engine":
+        return (rns_intt_lanes if inverse else rns_ntt_lanes)(x, plan, mod_idx)
+    x = x.contiguous()
+    midx = hr.schedule(plan, mod_idx, x.device)
+    if path == "hopper-rns":
+        return (hr.rns_u64_inv if inverse else hr.rns_u64_fwd)(x, plan, midx)
+    return hr.rns_u64_large(x, hr.large_plan(plan), midx, inverse)
+
+
+def ntt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
+    """The RNS forward transform of a (batch, N) lane tensor on its route,
+    row b under modulus mod_idx[b], read as jnp indexing reads it: the
+    lanes-level pipeline under ntt_rns and the ordered entries."""
+    return _rns_transform(x, plan, mod_idx, False)
+
+
+def intt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
+    """The RNS inverse of ntt_rns_lanes, each row's n^-1 last."""
+    return _rns_transform(x, plan, mod_idx, True)
+
+
+def _rns_numpy(x, plan: RNSMergePlan, mod_idx, inverse: bool) -> np.ndarray:
+    lanes = to_lanes(np.asarray(x), plan.is64, plan.device)
+    return from_lanes(_rns_transform(lanes, plan, mod_idx, inverse), plan.is64)
+
+
+def ntt_rns(x, plan: RNSMergePlan, cfg: NTTConfig | None = None) -> np.ndarray:
+    """GPU_NTT RNS overload (ntt.cu:2560-2800) over a numpy (batch, N)
+    array: row b under modulus b % mod_count."""
+    x = np.asarray(x)
+    return _rns_numpy(x, plan, _rns_mod_idx(x.shape[0], plan.mod_count), False)
+
+
+def intt_rns(x, plan: RNSMergePlan, cfg: NTTConfig | None = None) -> np.ndarray:
+    """GPU_INTT RNS overload (ntt.cu:2800-3059)."""
+    x = np.asarray(x)
+    return _rns_numpy(x, plan, _rns_mod_idx(x.shape[0], plan.mod_count), True)
+
+
+def _ordered(batch: int, order) -> np.ndarray:
+    """GPU_NTT_Modulus_Ordered's schedule: row b under order[b % len(order)]."""
+    order = np.asarray(order, dtype=np.int64)
+    return order[np.arange(batch) % len(order)]
+
+
+def ntt_modulus_ordered(x, plan: RNSMergePlan, order,
+                        cfg: NTTConfig | None = None) -> np.ndarray:
+    """GPU_NTT_Modulus_Ordered (ntt.cu:3600-3768): row b under modulus
+    order[b % len(order)].  `order` is not validated, as in the JAX
+    package: its entries are read as jnp indexing reads them."""
+    x = np.asarray(x)
+    return _rns_numpy(x, plan, _ordered(len(x), order), False)
+
+
+def intt_modulus_ordered(x, plan: RNSMergePlan, order,
+                         cfg: NTTConfig | None = None) -> np.ndarray:
+    x = np.asarray(x)
+    return _rns_numpy(x, plan, _ordered(len(x), order), True)
+
+
+def _poly_ordered(x, plan: RNSMergePlan, order, batch_size, inverse: bool) -> np.ndarray:
+    """For b < batch_size, row order[b] transformed in place under modulus
+    b % mod_count; other rows pass through.  Where `order` repeats a row
+    the last occurrence wins, as the JAX package's numpy store
+    (res[sel] = out) leaves it, so only last occurrences are transformed."""
+    x = np.asarray(x)
+    order = np.asarray(order, dtype=np.int64)
+    b = batch_size if batch_size is not None else len(order)
+    sel = np.arange(x.shape[0])[order[:b]]  # numpy's reading of `order`
+    first_of_reversed = np.unique(sel[::-1], return_index=True)[1]
+    keep = np.sort(len(sel) - 1 - first_of_reversed)
+    res = x.copy()
+    if keep.size:
+        res[sel[keep]] = _rns_numpy(x[sel[keep]], plan, keep % plan.mod_count,
+                                    inverse).astype(x.dtype)
+    return res
+
+
+def ntt_poly_ordered(x, plan: RNSMergePlan, order, batch_size: int | None = None,
+                     cfg: NTTConfig | None = None) -> np.ndarray:
+    """GPU_NTT_Poly_Ordered (ntt.cu:3782-4459)."""
+    return _poly_ordered(x, plan, order, batch_size, False)
+
+
+def intt_poly_ordered(x, plan: RNSMergePlan, order, batch_size: int | None = None,
+                      cfg: NTTConfig | None = None) -> np.ndarray:
+    return _poly_ordered(x, plan, order, batch_size, True)
+
+
+def rns_pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
+                             mod_idx) -> torch.Tensor:
+    """RNS spectrum product: row r under modulus mod_idx[r], exact Barrett
+    with that member's (q, bit, mu).  A row whose entry names no member
+    1..mod_count-1 takes member 0's product, as the JAX package's
+    where-chain leaves it."""
+    mod_idx = np.asarray(mod_idx, dtype=np.int64).reshape(-1)
+    named = (mod_idx >= 1) & (mod_idx < plan.mod_count)
+    return per_modulus(lambda u, v, member: pointwise_mult_lanes(u, v, member), plan.members,
+                       np.where(named, mod_idx, 0), a, b)
+
+
+def rns_pointwise_mult(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
+    """NTT-domain RNS product over numpy arrays (cyclic schedule, or
+    `order` as in GPU_NTT_Modulus_Ordered, each entry in [0, mod_count))."""
+    x = np.asarray(x)
+    mod_idx = _order_mod_idx(x.shape[0], plan, order)
+    xl = to_lanes(x, plan.is64, plan.device)
+    yl = to_lanes(np.asarray(y), plan.is64, plan.device)
+    return from_lanes(rns_pointwise_mult_lanes(xl, yl, plan, mod_idx), plan.is64)
+
+
+def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
+                      mod_idx) -> torch.Tensor:
+    """INTT(NTT(a) o NTT(b)) of (batch, N) lane tensors, row r modulo
+    (q_{mod_idx[r]}, X^N +/- 1).  On the kernel routes: two forward
+    transforms and the inverse with the product fused into its first load
+    (K12's fused inverse, on the rows of a big ring for K13); on the
+    engine: forward, rns_pointwise_mult_lanes, inverse.  Outputs are
+    bit-identical either way."""
+    plan = plan.to(a.device)
+    mod_idx = schedule_index(mod_idx, plan.mod_count)
+    path = _rns_kernel_path(plan, a.shape)
+    if path == "engine":
+        prod = rns_pointwise_mult_lanes(rns_ntt_lanes(a, plan, mod_idx),
+                                        rns_ntt_lanes(b, plan, mod_idx), plan, mod_idx)
+        return rns_intt_lanes(prod, plan, mod_idx)
+    a, b = a.contiguous(), b.contiguous()
+    midx = hr.schedule(plan, mod_idx, a.device)
+    if path == "hopper-rns":
+        return hr.rns_u64_polymul_inv(hr.rns_u64_fwd(a, plan, midx),
+                                      hr.rns_u64_fwd(b, plan, midx), plan, midx)
+    sp = hr.large_plan(plan)
+    return hr.rns_u64_large_polymul_inv(hr.rns_u64_large(a, sp, midx),
+                                        hr.rns_u64_large(b, sp, midx), sp, midx)
+
+
+def rns_polymul(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
+    """RNS polynomial multiplication over numpy (batch, N) arrays — the HE
+    evaluation workload: row r a residue polynomial modulo
+    (q_{mod_idx[r]}, X^N +/- 1), with the cyclic schedule or `order` (as
+    rns_pointwise_mult validates it)."""
+    x = np.asarray(x)
+    mod_idx = _order_mod_idx(x.shape[0], plan, order)
+    xl = to_lanes(x, plan.is64, plan.device)
+    yl = to_lanes(np.asarray(y), plan.is64, plan.device)
+    return from_lanes(rns_polymul_lanes(xl, yl, plan, mod_idx), plan.is64)

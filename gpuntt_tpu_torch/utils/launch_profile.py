@@ -10,8 +10,13 @@ pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool prime
 ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
 two CUDA events; for each 4-step cell — u64 and u32 at 2^24 x 1 and
 2^16 x 128, X^N - 1, the pool primes of NTTParameters4Step — the same
-of fourstep_ntt_lanes and fourstep_intt_lanes.  It prints for each
-entry:
+of fourstep_ntt_lanes and fourstep_intt_lanes; for each RNS cell — u64
+2^16 x 64 with a ladder of 8 (K12) and 2^18 x 12 with 3 (K13), X^N - 1,
+59-bit primes, cyclic schedule — ntt_rns_lanes, intt_rns_lanes and
+rns_polymul_lanes (at 2^16 also ntt_rns_lanes with its schedule copied
+to the card on every call, the cost its cache saves), and for the RNS
+4-step at 2^16 x 64 and 2^20 x 8, ladder 8, rns_fourstep_ntt_lanes and
+rns_fourstep_intt_lanes.  It prints for each entry:
 
 - the window's time per call on the events, and the device's busy and
   idle share of it (the sum of the kernels' device time over the
@@ -34,6 +39,16 @@ import torch
 
 
 _OURS = ("merge_u", "fourstep")  # the namespaces of csrc/
+
+
+def _ladder(g, logn: int, count: int, four: bool = False):
+    params = g.NTTParameters4Step if four else g.NTTParameters
+    out = []
+    for q in g.find_ntt_primes(59, logn, count):
+        omega, psi = g.ntt_root_pair(q, logn)
+        out.append(params(logn, g.ReductionPolynomial.X_N_minus, np.uint64,
+                          factors=g.NTTFactors(g.Modulus64(q), omega, psi)))
+    return out
 
 
 def _short(name: str) -> str:
@@ -115,6 +130,35 @@ def main(iters: int = 20) -> int:
         for entry, fn in (("fourstep_ntt_lanes", lambda: g.fourstep_ntt_lanes(a, plan)),
                           ("fourstep_intt_lanes", lambda: g.fourstep_intt_lanes(a, plan))):
             print(f"4-step u{bits} 2^{logn}x{batch} {entry}:")
+            profile(fn, iters, a.numel() * 8)
+    from gpuntt_tpu_torch.ops import dispatch as td
+
+    for logn, batch, count in ((16, 64, 8), (18, 12, 3)):
+        plan = g.RNSMergePlan.from_params(_ladder(g, logn, count), device=dev)
+        mod_idx = np.arange(batch) % count
+        a, b = (torch.from_numpy(rng.integers(0, min(plan.qs), size=(batch, plan.n),
+                                              dtype=np.int64)).to(dev) for _ in range(2))
+        fa = td.ntt_rns_lanes(a, plan, mod_idx)
+        entries = [("ntt_rns_lanes", lambda: td.ntt_rns_lanes(a, plan, mod_idx)),
+                   ("intt_rns_lanes", lambda: td.intt_rns_lanes(fa, plan, mod_idx)),
+                   ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a, b, plan, mod_idx))]
+        if logn == 16:  # what the cached schedule saves: its copy on every call
+            entries.append(("ntt_rns_lanes, schedule copied every call",
+                            lambda: (plan._lazy.pop("schedules", None),
+                                     td.ntt_rns_lanes(a, plan, mod_idx))))
+        for entry, fn in entries:
+            print(f"RNS u64 2^{logn}x{batch} ladder {count} {entry}:")
+            profile(fn, iters, a.numel() * 8)
+    for logn, batch in ((16, 64), (20, 8)):
+        plan = g.RNSFourStepPlan.from_params(_ladder(g, logn, 8, four=True), device=dev)
+        mod_idx = np.arange(batch) % 8
+        a = torch.from_numpy(rng.integers(0, min(plan.qs), size=(batch, plan.n),
+                                          dtype=np.int64)).to(dev)
+        for entry, fn in (("rns_fourstep_ntt_lanes",
+                           lambda: g.rns_fourstep_ntt_lanes(a, plan, mod_idx)),
+                          ("rns_fourstep_intt_lanes",
+                           lambda: g.rns_fourstep_intt_lanes(a, plan, mod_idx))):
+            print(f"RNS 4-step u64 2^{logn}x{batch} ladder 8 {entry}:")
             profile(fn, iters, a.numel() * 8)
     return 0
 

@@ -2,10 +2,12 @@
 
 Each kernel against its plain PyTorch version on the same card, at
 every logn the kernels take (u64 11-17, the u64 big rings 18-28, u32
-8-25, the 4-step's 12-24 in both word sizes) and both reduction
-polynomials, on any input word; wide and narrow moduli against the
+8-25, the 4-step's 12-24 in both word sizes, the RNS kernels K12 at
+11-17, K13 at 18-23 and K14 at 14-23 on cyclic and ordered schedules)
+and both reduction polynomials, on any input word; wide and narrow moduli against the
 golden NTTCPU, the big rings against the native oracle at 2^24 and the
-4-step against NTT4StepCPU there; the launch counters of the u32,
+4-step against NTT4StepCPU there; the RNS schedules and model
+against the same entries on the CPU; the launch counters of the u32,
 big-ring and 4-step routes; the wrappers' refusals; CUDA-event timing.
 Exact equality throughout.
 
@@ -24,6 +26,7 @@ from gpuntt_tpu_torch.ops import hopper_fourstep as hf
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
@@ -394,3 +397,168 @@ def test_time_cuda(card):
     x = torch.ones(1 << 20, device=card)
     ms, spread = time_cuda(lambda: x.mul_(1.0), warmup=1, repeats=5, inner=3)
     assert ms > 0 and spread >= 0
+
+
+# ------------------------------------------------------------------- RNS
+
+
+def _rns_members(logn, poly, mc=3, four=False):
+    params = tg.NTTParameters4Step if four else tg.NTTParameters
+    out = []
+    for q in tg.find_ntt_primes(59, logn, mc):
+        omega, psi = tg.ntt_root_pair(q, logn)
+        out.append(params(logn, poly, np.uint64,
+                          factors=tg.NTTFactors(tg.Modulus64(q), omega, psi)))
+    return out
+
+
+# one entry per polynomial of a batch of 4: the cyclic ladder, and an order
+SCHEDULES = {"cyclic": [0, 1, 2, 0], "ordered": [2, 0, 2, 1]}
+
+
+def _rns_counts():
+    return {k.name: (k.launches, k.plain_calls) for k in hr.KERNELS
+            if k.launches or k.plain_calls}
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(11, 18))
+def test_rns_k12_matches_plain_on_card(card, logn, poly, schedule):
+    """K12 forward, inverse and fused polymul inverse, ladder 3, on any u64
+    word, with one schedule entry per row and per ring of two rows."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(logn, poly), device=card)
+    midx = torch.tensor(SCHEDULES[schedule], dtype=torch.int32, device=card)
+    for shift in (0, 1):
+        x = _words((4 << shift, plan.n), True, logn + shift, card)
+        hr.reset_counts()
+        fx = hr.rns_u64_fwd(x, plan, midx, shift)
+        fb = hr.rns_u64_fwd(x.flip(0), plan, midx, shift)
+        ix = hr.rns_u64_inv(x, plan, midx, shift)
+        px = hr.rns_u64_polymul_inv(fx, fb, plan, midx, shift)
+        torch.cuda.synchronize()
+        assert _rns_counts() == {hr.FORWARD.name: (2, 0), hr.INVERSE.name: (1, 0),
+                                 hr.POLYMUL_INVERSE.name: (1, 0)}
+        assert torch.equal(fx, hr.rns_u64_fwd_plain(x, plan, midx, shift))
+        assert torch.equal(ix, hr.rns_u64_inv_plain(x, plan, midx, shift))
+        assert torch.equal(px, hr.rns_u64_polymul_inv_plain(fx, fb, plan, midx, shift))
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(18, 24))
+def test_rns_k13_matches_plain_on_card(card, logn, poly, schedule):
+    """K13's column kernels, the compositions (rows on K12) and the fused
+    polymul, ladder 3, batch 4, against their plain versions; the route
+    through dispatch launches them and builds no N-entry table."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(logn, poly), device=card)
+    sp = hr.large_plan(plan)
+    order = SCHEDULES[schedule]
+    midx = torch.tensor(order, dtype=torch.int32, device=card)
+    x = _words((4, plan.n), True, logn, card)
+    hr.reset_counts()
+    assert torch.equal(hr.rns_u64_large_colfwd(x, sp, midx), hr.colfwd_plain(x, sp, midx))
+    assert torch.equal(hr.rns_u64_large_colinv(x, sp, midx), hr.colinv_plain(x, sp, midx))
+    fx = td.ntt_rns_lanes(x, plan, order)
+    ix = td.intt_rns_lanes(x, plan, order)
+    torch.cuda.synchronize()
+    assert _rns_counts() == {hr.LARGE_COLFWD.name: (2, 0), hr.LARGE_COLINV.name: (2, 0),
+                             hr.FORWARD.name: (1, 0), hr.INVERSE.name: (1, 0)}
+    assert torch.equal(fx, hr.rns_u64_large_plain(x, sp, midx))
+    assert torch.equal(ix, hr.rns_u64_large_plain(x, sp, midx, inverse=True))
+    fb = fx.flip(0).contiguous()
+    assert torch.equal(hr.rns_u64_large_polymul_inv(fx, fb, sp, midx),
+                       hr.rns_u64_large_polymul_inv_plain(fx, fb, sp, midx))
+    assert plan.fwd_tables is None and all(m.fwd_table is None for m in plan.members)
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(14, 24))
+def test_rns_k14_matches_plain_on_card(card, logn, poly, schedule):
+    """K14 in both directions, its rows (K13's row kernel at 512 words,
+    K12 above) and the whole transforms through the public entries,
+    ladder 3, batch 4, against the plain versions; no W table is built."""
+    plan = tg.RNSFourStepPlan.from_params(_rns_members(logn, poly, four=True), device=card)
+    sp = hr.fourstep_plan(plan)
+    order = SCHEDULES[schedule]
+    midx = torch.tensor(order, dtype=torch.int32, device=card)
+    x = _words((4, plan.n), True, logn, card)
+    hr.reset_counts()
+    for inverse in (False, True):
+        assert torch.equal(hr.rns_fourstep_u64_col(x, sp, midx, inverse),
+                           hr.col4_plain(x, sp, midx, inverse))
+        got = (tg.rns_fourstep_intt_lanes if inverse else tg.rns_fourstep_ntt_lanes)(
+            x, plan, order)
+        assert torch.equal(got, hr.rns_fourstep_plain(x, sp, midx, inverse)), inverse
+    torch.cuda.synchronize()
+    rows = ({hr.LARGE_ROWMAT.name: (2, 0)} if sp.first.n2 <= 512 else
+            {hr.FORWARD.name: (1, 0), hr.INVERSE.name: (1, 0)})
+    assert _rns_counts() == {hr.FOURSTEP_COL.name: (4, 0), **rows}
+    assert all("w" not in m._lazy for m in plan.members)
+
+
+def test_rns_schedules_on_card(card):
+    """The ordered entries on the card against the same entries on the
+    CPU: an out-of-range order (read as jnp reads it) and a repeated
+    poly_ordered row (the last occurrence wins), at logn 12 (K12) and 14
+    (K12; the 4-step on K14), both polynomials."""
+    for logn in (12, 14):
+        for poly in POLYS:
+            members = _rns_members(logn, poly)
+            plan = tg.RNSMergePlan.from_params(members, device=card)
+            cpu = tg.RNSMergePlan.from_params(members, device="cpu")
+            x = np.random.default_rng(logn).integers(0, min(plan.qs), size=(4, plan.n),
+                                                     dtype=np.uint64)
+            hr.reset_counts()
+            for order in ([2, 0, 1], [5, -1, 0]):
+                for name in ("ntt_modulus_ordered", "intt_modulus_ordered"):
+                    fn = getattr(tg, name)
+                    np.testing.assert_array_equal(fn(x, plan, order), fn(x, cpu, order))
+            for name in ("ntt_poly_ordered", "intt_poly_ordered"):
+                fn = getattr(tg, name)
+                np.testing.assert_array_equal(fn(x, plan, [2, 0, 2], batch_size=3),
+                                              fn(x, cpu, [2, 0, 2], batch_size=3))
+            np.testing.assert_array_equal(tg.rns_polymul(x, x, plan, order=[1, 2, 0]),
+                                          tg.rns_polymul(x, x, cpu, order=[1, 2, 0]))
+            assert [k.launches for k in hr.KERNELS[:3]] == [5, 3, 1]
+    plan4 = tg.RNSFourStepPlan.from_params(_rns_members(14, POLYS[0], four=True), device=card)
+    cpu4 = tg.RNSFourStepPlan.from_params(_rns_members(14, POLYS[0], four=True), device="cpu")
+    x = _words((3, plan4.n), True, 7, card)
+    for fn in (tg.rns_fourstep_ntt_full, tg.rns_fourstep_intt_full):
+        assert torch.equal(fn(x, plan4, [2, -1, 5]).cpu(), fn(x.cpu(), cpu4, [2, -1, 5]))
+
+
+def test_rns_model_on_card(card):
+    """RNSPolynomialMultiplier at 2^16 (K12) and 2^18 (K13), ladder 3, two
+    residue stacks: equal to the plain pipeline, and its buffers follow
+    the module."""
+    for logn in (16, 18):
+        members = _rns_members(logn, POLYS[1])
+        model = tg.RNSPolynomialMultiplier(members, device=card)
+        rng = np.random.default_rng(logn)
+        a, b = (torch.from_numpy(rng.integers(0, min(model.qs), size=(2, 3, 1 << logn),
+                                              dtype=np.int64)).to(card) for _ in range(2))
+        hr.reset_counts()
+        out = model(a, b)
+        torch.cuda.synchronize()
+        assert hr.POLYMUL_INVERSE.launches == 1 and hr.FORWARD.launches == 2
+        cpu = tg.RNSMergePlan.from_params(members, device="cpu")
+        want = tg.rns_polymul(to_numpy_u64(a.reshape(6, -1)), to_numpy_u64(b.reshape(6, -1)),
+                              cpu)
+        np.testing.assert_array_equal(to_numpy_u64(out.reshape(6, -1)), want)
+        assert model.cpu().plan.device.type == "cpu"
+
+
+def test_rns_wrappers_refuse_on_card(card):
+    plan = tg.RNSMergePlan.from_params(_rns_members(12, POLYS[1]), device=card)
+    x = torch.zeros((2, plan.n), dtype=torch.int64, device=card)
+    midx = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    with pytest.raises(tg.NTTDispatchError):
+        hr.rns_u64_fwd(x.cpu(), plan, midx)
+    with pytest.raises(tg.NTTDispatchError):
+        hr.rns_u64_fwd(x, plan, midx.cpu())
+    with pytest.raises(tg.NTTDispatchError):
+        hr.rns_u64_fwd(x, plan, midx.long())
+    with pytest.raises(tg.NTTDispatchError):
+        hr.rns_u64_inv(x.reshape(-1, 2).t(), plan, midx)

@@ -217,7 +217,7 @@ template <class F> void emu_launch(long long grid, F f) {
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 6, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1}
+_LAUNCHES = {"merge_u64": 4, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1}
 
 
 def _emulated_source(name: str) -> str:
