@@ -51,7 +51,16 @@ at once) and runs, on the card:
    and bytes; then u64 2^16 x 4, X^N + 1, against NTT4StepCPU;
 13. CUDA-event times of each kernel and of its plain version, at the
    shape its path gave it, and of the big-ring and 4-step transforms
-   end to end.
+   end to end;
+14-17. the u64 RNS path (K12, K13, K14; `rns_phase`);
+18-21. the u32 RNS path on the stacked u32 kernels (`rns32_phase`): u32
+   2^16 x 128 on a ladder of 8 30-bit primes, X^N + 1, cyclic — ntt_rns,
+   intt_rns, rns_polymul and RNSPolynomialMultiplier through the public
+   entries with the launch counts read around them, every row against
+   the plain versions, two rows against NTTCPU; the ordered schedules at
+   logn 8 and 12 against the same entries on the host; K6's range at
+   2^20 x 16 (ladder 8) and 2^24 x 2 (167772161, 469762049); the
+   kernels' and the entries' CUDA-event times.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -105,6 +114,40 @@ def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int) -> tuple[flo
                     batch * (1 << (logn - 1)) * logn * mul_per_bf)
 
 
+def recorders(err, times, bounds):
+    """The RNS phases' recording helpers: `same` holds a kernel's output
+    against its plain version and keeps the largest difference in `err`;
+    `timed` times a kernel and its plain version in turns (plain, kernel,
+    kernel, plain) into `times`, with its bound into `bounds`; `e2e`
+    times an entry end to end."""
+    import torch
+
+    from gpuntt_tpu_torch.utils.timing import time_cuda
+
+    def same(name, got, want, what):
+        e = int((got - want).abs().max().item())
+        err[name] = max(err.get(name, 0), e)
+        check(torch.equal(got, want), f"{what} == plain version (max |diff| {e})")
+
+    def timed(name, kernel, plain, bound, cell, repeats=5):
+        runs = [time_cuda(plain, repeats=repeats, inner=2), time_cuda(kernel),
+                time_cuda(kernel), time_cuda(plain, repeats=repeats, inner=2)]
+        k_ms, p_ms = (runs[1][0] + runs[2][0]) / 2, (runs[0][0] + runs[3][0]) / 2
+        times[name], bounds[name] = (k_ms, p_ms), bound
+        print(f"time {name} {cell}: kernel {k_ms:.5f} ms (spread "
+              f"{max(runs[1][1], runs[2][1]):.3f}), plain {p_ms:.3f} ms (spread "
+              f"{max(runs[0][1], runs[3][1]):.3f}), bound {bound[0]:.5f} ms ({bound[1]}), "
+              f"{bound[0] / k_ms:.1%} of it")
+        return k_ms
+
+    def e2e(what, fn):
+        ms, spread = time_cuda(fn)
+        print(f"time {what}: {ms:.5f} ms (spread {spread:.3f})")
+        return ms
+
+    return same, timed, e2e
+
+
 def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     """14-17: the u64 RNS path (K12, K13, K14), through the public entries."""
     import torch
@@ -116,7 +159,6 @@ def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     from gpuntt_tpu_torch.ops import hopper_merge_large as hml
     from gpuntt_tpu_torch.ops import hopper_rns as hr
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
-    from gpuntt_tpu_torch.utils.timing import time_cuda
 
     MINUS = g.ReductionPolynomial.X_N_minus
     PLUS = g.ReductionPolynomial.X_N_plus
@@ -142,26 +184,7 @@ def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
             raise AssertionError(f"plain versions ran: {[(k.name, k.plain_calls) for k in ks]}")
         return {k.name: k.launches for k in ks if k.launches}
 
-    def same(name, got, want, what):
-        e = int((got - want).abs().max().item())
-        err[name] = max(err.get(name, 0), e)
-        check(torch.equal(got, want), f"{what} == plain version (max |diff| {e})")
-
-    def timed(name, kernel, plain, bound, cell, repeats=5):
-        runs = [time_cuda(plain, repeats=repeats, inner=2), time_cuda(kernel),
-                time_cuda(kernel), time_cuda(plain, repeats=repeats, inner=2)]
-        k_ms, p_ms = (runs[1][0] + runs[2][0]) / 2, (runs[0][0] + runs[3][0]) / 2
-        times[name], bounds[name] = (k_ms, p_ms), bound
-        print(f"time {name} {cell}: kernel {k_ms:.5f} ms (spread "
-              f"{max(runs[1][1], runs[2][1]):.3f}), plain {p_ms:.3f} ms (spread "
-              f"{max(runs[0][1], runs[3][1]):.3f}), bound {bound[0]:.5f} ms ({bound[1]}), "
-              f"{bound[0] / k_ms:.1%} of it")
-        return k_ms
-
-    def e2e(what, fn):
-        ms, spread = time_cuda(fn)
-        print(f"time {what}: {ms:.5f} ms (spread {spread:.3f})")
-        return ms
+    same, timed, e2e = recorders(err, times, bounds)
 
     # -- 14. the headline: rns_polymul at u64 2^16 x 64, ladder 8, X^N - 1
     ms8 = members(16, 8)
@@ -415,6 +438,195 @@ def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
             e2e(f"{what} {cell} end to end", lambda fn=fn: fn(x, plan4, cyc8))
 
 
+def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
+    """18-21: the u32 RNS path (the stacked u32 kernels of hopper_rns32.py,
+    in K16's range and in K6's), through the public entries."""
+    import torch
+
+    import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch.ops import dispatch as td
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
+    from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+
+    PLUS = g.ReductionPolynomial.X_N_plus
+    MINUS = g.ReductionPolynomial.X_N_minus
+
+    def members(logn, qs, poly=PLUS):
+        out = []
+        for q in qs:
+            omega, psi = g.ntt_root_pair(q, logn)
+            out.append(g.NTTParameters(logn, poly, np.uint32,
+                                       factors=g.NTTFactors(g.Modulus32(q), omega, psi)))
+        return out
+
+    def residues(qs, mod_idx, n):
+        return np.stack([rng.integers(0, qs[m], n, dtype=np.uint64)
+                         for m in mod_idx]).astype(np.uint32)
+
+    def lanes(v):
+        return torch.from_numpy(np.asarray(v).astype(np.int64)).to(dev)
+
+    def u32(t):
+        return t.cpu().numpy().astype(np.uint32)
+
+    def counted() -> dict:
+        """{kernel: launches} of the u32 RNS kernels since reset(); raises
+        if a plain version ran, or another kernel than these."""
+        torch.cuda.synchronize()
+        others = (*hm.KERNELS, *hm32.KERNELS, *hr.KERNELS)
+        if any(k.plain_calls for k in (*hr32.KERNELS, *others)):
+            raise AssertionError("plain versions ran: " + str(
+                [(k.name, k.plain_calls) for k in (*hr32.KERNELS, *others) if k.plain_calls]))
+        if any(k.launches for k in others):
+            raise AssertionError(f"other kernels ran: {[k.name for k in others if k.launches]}")
+        return {k.name: k.launches for k in hr32.KERNELS if k.launches}
+
+    same, timed, e2e = recorders(err, times, bounds)
+
+    F16, I16, P16 = (d["K16"].name for d in (hr32.FORWARD, hr32.INVERSE, hr32.POLYMUL_INVERSE))
+    F6, I6, P6 = (d["K6"].name for d in (hr32.FORWARD, hr32.INVERSE, hr32.POLYMUL_INVERSE))
+
+    # -- 18. the headline: u32 2^16 x 128, X^N + 1, ladder 8 of 30-bit primes, cyclic
+    ms8 = members(16, g.find_ntt_primes(30, 16, 8))
+    t0 = time.perf_counter()
+    plan = g.RNSMergePlan.from_params(ms8, device=dev)
+    torch.cuda.synchronize()
+    print(f"RNS u32 2^16 ladder 8 plan build {time.perf_counter() - t0:.3f} s, "
+          f"{plan.device_bytes()} bytes of stacked tables on the card")
+    n, cyc = plan.n, np.arange(128) % 8
+    a_np, b_np = residues(plan.qs, cyc, n), residues(plan.qs, cyc, n)
+    a, b = lanes(a_np), lanes(b_np)
+    model = g.RNSPolynomialMultiplier(ms8, device=dev)
+    cell = "RNS u32 2^16x128 L8"
+
+    reset()
+    fa_np = g.ntt_rns(a_np, plan)
+    back_np = g.intt_rns(fa_np, plan)
+    prod_np = g.rns_polymul(a_np, b_np, plan)
+    mout = model(a.view(16, 8, n), b.view(16, 8, n))
+    run = counted()
+    check(run == {F16: 5, I16: 1, P16: 2},
+          f"{cell} ntt_rns, intt_rns, rns_polymul and the model launched the stacked u32 "
+          f"kernels only, no engine, no plain version ({run})")
+    launches.update(run)
+
+    midx = torch.tensor(cyc, dtype=torch.int32, device=dev)
+    fa = lanes(fa_np)
+    fa_plain = hr32.rns_u32_fwd_plain(a, plan, midx)
+    fb_plain = hr32.rns_u32_fwd_plain(b, plan, midx)
+    same(F16, fa, fa_plain, f"{cell} ntt_rns, all rows,")
+    same(I16, lanes(back_np), hr32.rns_u32_inv_plain(fa, plan, midx),
+         f"{cell} intt_rns, all rows,")
+    check(np.array_equal(back_np, a_np), f"{cell} intt_rns(ntt_rns(a)) == a")
+    prod = lanes(prod_np)
+    same(P16, prod, hr32.rns_u32_polymul_inv_plain(fa_plain, fb_plain, plan, midx),
+         f"{cell} rns_polymul, all rows,")
+    check(torch.equal(mout.reshape(128, n), prod), f"{cell} RNSPolynomialMultiplier == rns_polymul")
+    for r in (0, 127):
+        gen = g.NTTCPU(ms8[r % 8])
+        check(np.array_equal(fa_np[r], gen.ntt(a_np[r])),
+              f"{cell} ntt_rns row {r} == NTTCPU of member {r % 8}")
+        check(np.array_equal(prod_np[r], gen.intt(gen.mult(gen.ntt(a_np[r]), gen.ntt(b_np[r])))),
+              f"{cell} rns_polymul row {r} == NTTCPU of member {r % 8}")
+
+    # -- 19. the schedules: ladder 3 at logn 8 (64 rings, 32 a tile of one
+    # modulus) and 12, both polynomials, against the same entries on the host
+    for logn in (8, 12):
+        for poly in (MINUS, PLUS):
+            ms3 = members(logn, g.find_ntt_primes(30, logn, 3), poly)
+            plan3 = g.RNSMergePlan.from_params(ms3, device=dev)
+            cpu3 = g.RNSMergePlan.from_params(ms3, device="cpu")
+            x = residues((min(plan3.qs),), [0] * 64, plan3.n)
+            cell3 = f"RNS u32 2^{logn}x64 L3 {poly.name}"
+            calls = [(name, order, {}) for name in ("ntt_modulus_ordered", "intt_modulus_ordered")
+                     for order in ([2, 0, 1], [5, -1, 0])]
+            calls += [(name, [2, 0, 2, 63, 5], {"batch_size": 5})
+                      for name in ("ntt_poly_ordered", "intt_poly_ordered")]
+            reset()
+            outs = [getattr(g, name)(x, plan3, order, **kw) for name, order, kw in calls]
+            k = hr32.tpu_kernel(logn)
+            run = counted()
+            check(run == {hr32.FORWARD[k].name: 3, hr32.INVERSE[k].name: 3},
+                  f"{cell3} ordered entries launched the stacked u32 kernels ({run})")
+            for (name, order, kw), got in zip(calls, outs):
+                check(np.array_equal(got, getattr(g, name)(x, cpu3, order, **kw)),
+                      f"{cell3} {name} {order} {kw} == plain versions")
+
+    # -- 20. K6's range: 2^20 x 16 on a ladder of 8, and 2^24 x 2 on [167772161, 469762049]
+    wide = {}
+    for logn, qs, batch in ((20, g.find_ntt_primes(30, 20, 8), 16),
+                            (24, [167772161, 469762049], 2)):
+        ms = members(logn, qs)
+        t0 = time.perf_counter()
+        planw = g.RNSMergePlan.from_params(ms, device=dev)
+        torch.cuda.synchronize()
+        mc = len(qs)
+        print(f"RNS u32 2^{logn} ladder {mc} plan build {time.perf_counter() - t0:.3f} s, "
+              f"{planw.device_bytes()} bytes of stacked tables on the card")
+        cycw = np.arange(batch) % mc
+        x_np, y_np = residues(planw.qs, cycw, planw.n), residues(planw.qs, cycw, planw.n)
+        x, y = lanes(x_np), lanes(y_np)
+        mw = torch.tensor(cycw, dtype=torch.int32, device=dev)
+        cellw = f"RNS u32 2^{logn}x{batch} L{mc}"
+        reset()
+        fx = td.ntt_rns_lanes(x, planw, cycw)
+        bx = td.intt_rns_lanes(fx, planw, cycw)
+        pxy = td.rns_polymul_lanes(x, y, planw, cycw)
+        run = counted()
+        check(run == {F6: 3, I6: 1, P6: 1}, f"{cellw} ntt, intt and polymul launched {run}")
+        if logn == 20:
+            launches.update(run)
+        fx_plain = hr32.rns_u32_fwd_plain(x, planw, mw)
+        same(F6, fx, fx_plain, f"{cellw} ntt_rns_lanes, all rows,")
+        same(I6, bx, hr32.rns_u32_inv_plain(fx, planw, mw), f"{cellw} intt_rns_lanes")
+        same(P6, pxy, hr32.rns_u32_polymul_inv_plain(
+            fx_plain, hr32.rns_u32_fwd_plain(y, planw, mw), planw, mw), f"{cellw} polymul")
+        check(torch.equal(bx, x), f"{cellw} intt(ntt(x)) == x")
+        for r in (0, batch - 1) if logn == 20 else (batch - 1,):  # ~11 s a row at 2^24
+            t0 = time.perf_counter()
+            gen = g.NTTCPU(ms[r % mc])
+            check(np.array_equal(u32(fx[r]), gen.ntt(x_np[r])),
+                  f"{cellw} row {r} == NTTCPU of member {r % mc} "
+                  f"({time.perf_counter() - t0:.1f} s on the host)")
+        wide[logn] = (planw, x, y, fx, mw, cycw)
+        del bx, pxy, fx_plain
+
+    # -- 21. times: each kernel at its cell (plain, kernel, kernel, plain), end to end
+    timed(F16, lambda: hr32.rns_u32_fwd(a, plan, midx),
+          lambda: hr32.rns_u32_fwd_plain(a, plan, midx), bound_ms(128, 16, 1, 3), cell)
+    timed(I16, lambda: hr32.rns_u32_inv(fa, plan, midx),
+          lambda: hr32.rns_u32_inv_plain(fa, plan, midx), bound_ms(128, 16, 1, 3), cell)
+    timed(P16, lambda: hr32.rns_u32_polymul_inv(fa, fa_plain, plan, midx),
+          lambda: hr32.rns_u32_polymul_inv_plain(fa, fa_plain, plan, midx),
+          bound_ms(128, 16, 2, 3), cell)
+    one = g.MergePlan.from_params(ms8[0], device=dev)
+    k4 = e2e(f"{hm32.FORWARD['K4'].name} (one modulus, member 0) u32 2^16x128",
+             lambda: hm32.merge_u32_fwd(a, one))
+    print(f"{F16} / {hm32.FORWARD['K4'].name} at u32 2^16x128: {times[F16][0] / k4:.3f}")
+    for what, fn in (("ntt_rns_lanes", lambda: td.ntt_rns_lanes(a, plan, cyc)),
+                     ("intt_rns_lanes", lambda: td.intt_rns_lanes(fa, plan, cyc)),
+                     ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a, b, plan, cyc)),
+                     ("RNSPolynomialMultiplier",
+                      lambda: model(a.view(16, 8, n), b.view(16, 8, n))),
+                     ("ntt_lanes (one modulus, yardstick)", lambda: g.ntt_lanes(a, one))):
+        e2e(f"{what} {cell} end to end", fn)
+    planw, x, y, fx, mw, cycw = wide[20]
+    cellw = "RNS u32 2^20x16 L8"
+    timed(F6, lambda: hr32.rns_u32_fwd(x, planw, mw),
+          lambda: hr32.rns_u32_fwd_plain(x, planw, mw), bound_ms(16, 20, 1, 3), cellw)
+    timed(I6, lambda: hr32.rns_u32_inv(fx, planw, mw),
+          lambda: hr32.rns_u32_inv_plain(fx, planw, mw), bound_ms(16, 20, 1, 3), cellw)
+    timed(P6, lambda: hr32.rns_u32_polymul_inv(fx, fx, planw, mw),
+          lambda: hr32.rns_u32_polymul_inv_plain(fx, fx, planw, mw), bound_ms(16, 20, 2, 3),
+          cellw)
+    for what, fn in (("ntt_rns_lanes", lambda: td.ntt_rns_lanes(x, planw, cycw)),
+                     ("intt_rns_lanes", lambda: td.intt_rns_lanes(fx, planw, cycw)),
+                     ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(x, y, planw, cycw))):
+        e2e(f"{what} {cellw} end to end", fn)
+
+
 def main() -> int:
     import torch
 
@@ -430,6 +642,7 @@ def main() -> int:
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops import hopper_merge_large as hml
     from gpuntt_tpu_torch.ops import hopper_rns as hr
+    from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
     from gpuntt_tpu_torch.ops.merge_ntt import from_lanes
     from gpuntt_tpu_torch.utils.timing import time_cuda
@@ -444,6 +657,7 @@ def main() -> int:
         hml.reset_counts()
         hf.reset_counts()
         hr.reset_counts()
+        hr32.reset_counts()
 
     def counted() -> dict:
         """{kernel: launches} of the u64 kernels that ran since reset();
@@ -1029,6 +1243,7 @@ def main() -> int:
             print(f"{line}, bound {bound[0]:.5f} ms ({bound[1]}), "
                   f"{bound[0] / k_ms:.1%} of it")
     rns_phase(dev, rng, reset, launches, err, times, bounds)
+    rns32_phase(dev, rng, reset, launches, err, times, bounds)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -1037,7 +1252,8 @@ def main() -> int:
          "max_abs_err": err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS, *hr.KERNELS)]}))
+        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS, *hr.KERNELS,
+                  *hr32.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

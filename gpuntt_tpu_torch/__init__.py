@@ -26,7 +26,8 @@ paths of both word sizes so far:
   RNSMergePlan, the RNS 4-step (`RNSFourStepPlan`,
   `rns_fourstep_{ntt,intt}_{lanes,full}`) and RNSPolynomialMultiplier,
   on the u64 RNS kernels (ops.hopper_rns: K12 at logn 12-17, K13 at
-  18-23, K14 for the 4-step at 14-23).
+  18-23, K14 for the 4-step at 14-23) and, for u32 ladders with every
+  q < 2^30, the stacked u32 kernels at logn 8-25 (ops.hopper_rns32).
 
 Entry points run on the first CUDA card unless the caller passes
 device="cpu"; without a card, a plan made for the default device raises
@@ -84,7 +85,7 @@ from .ops.dispatch import (
     rns_pointwise_mult_lanes,
     rns_polymul,
 )
-from .ops.rns import RNSMergePlan
+from .ops.rns import NTTScheduleError, RNSMergePlan
 from .ops.fourstep_rns import (
     RNSFourStepPlan,
     rns_fourstep_intt_full,
@@ -111,6 +112,7 @@ __all__ = [
     "NTTParameterError",
     "NTTDeviceError",
     "NTTDispatchError",
+    "NTTScheduleError",
     "bitreverse",
     "bitrev_permute",
     "NTTFactors",

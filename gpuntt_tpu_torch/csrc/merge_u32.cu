@@ -15,6 +15,24 @@
 // engine (and so to the JAX package) for inputs below q; as in
 // merge_u64.cu, any u32 input word is first reduced mod q.
 //
+// The same kernels serve u32 RNS batches (ops/hopper_rns32.py), replacing
+// the JAX package's stacked u32 kernel K16 (pallas_mxu_rns.py, logn <= 17)
+// and, at logn 18-25, its per-modulus split onto K6:
+//   rns_u32_forward         <- _rns32_fwd_kernel (pallas_mxu_rns.py:846)
+//   rns_u32_inverse         <- _rns32_inv_kernel (:857)
+//   rns_u32_polymul_inverse <- _rns32_inv_kernel with the Barrett product
+//                              fused into its first load (the JAX package
+//                              leaves the product unfused)
+// Each kernel is a template over where a ring's constants come from
+// (merge_u32.cuh): the launch's arguments for one modulus, or for RNS the
+// ring's schedule entry, which picks its modulus's rows of the stacked
+// tables and constants.  Every block reads one modulus, once.  Below logn
+// 14 a row block of one modulus holds 2^13 / N rings; an RNS schedule's
+// neighbouring rings may name different moduli, so there a row block
+// holds only the rings of one schedule entry (one ring for a schedule of
+// one entry per ring) and its tile shrinks to fit them: each ring gets a
+// block of its own rather than per-ring constants inside a block.
+//
 // Choice: butterflies, not digits.  K5/K6 cut each product into radix-256
 // int8 digit matmuls and K4 rolls sublanes under masks, because the TPU
 // has no wide multiplier.  This card multiplies 32 x 32 -> 64 natively
@@ -57,6 +75,10 @@
 // bytes at ~2.2 TB/s (PERF.md section 5).  Fewer barriers per stage
 // (radix-4/8 in registers) is the remedy, left to a later change.
 // Tensor cores, TMA and clusters are not used.
+//
+// An RNS batch adds its ring's modulus's tables to each block's reads:
+// 1 MiB of table and Shoup companion per modulus at 2^16 for X^N + 1,
+// 8 MiB for a ladder of 8, which L2 (50 MB) holds.
 //
 // Value bound: q < 2^30, so canonical sums (< 2q) and lazy Shoup results
 // (< 2q) stay inside the word (merge_u32.cuh).
@@ -164,56 +186,59 @@ __device__ void gs_rows(uint32_t* s, int rows, int r0, int logA, int logB,
 // Column phase.  Block = (ring, 2^logC adjacent columns), an (A, 2^logC)
 // tile.  Forward (first phase): reduce on load, CT stages.  Inverse (last
 // phase): GS stages, n^-1 on store.  x may equal y.
-template <bool kFwd>
+template <bool kFwd, class F>
 __global__ void __launch_bounds__(kThreads)
-cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC,
-     const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws, uint32_t q,
-     uint32_t one_s, uint32_t n_inv, uint32_t n_inv_s, int xnp) {
+cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp) {
   extern __shared__ uint32_t smem[];
   const int logB = logn - logA, tiles_log = logB - logC;
-  const size_t off = ((size_t)(blockIdx.x >> tiles_log) << logn) +
-                     ((size_t)(blockIdx.x & ((1u << tiles_log) - 1)) << logC);
+  const size_t ring = blockIdx.x >> tiles_log;
+  const Ring f = fs.at(ring);
+  const size_t off = (ring << logn) + ((size_t)(blockIdx.x & ((1u << tiles_log) - 1)) << logC);
   const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
   for (int e = threadIdx.x; e < words; e += kThreads) {
     const uint32_t v = (uint32_t)x[off + ((size_t)(e >> logC) << logB) + (e & cmask)];
-    smem[e] = kFwd ? reduce_any(v, q, one_s) : v;
+    smem[e] = kFwd ? reduce_any(v, f.q, f.one_s) : v;
   }
   __syncthreads();
   if (kFwd)
-    ct_cols(smem, logA, logC, tw, tws, q, xnp);
+    ct_cols(smem, logA, logC, f.tw, f.tws, f.q, xnp);
   else
-    gs_cols(smem, logA, logC, tw, tws, q, xnp);
+    gs_cols(smem, logA, logC, f.tw, f.tws, f.q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads)
     y[off + ((size_t)(e >> logC) << logB) + (e & cmask)] =
-        kFwd ? smem[e] : shoup_mul(smem[e], n_inv, n_inv_s, q);
+        kFwd ? smem[e] : shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q);
 }
 
 // Row phase.  Block = 2^log_rows consecutive rows of the (batch * A, B)
-// view, the last block possibly short.  `reduce`: reduce on load (the
-// first phase); `scale`: n^-1 on store (the inverse's last phase).
-// x may equal y.
-template <bool kFwd>
+// view, the last block possibly short, all under one modulus (the
+// launcher caps log_rows by F::ring_log).  `reduce`: reduce on load (the
+// first phase); `scale`: n^-1 on store (the inverse's last phase).  kMul:
+// the load is the Barrett product x o b, then reduced (the polymul's
+// inverse).  x may equal y.
+template <bool kFwd, bool kMul, class F>
 __global__ void __launch_bounds__(kThreads)
-rows(const uint64_t* x, uint64_t* y, int total_rows, int logA, int logB, int log_rows,
-     const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws, uint32_t q,
-     uint32_t one_s, int reduce, int scale, uint32_t n_inv, uint32_t n_inv_s, int xnp) {
+rows(const uint64_t* x, const uint64_t* b, uint64_t* y, int total_rows, int logA, int logB,
+     int log_rows, F fs, int reduce, int scale, int xnp) {
   extern __shared__ uint32_t smem[];
   const int r0 = (int)(blockIdx.x << log_rows);
   const int left = total_rows - r0;
   const int nrows = left < (1 << log_rows) ? left : (1 << log_rows);
   const int words = nrows << logB;
   const size_t off = (size_t)r0 << logB;
+  const Ring f = fs.at((size_t)r0 >> logA);
   for (int e = threadIdx.x; e < words; e += kThreads) {
-    const uint32_t v = (uint32_t)x[off + e];
-    smem[e] = reduce ? reduce_any(v, q, one_s) : v;
+    const uint32_t v = kMul ? barrett_mul((uint32_t)x[off + e], (uint32_t)b[off + e], f.q,
+                                          f.bit, f.mu)
+                            : (uint32_t)x[off + e];
+    smem[e] = reduce ? reduce_any(v, f.q, f.one_s) : v;
   }
   __syncthreads();
   if (kFwd)
-    ct_rows(smem, nrows, r0, logA, logB, tw, tws, q, xnp);
+    ct_rows(smem, nrows, r0, logA, logB, f.tw, f.tws, f.q, xnp);
   else
-    gs_rows(smem, nrows, r0, logA, logB, tw, tws, q, xnp);
+    gs_rows(smem, nrows, r0, logA, logB, f.tw, f.tws, f.q, xnp);
   for (int e = threadIdx.x; e < words; e += kThreads)
-    y[off + e] = scale ? shoup_mul(smem[e], n_inv, n_inv_s, q) : smem[e];
+    y[off + e] = scale ? shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q) : smem[e];
 }
 
 // log2 words of a block's tile for rows of 2^logB words.
@@ -236,8 +261,15 @@ int grid_cols(long long batch, int logn, int logA) {
   return (int)(batch << (logB - (tile_log(logB) - logA)));
 }
 
-int grid_rows(long long batch, int logn, int logA) {
-  const int logB = logn - logA, log_rows = tile_log(logB) - logB;
+// log2 rows of a row block: a tile's worth, no more than F puts in one
+// modulus's run of rings (2^(logA + ring_log) rows).
+template <class F>
+int rows_log(int logA, int logB, const F& f) {
+  const int fit = tile_log(logB) - logB, run = logA + f.ring_log();
+  return fit < run ? fit : run;
+}
+
+int grid_rows(long long batch, int logA, int log_rows) {
   return (int)(((batch << logA) + (1LL << log_rows) - 1) >> log_rows);
 }
 
@@ -254,6 +286,67 @@ int launch_status() {
   return e == cudaSuccess ? 0 : (int)e;
 }
 
+// Check the shape and select the card; 0 or a cudaError_t.
+int begin(int device, long long batch, int logn, int logA) {
+  if (!shape_ok(batch, logn, logA)) return (int)cudaErrorInvalidValue;
+  return (int)cudaSetDevice(device);
+}
+
+// A schedule of `entries` moduli for `batch` rings, 2^shift rings each.
+bool schedule_ok(long long batch, long long entries, int shift) {
+  return shift >= 0 && shift < 31 && entries > 0 && (entries << shift) == batch;
+}
+
+template <class F>
+int forward(const uint64_t* x, uint64_t* y, long long batch, int logn, int logA, F f, int xnp,
+            cudaStream_t st) {
+  const int logB = logn - logA, logW = tile_log(logB);
+  if (logA > 0) {
+    const int bytes = 4 << logW;
+    if (int rc = fit_smem(cols<true, F>, bytes)) return rc;
+    cols<true, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
+        x, y, logn, logA, logW - logA, f, xnp);
+    if (int rc = launch_status()) return rc;
+  }
+  const int log_rows = rows_log(logA, logB, f), bytes = 4 << (logB + log_rows);
+  if (int rc = fit_smem(rows<true, false, F>, bytes)) return rc;
+  rows<true, false, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
+      logA > 0 ? y : x, nullptr, y, (int)(batch << logA), logA, logB, log_rows, f, logA == 0,
+      0, xnp);
+  return launch_status();
+}
+
+// kMul: INTT(a o b); otherwise INTT(a) (b unused).
+template <bool kMul, class F>
+int inverse(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, int logn,
+            int logA, F f, int xnp, cudaStream_t st) {
+  const int logB = logn - logA, logW = tile_log(logB);
+  const int log_rows = rows_log(logA, logB, f), bytes = 4 << (logB + log_rows);
+  if (int rc = fit_smem(rows<false, kMul, F>, bytes)) return rc;
+  rows<false, kMul, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
+      a, b, y, (int)(batch << logA), logA, logB, log_rows, f, 1, logA == 0, xnp);
+  if (int rc = launch_status()) return rc;
+  if (logA > 0) {
+    const int bytes = 4 << logW;
+    if (int rc = fit_smem(cols<false, F>, bytes)) return rc;
+    cols<false, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
+        y, y, logn, logA, logW - logA, f, xnp);
+  }
+  return launch_status();
+}
+
+OneModulus one_modulus(const uint64_t* tw, const uint64_t* tws, uint32_t q, uint32_t one_s,
+                       uint32_t n_inv = 0, uint32_t n_inv_s = 0) {
+  return OneModulus{Ring{tw, tws, q, one_s, n_inv, n_inv_s, 0, 0}};
+}
+
+// The stacked tables of an RNS schedule: 2^logn entries per modulus for
+// X^N + 1, 2^(logn-1) for X^N - 1.
+Stacked rns(const int* mod_idx, int shift, int logn, const uint64_t* tw, const uint64_t* tws,
+            const uint64_t* consts, int xnp) {
+  return Stacked{mod_idx, shift, tw, tws, xnp ? 1LL << logn : 1LL << (logn - 1), consts};
+}
+
 }  // namespace
 }  // namespace merge_u32
 
@@ -261,53 +354,66 @@ using namespace merge_u32;
 
 // Every entry: pointers to contiguous (batch, 2^logn) int64 lanes holding
 // u32 words on card `device` (only the low 32 bits of each input word are
-// read), the twiddle tables and their Shoup companions as int64 words,
-// launches on `stream`, allocates nothing, does not synchronise, and
-// returns the cudaError_t of its launches (0 = none).  logA is log2 of the
-// column count A of the split (hopper_merge32.split); x may equal y.
+// read), launches on `stream`, allocates nothing, does not synchronise,
+// and returns the cudaError_t of its launches (0 = none).  logA is log2 of
+// the column count A of the split (hopper_merge32.split); x may equal y.
+// The merge_u32_* entries take one modulus: its table and Shoup companion
+// as int64 words, and its numbers.  The rns_u32_* entries take an int32
+// schedule of batch >> shift moduli (ring i uses modulus
+// mod_idx[i >> shift], every entry in [0, mod_count)), the stacked
+// (mod_count, table) tables and the (mod_count, 6) constants of
+// ops/rns.py's RNSMergePlan.
 extern "C" {
 
 int merge_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch,
                       int logn, int logA, const uint64_t* tw, const uint64_t* tws,
                       uint32_t q, uint32_t one_s, int xnp, void* stream) {
-  if (!shape_ok(batch, logn, logA)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int logB = logn - logA, logW = tile_log(logB), bytes = 4 << logW;
-  if (logA > 0) {
-    if (int rc = fit_smem(cols<true>, bytes)) return rc;
-    cols<true><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
-        x, y, logn, logA, logW - logA, tw, tws, q, one_s, 0, 0, xnp);
-    if (int rc = launch_status()) return rc;
-  }
-  if (int rc = fit_smem(rows<true>, bytes)) return rc;
-  rows<true><<<grid_rows(batch, logn, logA), kThreads, bytes, st>>>(
-      logA > 0 ? y : x, y, (int)(batch << logA), logA, logB, logW - logB, tw, tws, q,
-      one_s, logA == 0, 0, 0, 0, xnp);
-  return launch_status();
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return forward(x, y, batch, logn, logA, one_modulus(tw, tws, q, one_s), xnp,
+                 (cudaStream_t)stream);
 }
 
 int merge_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batch,
                       int logn, int logA, const uint64_t* tw, const uint64_t* tws,
                       uint32_t q, uint32_t one_s, uint32_t n_inv, uint32_t n_inv_s,
                       int xnp, void* stream) {
-  if (!shape_ok(batch, logn, logA)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int logB = logn - logA, logW = tile_log(logB), bytes = 4 << logW;
-  if (int rc = fit_smem(rows<false>, bytes)) return rc;
-  rows<false><<<grid_rows(batch, logn, logA), kThreads, bytes, st>>>(
-      x, y, (int)(batch << logA), logA, logB, logW - logB, tw, tws, q, one_s, 1,
-      logA == 0, n_inv, n_inv_s, xnp);
-  if (int rc = launch_status()) return rc;
-  if (logA > 0) {
-    if (int rc = fit_smem(cols<false>, bytes)) return rc;
-    cols<false><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
-        y, y, logn, logA, logW - logA, tw, tws, q, one_s, n_inv, n_inv_s, xnp);
-  }
-  return launch_status();
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return inverse<false>(x, nullptr, y, batch, logn, logA,
+                        one_modulus(tw, tws, q, one_s, n_inv, n_inv_s), xnp,
+                        (cudaStream_t)stream);
+}
+
+int rns_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
+                    int logA, const int* mod_idx, long long entries, int shift,
+                    const uint64_t* tw, const uint64_t* tws, const uint64_t* consts, int xnp,
+                    void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, tws, consts, xnp),
+                 xnp, (cudaStream_t)stream);
+}
+
+int rns_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
+                    int logA, const int* mod_idx, long long entries, int shift,
+                    const uint64_t* tw, const uint64_t* tws, const uint64_t* consts, int xnp,
+                    void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return inverse<false>(x, nullptr, y, batch, logn, logA,
+                        rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
+                        (cudaStream_t)stream);
+}
+
+int rns_u32_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb, uint64_t* y,
+                            long long batch, int logn, int logA, const int* mod_idx,
+                            long long entries, int shift, const uint64_t* tw,
+                            const uint64_t* tws, const uint64_t* consts, int xnp,
+                            void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return inverse<true>(fa, fb, y, batch, logn, logA,
+                       rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -57,8 +57,13 @@ class PolynomialMultiplier(torch.nn.Module):
                 **{n: getattr(self, n) for n in _TABLES})
         return self._plan
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def step_lanes(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The lane-tensor pipeline, polymul_lanes on this module's plan
+        (the JAX model's step_lanes, gpuntt_tpu/models/polymul.py:48-55)."""
         return polymul_lanes(a, b, self.plan)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.step_lanes(a, b)
 
     def __call__(self, a, b):
         if isinstance(a, torch.Tensor):
@@ -80,7 +85,8 @@ class RNSPolynomialMultiplier(torch.nn.Module):
     member's q_i) or (..., mod_count, N) batches of them; the cyclic
     modulus schedule of the RNS dispatch (q_index = b % mod_count)
     matches that row order, so the residue batches ride the RNS kernels
-    (K12 at logn 12-17, K13 at 18-23, u64 with q < 2^62).
+    (u64 with q < 2^62: K12 at logn 12-17, K13 at 18-23; u32 with
+    q < 2^30: the stacked u32 kernels at 8-25).
     `crt_reconstruct` lifts results back to Z_{prod q_i}.  The plan's
     stacked tables and constants are registered buffers, so `.to(device)`
     moves them; a big-ring ladder holds no stacked table and registers

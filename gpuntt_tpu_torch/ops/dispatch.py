@@ -40,7 +40,9 @@ one first):
   the JAX package leaves the u32 product to XLA;
 - everything else -> the torch butterfly engine ("engine").
 
-The wrappers run their plain versions for CPU tensors.
+The wrappers run their plain versions for CPU tensors.  `use_pallas` on
+ntt_lanes / intt_lanes / polymul_lanes picks the route as the JAX
+package's argument does (`_chosen_path`).
 
 `staged_ntt_lanes` / `staged_polymul_lanes` keep the JAX package's
 big-ring entries (logn 24-28): thin calls into the same route.
@@ -51,11 +53,18 @@ modulus b % mod_count), ntt/intt_modulus_ordered, ntt/intt_poly_ordered,
 rns_pointwise_mult(_lanes) and rns_polymul, over the lanes-level
 pipelines ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes (the last
 is what RNSPolynomialMultiplier calls).
-Route (`_rns_kernel_path`), for a (batch, N) tensor and u64 members that
-all have q < 2^62 and a genuine root: logn 12-17 -> K12
-("hopper-rns"), logn 18-23 -> K13 ("hopper-rns-large"), both in
-hopper_rns.py; everything else (u32, other logn, wide q) -> the engine
-of ops/rns.py.
+Route (`_rns_kernel_path`), for a (batch, N) tensor and members that
+all have a genuine root:
+
+- u64, every q < 2^62, logn 12-17 -> K12 ("hopper-rns"), logn 18-23 ->
+  K13 ("hopper-rns-large"), both in hopper_rns.py;
+- u32, every q < 2^30, logn 8-25 -> the stacked u32 kernels of
+  hopper_rns32.py ("hopper-rns32", K16's counterpart), which the JAX
+  package leaves to XLA; the polymul fuses its product into the inverse;
+- everything else (other logn, wide q) -> the engine of ops/rns.py.
+
+A schedule of one entry serves every row; any other length that is not
+the batch raises NTTScheduleError.
 """
 
 from __future__ import annotations
@@ -65,15 +74,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common.errors import NTTDispatchError
 from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
 from . import hopper_merge as hm
 from . import hopper_merge32 as hm32
 from . import hopper_merge_large as hml
 from . import hopper_rns as hr
+from . import hopper_rns32 as hr32
 from .merge_ntt import MergePlan, from_lanes, merge_intt_lanes, merge_ntt_lanes, to_lanes
-from .rns import (RNSMergePlan, per_modulus, rns_intt_lanes, rns_ntt_lanes,
-                  schedule_index)
+from .rns import (NTTScheduleError, RNSMergePlan, checked_schedule, per_modulus,
+                  rns_intt_lanes, rns_ntt_lanes)
 
 
 @dataclass(frozen=True)
@@ -111,6 +122,33 @@ _TRANSFORMS = {
     "engine": (merge_ntt_lanes, merge_intt_lanes),
 }
 
+# the JAX package's kernel-path names (gpuntt_tpu/ops/dispatch.py:112) and
+# the route of their counterparts here
+_NAMED_PATHS = {"mxu": ("hopper-merge", hm), "mxu-large": ("hopper-merge-large", hml),
+                "mxu32": ("hopper-merge32", hm32), "mxu32-large": ("hopper-merge32", hm32)}
+
+
+def _chosen_path(plan: MergePlan, x_shape, use_pallas) -> str:
+    """The route of a (batch, N) transform under `use_pallas`, read as the
+    JAX package reads it (gpuntt_tpu/ops/dispatch.py:221-239): "auto" and
+    True take the plan's kernel route (no backend to check here), False
+    the engine; a JAX path name takes its counterpart, or the engine
+    where that kernel does not take the plan (as _resolve_mxu falls to
+    XLA); any other true value names the VPU merge kernel, K4's
+    counterpart on u32.  Its u64 twin K15 is not ported: that raises."""
+    if use_pallas == "auto" or use_pallas is True:
+        return _kernel_path(plan, x_shape, NTTLayout.PerPolynomial)
+    if not use_pallas:
+        return "engine"
+    if use_pallas in _NAMED_PATHS:
+        path, kernels = _NAMED_PATHS[use_pallas]
+        return path if kernels.covers(plan) and plan.genuine_root else "engine"
+    if plan.is64:
+        raise NTTDispatchError(
+            f"use_pallas={use_pallas!r} names the u64 VPU merge kernel K15 "
+            "(gpuntt_tpu/ops/pallas_merge64.py), which has no Hopper counterpart yet")
+    return "hopper-merge32" if hm32.covers(plan) else "engine"
+
 
 def _apply_layout_in(x, layout: NTTLayout):
     if layout == NTTLayout.PerCoefficient:
@@ -132,8 +170,9 @@ def _as_batch(x):
 
 def ntt_lanes(x: torch.Tensor, plan: MergePlan,
               layout: NTTLayout = NTTLayout.PerPolynomial,
-              signed_input: bool = False) -> torch.Tensor:
-    """Forward NTT on lane tensors (bit-reversed output order)."""
+              signed_input: bool = False, use_pallas: bool | str = "auto") -> torch.Tensor:
+    """Forward NTT on lane tensors (bit-reversed output order), on the
+    route `use_pallas` picks (`_chosen_path`)."""
     plan = plan.to(x.device)
     if signed_input:
         x = (bo.reduce_signed64(x, plan.q) if plan.is64
@@ -141,19 +180,20 @@ def ntt_lanes(x: torch.Tensor, plan: MergePlan,
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    y = _TRANSFORMS[_kernel_path(plan, x2.shape, NTTLayout.PerPolynomial)][0](x2, plan)
+    y = _TRANSFORMS[_chosen_path(plan, x2.shape, use_pallas)][0](x2, plan)
     return _apply_layout_out(y.reshape(shape), layout)
 
 
 def intt_lanes(x: torch.Tensor, plan: MergePlan,
                layout: NTTLayout = NTTLayout.PerPolynomial,
-               signed_output: bool = False) -> torch.Tensor:
-    """Inverse NTT on lane tensors, n^-1 scaling included."""
+               signed_output: bool = False, use_pallas: bool | str = "auto") -> torch.Tensor:
+    """Inverse NTT on lane tensors, n^-1 scaling included; `use_pallas`
+    as in ntt_lanes."""
     plan = plan.to(x.device)
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    y = _TRANSFORMS[_kernel_path(plan, x2.shape, NTTLayout.PerPolynomial)][1](x2, plan)
+    y = _TRANSFORMS[_chosen_path(plan, x2.shape, use_pallas)][1](x2, plan)
     y = _apply_layout_out(y.reshape(shape), layout)
     if signed_output:
         return bo.centered64(y, plan.q) if plan.is64 else bo.centered32(y, plan.q)
@@ -168,22 +208,25 @@ def pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan):
     return bo.barrett_mul32(a, b, plan.q, plan.bit, plan.mu)
 
 
-def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan) -> torch.Tensor:
+def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan,
+                  use_pallas: bool | str = "auto") -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)): cyclic for X_N_minus, negacyclic for
-    X_N_plus.  On the u64 kernel routes the pointwise product is fused
-    into the inverse kernel (K3; for big rings where its rows run on K3,
-    logn 18-25); elsewhere it runs between the forward and inverse
-    transforms.  Outputs are bit-identical on every route."""
+    X_N_plus.  With use_pallas="auto", on the u64 kernel routes the
+    pointwise product is fused into the inverse kernel (K3; for big rings
+    where its rows run on K3, logn 18-25); elsewhere, and for every other
+    `use_pallas` (as in the JAX package), it runs between the forward and
+    inverse transforms.  Outputs are bit-identical on every route."""
     plan = plan.to(a.device)
-    fa = _as_batch(ntt_lanes(a, plan))
-    fb = _as_batch(ntt_lanes(b, plan))
-    path = _kernel_path(plan, fa.shape, NTTLayout.PerPolynomial)
+    fa = _as_batch(ntt_lanes(a, plan, use_pallas=use_pallas))
+    fb = _as_batch(ntt_lanes(b, plan, use_pallas=use_pallas))
+    path = (_kernel_path(plan, fa.shape, NTTLayout.PerPolynomial)
+            if use_pallas == "auto" else None)
     if path == "hopper-merge":
         out = hm.merge_u64_polymul_inv(fa, fb, plan)
     elif path == "hopper-merge-large" and (lp := hml.large_plan(plan)).fuses_product:
         out = hml.merge_u64_large_polymul_inv(fa, fb, lp)
     else:
-        out = intt_lanes(pointwise_mult_lanes(fa, fb, plan), plan)
+        out = intt_lanes(pointwise_mult_lanes(fa, fb, plan), plan, use_pallas=use_pallas)
     return out.reshape(a.shape)
 
 
@@ -301,38 +344,53 @@ def _order_mod_idx(batch: int, plan: RNSMergePlan, order) -> np.ndarray:
 
 
 def _rns_kernel_path(plan: RNSMergePlan, x_shape) -> str:
-    """"hopper-rns" (K12), "hopper-rns-large" (K13) or "engine" for an RNS
-    transform of a (batch, N) tensor: u64 ladders whose members all have
-    q < 2^62 and a genuine root, logn 12-17 and 18-23.  The JAX package's
-    q < 2^60 is a limit of its digit arithmetic; the Shoup butterflies are
-    exact below 2^62.  u32 ladders take the engine, as the JAX package
-    takes XLA for them."""
+    """"hopper-rns" (K12), "hopper-rns-large" (K13), "hopper-rns32" (K16's
+    counterpart) or "engine" for an RNS transform of a (batch, N) tensor
+    whose members all have a genuine root: u64 ladders with every
+    q < 2^62 at logn 12-17 and 18-23 (the JAX package's q < 2^60 is a
+    limit of its digit arithmetic; the Shoup butterflies are exact below
+    2^62), u32 ladders with every q < 2^30 at logn 8-25.  The JAX package
+    leaves u32 ladders to XLA, where its stacked kernel lost to it on the
+    TPU (gpuntt_tpu/ops/dispatch.py:553-562); this card multiplies
+    32 x 32 -> 64 natively."""
     if len(x_shape) != 2 or not plan.genuine_root:
         return "engine"
     if hr.covers(plan):
         return "hopper-rns"
     if hr.covers_large(plan):
         return "hopper-rns-large"
+    if hr32.covers(plan):
+        return "hopper-rns32"
     return "engine"
+
+
+# path -> (forward, inverse, fused polymul inverse) on contiguous (batch, N)
+# lane tensors and an int32 schedule on the card
+_RNS_KERNELS = {
+    "hopper-rns": (hr.rns_u64_fwd, hr.rns_u64_inv, hr.rns_u64_polymul_inv),
+    "hopper-rns32": (hr32.rns_u32_fwd, hr32.rns_u32_inv, hr32.rns_u32_polymul_inv),
+}
 
 
 def _rns_transform(x: torch.Tensor, plan: RNSMergePlan, mod_idx, inverse: bool):
     plan = plan.to(x.device)
-    mod_idx = schedule_index(mod_idx, plan.mod_count)
+    mod_idx = checked_schedule(mod_idx, plan.mod_count, x.shape[0])
     path = _rns_kernel_path(plan, x.shape)
     if path == "engine":
         return (rns_intt_lanes if inverse else rns_ntt_lanes)(x, plan, mod_idx)
     x = x.contiguous()
     midx = hr.schedule(plan, mod_idx, x.device)
-    if path == "hopper-rns":
-        return (hr.rns_u64_inv if inverse else hr.rns_u64_fwd)(x, plan, midx)
-    return hr.rns_u64_large(x, hr.large_plan(plan), midx, inverse)
+    if path == "hopper-rns-large":
+        return hr.rns_u64_large(x, hr.large_plan(plan), midx, inverse)
+    return _RNS_KERNELS[path][1 if inverse else 0](x, plan, midx)
 
 
 def ntt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
     """The RNS forward transform of a (batch, N) lane tensor on its route,
-    row b under modulus mod_idx[b], read as jnp indexing reads it: the
-    lanes-level pipeline under ntt_rns and the ordered entries."""
+    row b under modulus mod_idx[b], read as jnp indexing reads it (one
+    entry serves every row; any other length that is not the batch raises
+    NTTScheduleError): the lanes-level pipeline under ntt_rns and the
+    ordered entries."""
     return _rns_transform(x, plan, mod_idx, False)
 
 
@@ -414,11 +472,21 @@ def rns_pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePla
     """RNS spectrum product: row r under modulus mod_idx[r], exact Barrett
     with that member's (q, bit, mu).  A row whose entry names no member
     1..mod_count-1 takes member 0's product, as the JAX package's
-    where-chain leaves it."""
+    where-chain leaves it.  The schedule broadcasts against the rows as
+    that chain's (len, 1) mask does: one entry serves every row, and a
+    schedule of k entries over one row gives k rows; any other length
+    raises NTTScheduleError."""
     mod_idx = np.asarray(mod_idx, dtype=np.int64).reshape(-1)
+    try:
+        shape = torch.broadcast_shapes((len(mod_idx),) + (1,) * (a.dim() - 1), a.shape,
+                                       b.shape)
+    except RuntimeError as e:
+        raise NTTScheduleError(f"a schedule of {len(mod_idx)} entries for operands "
+                               f"{tuple(a.shape)} and {tuple(b.shape)}") from e
     named = (mod_idx >= 1) & (mod_idx < plan.mod_count)
     return per_modulus(lambda u, v, member: pointwise_mult_lanes(u, v, member), plan.members,
-                       np.where(named, mod_idx, 0), a, b)
+                       np.broadcast_to(np.where(named, mod_idx, 0), shape[:1]),
+                       a.expand(shape), b.expand(shape))
 
 
 def rns_pointwise_mult(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
@@ -434,13 +502,14 @@ def rns_pointwise_mult(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
 def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
                       mod_idx) -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)) of (batch, N) lane tensors, row r modulo
-    (q_{mod_idx[r]}, X^N +/- 1).  On the kernel routes: two forward
-    transforms and the inverse with the product fused into its first load
-    (K12's fused inverse, on the rows of a big ring for K13); on the
-    engine: forward, rns_pointwise_mult_lanes, inverse.  Outputs are
-    bit-identical either way."""
+    (q_{mod_idx[r]}, X^N +/- 1), the schedule read as ntt_rns_lanes reads
+    it.  On the kernel routes: two forward transforms and the inverse
+    with the product fused into its first load (K12's fused inverse and
+    its u32 twin, on the rows of a big ring for K13); on the engine:
+    forward, rns_pointwise_mult_lanes, inverse.  Outputs are bit-identical
+    either way."""
     plan = plan.to(a.device)
-    mod_idx = schedule_index(mod_idx, plan.mod_count)
+    mod_idx = checked_schedule(mod_idx, plan.mod_count, a.shape[0])
     path = _rns_kernel_path(plan, a.shape)
     if path == "engine":
         prod = rns_pointwise_mult_lanes(rns_ntt_lanes(a, plan, mod_idx),
@@ -448,12 +517,12 @@ def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
         return rns_intt_lanes(prod, plan, mod_idx)
     a, b = a.contiguous(), b.contiguous()
     midx = hr.schedule(plan, mod_idx, a.device)
-    if path == "hopper-rns":
-        return hr.rns_u64_polymul_inv(hr.rns_u64_fwd(a, plan, midx),
-                                      hr.rns_u64_fwd(b, plan, midx), plan, midx)
-    sp = hr.large_plan(plan)
-    return hr.rns_u64_large_polymul_inv(hr.rns_u64_large(a, sp, midx),
-                                        hr.rns_u64_large(b, sp, midx), sp, midx)
+    if path == "hopper-rns-large":
+        sp = hr.large_plan(plan)
+        return hr.rns_u64_large_polymul_inv(hr.rns_u64_large(a, sp, midx),
+                                            hr.rns_u64_large(b, sp, midx), sp, midx)
+    fwd, _, polymul_inv = _RNS_KERNELS[path]
+    return polymul_inv(fwd(a, plan, midx), fwd(b, plan, midx), plan, midx)
 
 
 def rns_polymul(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:

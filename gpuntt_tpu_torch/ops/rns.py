@@ -22,7 +22,8 @@ row-independent, so each modulus's rows run through that member's plan
 on the butterfly engine of merge_ntt.py and are scattered back.  That is
 bit-exact with the JAX package's gather formulation, which runs the same
 stages with per-row twiddles.  A schedule entry outside [0, mod_count)
-is read as jnp indexing reads it (`schedule_index`).
+is read as jnp indexing reads it (`schedule_index`), and a schedule of
+one entry serves every row (`checked_schedule`).
 """
 
 from __future__ import annotations
@@ -34,12 +35,20 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..common.errors import NTTError
 from ..params.merge import NTTParameters, ReductionPolynomial
 from .limb import signed
 from .merge_ntt import MergePlan, merge_intt_lanes, merge_ntt_lanes
 
 _TABLES = ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")
 _STACKS = ("fwd_tables", "fwd_shoup", "inv_tables", "inv_shoup")
+
+
+class NTTScheduleError(NTTError, TypeError, ValueError):
+    """An RNS modulus schedule whose length fits neither the batch nor one
+    entry for every row.  The JAX package's entries fail there while
+    broadcasting, with a TypeError in the transforms and a ValueError in
+    the pointwise product; this one error is both."""
 
 
 def schedule_index(mod_idx, mod_count: int) -> np.ndarray:
@@ -198,12 +207,19 @@ class RNSMergePlan:
 
 def per_modulus(fn, members, mod_idx, *xs) -> torch.Tensor:
     """fn(*rows, member) on each modulus's rows of the tensors xs (row b
-    under members[mod_idx[b]], a numpy or torch schedule of entries in
-    [0, len(members))), scattered back into a new tensor."""
+    under members[mod_idx[b]], a numpy or torch schedule of one entry in
+    [0, len(members)) per row), scattered back into a new tensor.  A
+    schedule that leaves a row unnamed raises NTTScheduleError."""
     if isinstance(mod_idx, torch.Tensor):
         mod_idx = mod_idx.cpu().numpy()
     mod_idx = np.asarray(mod_idx).reshape(-1)
-    out = torch.empty_like(xs[0])
+    rows = xs[0].shape[0]
+    if len(mod_idx) != rows or (rows and not 0 <= mod_idx.min() <= mod_idx.max()
+                                < len(members)):
+        raise NTTScheduleError(f"a schedule of {len(mod_idx)} entries in [0, "
+                               f"{len(members)}) must name one member for each of "
+                               f"{rows} rows, got {mod_idx}")
+    out = torch.empty(xs[0].shape, dtype=xs[0].dtype, device=xs[0].device)
     for m, member in enumerate(members):
         sel = np.nonzero(mod_idx == m)[0]
         if sel.size:
@@ -213,10 +229,15 @@ def per_modulus(fn, members, mod_idx, *xs) -> torch.Tensor:
 
 
 def checked_schedule(mod_idx, mod_count: int, rows: int) -> np.ndarray:
-    """schedule_index of a schedule that must name one modulus per row."""
+    """schedule_index of a schedule for `rows` rows: one entry per row,
+    or one entry for them all (broadcast over the rows, as the JAX
+    engine's gathers broadcast it).  Any other length raises
+    NTTScheduleError, where the JAX package fails to broadcast."""
     mod_idx = schedule_index(mod_idx, mod_count)
+    if len(mod_idx) == 1:
+        return np.repeat(mod_idx, rows)
     if len(mod_idx) != rows:
-        raise ValueError(f"a schedule of {len(mod_idx)} entries for {rows} rows")
+        raise NTTScheduleError(f"a schedule of {len(mod_idx)} entries for {rows} rows")
     return mod_idx
 
 

@@ -12,7 +12,9 @@ two CUDA events; for each 4-step cell — u64 and u32 at 2^24 x 1 and
 2^16 x 128, X^N - 1, the pool primes of NTTParameters4Step — the same
 of fourstep_ntt_lanes and fourstep_intt_lanes; for each RNS cell — u64
 2^16 x 64 with a ladder of 8 (K12) and 2^18 x 12 with 3 (K13), X^N - 1,
-59-bit primes, cyclic schedule — ntt_rns_lanes, intt_rns_lanes and
+59-bit primes, and u32 2^16 x 128 and 2^20 x 16 with a ladder of 8 (the
+stacked u32 kernels in K16's and K6's ranges), X^N + 1, 30-bit primes,
+all on the cyclic schedule — ntt_rns_lanes, intt_rns_lanes and
 rns_polymul_lanes (at 2^16 also ntt_rns_lanes with its schedule copied
 to the card on every call, the cost its cache saves), and for the RNS
 4-step at 2^16 x 64 and 2^20 x 8, ladder 8, rns_fourstep_ntt_lanes and
@@ -41,13 +43,15 @@ import torch
 _OURS = ("merge_u", "fourstep")  # the namespaces of csrc/
 
 
-def _ladder(g, logn: int, count: int, four: bool = False):
+def _ladder(g, logn: int, count: int, four: bool = False, u32: bool = False):
+    """`count` primes of 59 bits, X^N - 1 (or of 30 bits, X^N + 1, for u32)."""
     params = g.NTTParameters4Step if four else g.NTTParameters
+    poly = g.ReductionPolynomial.X_N_plus if u32 else g.ReductionPolynomial.X_N_minus
+    mod, dtype = (g.Modulus32, np.uint32) if u32 else (g.Modulus64, np.uint64)
     out = []
-    for q in g.find_ntt_primes(59, logn, count):
+    for q in g.find_ntt_primes(30 if u32 else 59, logn, count):
         omega, psi = g.ntt_root_pair(q, logn)
-        out.append(params(logn, g.ReductionPolynomial.X_N_minus, np.uint64,
-                          factors=g.NTTFactors(g.Modulus64(q), omega, psi)))
+        out.append(params(logn, poly, dtype, factors=g.NTTFactors(mod(q), omega, psi)))
     return out
 
 
@@ -133,8 +137,9 @@ def main(iters: int = 20) -> int:
             profile(fn, iters, a.numel() * 8)
     from gpuntt_tpu_torch.ops import dispatch as td
 
-    for logn, batch, count in ((16, 64, 8), (18, 12, 3)):
-        plan = g.RNSMergePlan.from_params(_ladder(g, logn, count), device=dev)
+    for u32, logn, batch, count in ((False, 16, 64, 8), (False, 18, 12, 3), (True, 16, 128, 8),
+                                    (True, 20, 16, 8)):
+        plan = g.RNSMergePlan.from_params(_ladder(g, logn, count, u32=u32), device=dev)
         mod_idx = np.arange(batch) % count
         a, b = (torch.from_numpy(rng.integers(0, min(plan.qs), size=(batch, plan.n),
                                               dtype=np.int64)).to(dev) for _ in range(2))
@@ -142,12 +147,12 @@ def main(iters: int = 20) -> int:
         entries = [("ntt_rns_lanes", lambda: td.ntt_rns_lanes(a, plan, mod_idx)),
                    ("intt_rns_lanes", lambda: td.intt_rns_lanes(fa, plan, mod_idx)),
                    ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a, b, plan, mod_idx))]
-        if logn == 16:  # what the cached schedule saves: its copy on every call
+        if (u32, logn) == (False, 16):  # what the cached schedule saves: its copy every call
             entries.append(("ntt_rns_lanes, schedule copied every call",
                             lambda: (plan._lazy.pop("schedules", None),
                                      td.ntt_rns_lanes(a, plan, mod_idx))))
         for entry, fn in entries:
-            print(f"RNS u64 2^{logn}x{batch} ladder {count} {entry}:")
+            print(f"RNS u{32 if u32 else 64} 2^{logn}x{batch} ladder {count} {entry}:")
             profile(fn, iters, a.numel() * 8)
     for logn, batch in ((16, 64), (20, 8)):
         plan = g.RNSFourStepPlan.from_params(_ladder(g, logn, 8, four=True), device=dev)

@@ -3,7 +3,8 @@
 Each kernel against its plain PyTorch version on the same card, at
 every logn the kernels take (u64 11-17, the u64 big rings 18-28, u32
 8-25, the 4-step's 12-24 in both word sizes, the RNS kernels K12 at
-11-17, K13 at 18-23 and K14 at 14-23 on cyclic and ordered schedules)
+11-17, K13 at 18-23, K14 at 14-23 and the stacked u32 kernels at 8-25
+on cyclic and ordered schedules)
 and both reduction polynomials, on any input word; wide and narrow moduli against the
 golden NTTCPU, the big rings against the native oracle at 2^24 and the
 4-step against NTT4StepCPU there; the RNS schedules and model
@@ -27,6 +28,7 @@ from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops import hopper_rns as hr
+from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
@@ -562,3 +564,108 @@ def test_rns_wrappers_refuse_on_card(card):
         hr.rns_u64_fwd(x, plan, midx.long())
     with pytest.raises(tg.NTTDispatchError):
         hr.rns_u64_inv(x.reshape(-1, 2).t(), plan, midx)
+
+
+def _u32_ladder(logn, poly, mc=3):
+    """Up to `mc` of the largest primes q < 2^30 with a 2N-th root of
+    unity: three at logn 8-23, [469762049, 167772161] at 24 and
+    [469762049] at 25, where no other q < 2^30 is left."""
+    step, qs = 2 << logn, []
+    k = ((1 << 30) - 1) // step
+    while len(qs) < mc and k > 0:
+        if tg.is_prime_u64(k * step + 1):
+            qs.append(k * step + 1)
+        k -= 1
+    out = []
+    for q in qs:
+        omega, psi = tg.ntt_root_pair(q, logn)
+        out.append(tg.NTTParameters(logn, poly, np.uint32,
+                                    factors=tg.NTTFactors(tg.Modulus32(q), omega, psi)))
+    return out
+
+
+def _rns32_counts():
+    return {k.name: (k.launches, k.plain_calls) for k in hr32.KERNELS
+            if k.launches or k.plain_calls}
+
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(8, 26))
+def test_rns32_kernels_match_plain_on_card(card, logn, poly, schedule):
+    """The stacked u32 kernels (K16's counterpart up to logn 17, K6's
+    per-modulus function above) forward, inverse and fused polymul
+    inverse on any u32 word, with one schedule entry per row and per ring
+    of two rows; then ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes
+    through dispatch, which launch them and no plain version."""
+    plan = tg.RNSMergePlan.from_params(_u32_ladder(logn, poly), device=card)
+    order = [m % plan.mod_count for m in SCHEDULES[schedule]]
+    midx = torch.tensor(order, dtype=torch.int32, device=card)
+    k = hr32.tpu_kernel(logn)
+    fwd, inv, pinv = (hr32.FORWARD[k].name, hr32.INVERSE[k].name,
+                      hr32.POLYMUL_INVERSE[k].name)
+    for shift in (0, 1):
+        x = _words((4 << shift, plan.n), False, logn + shift, card)
+        hr32.reset_counts()
+        fx = hr32.rns_u32_fwd(x, plan, midx, shift)
+        fb = hr32.rns_u32_fwd(x.flip(0), plan, midx, shift)
+        ix = hr32.rns_u32_inv(x, plan, midx, shift)
+        px = hr32.rns_u32_polymul_inv(fx, fb, plan, midx, shift)
+        torch.cuda.synchronize()
+        assert _rns32_counts() == {fwd: (2, 0), inv: (1, 0), pinv: (1, 0)}
+        assert torch.equal(fx, hr32.rns_u32_fwd_plain(x, plan, midx, shift))
+        assert torch.equal(ix, hr32.rns_u32_inv_plain(x, plan, midx, shift))
+        assert torch.equal(px, hr32.rns_u32_polymul_inv_plain(fx, fb, plan, midx, shift))
+    x = x[:4] % min(plan.qs)
+    hr32.reset_counts()
+    fx = td.ntt_rns_lanes(x, plan, order)
+    assert torch.equal(td.intt_rns_lanes(fx, plan, order), x)
+    px = td.rns_polymul_lanes(x, x.flip(0), plan, order)
+    torch.cuda.synchronize()
+    assert _rns32_counts() == {fwd: (3, 0), inv: (1, 0), pinv: (1, 0)}
+    assert torch.equal(px, hr32.rns_u32_polymul_inv_plain(
+        fx, hr32.rns_u32_fwd_plain(x.flip(0).contiguous(), plan, midx), plan, midx))
+
+
+def test_rns32_model_and_schedules_on_card(card):
+    """RNSPolynomialMultiplier on a u32 ladder of 3 at 2^12 and 2^18, and
+    the ordered entries at logn 8 and 12, against the same calls on the
+    CPU."""
+    for logn in (12, 18):
+        members = _u32_ladder(logn, POLYS[1])
+        model = tg.RNSPolynomialMultiplier(members, device=card)
+        rng = np.random.default_rng(logn)
+        a, b = (torch.from_numpy(rng.integers(0, min(model.qs), size=(2, 3, 1 << logn),
+                                              dtype=np.int64)).to(card) for _ in range(2))
+        hr32.reset_counts()
+        out = model(a, b)
+        torch.cuda.synchronize()
+        k = hr32.tpu_kernel(logn)
+        assert _rns32_counts() == {hr32.FORWARD[k].name: (2, 0),
+                                   hr32.POLYMUL_INVERSE[k].name: (1, 0)}
+        cpu = tg.RNSPolynomialMultiplier(members, device="cpu")
+        assert torch.equal(out.cpu(), cpu(a.cpu(), b.cpu()))
+    for logn in (8, 12):
+        members = _u32_ladder(logn, POLYS[0])
+        plan = tg.RNSMergePlan.from_params(members, device=card)
+        cpu = tg.RNSMergePlan.from_params(members, device="cpu")
+        x = np.random.default_rng(logn).integers(0, min(plan.qs), size=(32, plan.n),
+                                                 dtype=np.uint64).astype(np.uint32)
+        for order in ([2, 0, 1], [5, -1, 0]):
+            for name in ("ntt_modulus_ordered", "intt_modulus_ordered"):
+                fn = getattr(tg, name)
+                np.testing.assert_array_equal(fn(x, plan, order), fn(x, cpu, order))
+        for name in ("ntt_poly_ordered", "intt_poly_ordered"):
+            fn = getattr(tg, name)
+            np.testing.assert_array_equal(fn(x, plan, [2, 0, 2, 31], batch_size=4),
+                                          fn(x, cpu, [2, 0, 2, 31], batch_size=4))
+
+
+def test_rns32_wrappers_refuse_on_card(card):
+    plan = tg.RNSMergePlan.from_params(_u32_ladder(12, POLYS[1]), device=card)
+    x = torch.zeros((2, plan.n), dtype=torch.int64, device=card)
+    midx = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    for bad_x, bad_m in ((x.cpu(), midx), (x, midx.cpu()), (x, midx.long()),
+                         (x.reshape(-1, 2).t(), midx)):
+        with pytest.raises(tg.NTTDispatchError):
+            hr32.rns_u32_fwd(bad_x, plan, bad_m)

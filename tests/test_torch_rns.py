@@ -6,8 +6,8 @@
   argument: u64 and u32, both reduction polynomials, logn 10-14 and
   17-18, ladders 1-3, cyclic and ordered schedules, poly_ordered with a
   batch_size below the batch and a repeated row.  The port takes
-  device="cpu", so K12's and K13's plain versions run where dispatch
-  routes the kernels.
+  device="cpu", so the plain versions of K12, K13 and the stacked u32
+  kernels run where dispatch routes the kernels.
 - The JAX package's own public entries at logn 12: the out-of-range
   order [5, -1, 0], a repeated poly_ordered row, rns_pointwise_mult and
   rns_polymul with an order, and the order check.
@@ -39,6 +39,7 @@ from gpuntt_tpu.ops.rns import rns_ntt_lanes as j_ntt
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_rns as hr
+from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
 from gpuntt_tpu_torch.ops.merge_ntt import from_lanes, to_lanes
 from gpuntt_tpu_torch.ops.rns import schedule_index
 
@@ -97,8 +98,8 @@ CELLS = [  # dtype, logn, poly, ladder, route
     (np.uint64, 14, MINUS, 2, "hopper-rns"),
     (np.uint64, 17, PLUS, 2, "hopper-rns"),
     (np.uint64, 18, MINUS, 3, "hopper-rns-large"),
-    (np.uint32, 12, PLUS, 3, "engine"),
-    (np.uint32, 14, MINUS, 2, "engine"),
+    (np.uint32, 12, PLUS, 3, "hopper-rns32"),
+    (np.uint32, 14, MINUS, 2, "hopper-rns32"),
 ]
 
 
@@ -112,6 +113,7 @@ def test_entries_match_jax(dtype, logn, poly, mc, route):
     y = data(plan.qs, (batch, plan.n), logn + 1, dtype)
     assert td._rns_kernel_path(plan, x.shape) == route
     hr.reset_counts()
+    hr32.reset_counts()
 
     cyclic = np.arange(batch) % mc
     fx, ix = jax_ref(x, jplan, cyclic)
@@ -138,7 +140,7 @@ def test_entries_match_jax(dtype, logn, poly, mc, route):
     np.testing.assert_array_equal(tg.rns_pointwise_mult(fx, fy, plan), prod)
     np.testing.assert_array_equal(tg.rns_polymul(x, y, plan), jax_ref(prod, jplan, cyclic)[1])
 
-    plain = sum(k.plain_calls for k in hr.KERNELS)
+    plain = sum(k.plain_calls for k in (*hr.KERNELS, *hr32.KERNELS))
     assert (plain > 0) == (route != "engine")
     if route == "hopper-rns-large":
         assert hr.LARGE_COLFWD.plain_calls == 3 and hr.LARGE_COLINV.plain_calls == 2
@@ -314,7 +316,8 @@ def test_route_table():
         "engine", "hopper-rns", "hopper-rns", "hopper-rns-large", "hopper-rns-large",
         "engine"]
     assert route(12, bits=62) == "hopper-rns" and route(12, bits=63) == "engine"
-    assert route(12, np.uint32) == "engine" and route(13, np.uint32) == "engine"
+    assert route(12, np.uint32) == "hopper-rns32" and route(13, np.uint32) == "hopper-rns32"
+    assert route(7, np.uint32) == "engine" and route(12, np.uint32, bits=31) == "engine"
     assert route(12, shape=(1, 2, 1 << 12)) == "engine"
     # a member whose factors are no root of unity takes the engine
     odd = tg.NTTParameters(12, tg.ReductionPolynomial.X_N_plus, np.uint64,
