@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's merge and 4-step NTT paths once on one CUDA card.
+"""Drive the port's merge, 4-step, RNS and distributed paths once on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -60,7 +60,19 @@ at once) and runs, on the card:
    the plain versions, two rows against NTTCPU; the ordered schedules at
    logn 8 and 12 against the same entries on the host; K6's range at
    2^20 x 16 (ladder 8) and 2^24 x 2 (167772161, 469762049); the
-   kernels' and the entries' CUDA-event times.
+   kernels' and the entries' CUDA-event times;
+22-25. the distributed path (`dist_phase`) at world size 1 on NCCL (a
+   HashStore, no network): the dist 4-step at u64 and u32 2^24 x 1
+   (256 x 65536; u64 on K7' and K1/K2) against the single-chip
+   fourstep_ntt_full and the round trip; K7' on every shard of sp = 4
+   and 8 at u64 2^24 against its plain version and the sp = 1 columns
+   ("virtual ranks": no collective spans ranks on one card); the dist
+   merge at u64 2^20 x 1 against ntt_lanes, and every rank's tail plan
+   of sp = 8 (2^17, K1/K2) and sp = 4 (2^18, the twisted big-ring plan)
+   against its plain version; DistRNSPolynomialMultiplier at 2^20,
+   ladder 4, batch 4 against rns_polymul_lanes and
+   DistPolynomialMultiplier at 2^16 x 4 against polymul_lanes, with the
+   launch counts read around each; K7''s and dist_fourstep_ntt's times.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -625,6 +637,226 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
                      ("intt_rns_lanes", lambda: td.intt_rns_lanes(fx, planw, cycw)),
                      ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(x, y, planw, cycw))):
         e2e(f"{what} {cellw} end to end", fn)
+
+
+DIST_FULL = dict(four=24, merge=20, rns=20, poly=16, merge_tails=(8, 4))
+
+
+def dist_phase(dev, rng, reset, launches, err, times, bounds, sizes=DIST_FULL) -> None:
+    """22-25: the distributed path (parallel/) at world size 1 on NCCL, and
+    the kernels of a wider mesh one shard at a time ("virtual ranks":
+    collectives cannot span ranks on one card).  `sizes` are the rings; a
+    CPU device (gloo, the kernels' plain versions, no timing) rehearses
+    the phase at small ones."""
+    import torch
+    import torch.distributed as dist
+
+    import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch.models.polymul import (DistPolynomialMultiplier,
+                                                 DistRNSPolynomialMultiplier)
+    from gpuntt_tpu_torch.ops import dispatch as td
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
+    from gpuntt_tpu_torch.ops.limb import from_numpy_u64
+    from gpuntt_tpu_torch.parallel import mesh as M
+    from gpuntt_tpu_torch.parallel.fourstep_dist import (DistFourStepPlan, dist_fourstep_intt,
+                                                         dist_fourstep_ntt)
+    from gpuntt_tpu_torch.parallel.merge_dist import (dist_merge_intt, dist_merge_ntt,
+                                                      merge_dist_tails)
+
+    MINUS, PLUS = g.ReductionPolynomial.X_N_minus, g.ReductionPolynomial.X_N_plus
+    cuda = dev.type == "cuda"
+    CFL, CIL = hml.COLFWD_LOCAL.name, hml.COLINV_LOCAL.name
+    K1, K2 = hm.FORWARD.name, hm.INVERSE.name
+    same, timed, e2e = recorders(err, times, bounds)
+
+    def counted() -> dict:
+        """{kernel: launches} since reset() (on a CPU rehearsal, plain-version
+        calls); raises if a plain version ran on the card."""
+        ks = (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
+              *hr.KERNELS)
+        if cuda:
+            torch.cuda.synchronize()
+            if any(k.plain_calls for k in ks):
+                raise AssertionError(f"plain versions ran: {[(k.name, k.plain_calls) for k in ks]}")
+        return {k.name: n for k in ks if (n := k.launches if cuda else k.plain_calls)}
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl" if cuda else "gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = M.make_mesh(1, 1, device=dev)
+    print(f"dist: world size {dist.get_world_size()}, backend {dist.get_backend()}, mesh "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names}")
+
+    # -- 22. the dist 4-step at 2^24 x 1, u64 (K7' + rows on K1/K2) and u32
+    four = {}
+    for dtype in (np.uint64, np.uint32):
+        is64 = dtype == np.uint64
+        p = g.NTTParameters4Step(sizes["four"], MINUS, dtype)
+        cell = f"dist 4-step u{64 if is64 else 32} 2^{p.logn}x1 (sp 1)"
+        t1 = time.perf_counter()
+        dplan = DistFourStepPlan.from_params(p, device=dev)
+        print(f"{cell} plan build {time.perf_counter() - t1:.3f} s (n1={p.n1} n2={p.n2}, "
+              f"colmat {dplan.colmat is not None})")
+        x_np = rng.integers(0, p.modulus.value, size=(1, p.n), dtype=np.uint64)
+        x = from_numpy_u64(x_np, dev) if is64 else torch.from_numpy(x_np.view(np.int64)).to(dev)
+        xl = M.shard(x.view(1, p.n1, p.n2), mesh, M.BLOCKS)
+        reset()
+        spec = dist_fourstep_ntt(xl, dplan, mesh)
+        back = dist_fourstep_intt(spec, dplan, mesh)
+        run = counted()
+        want = {}  # each sub-plan's kernels, forward and inverse once
+        for sub in (dplan.col, dplan.row):
+            if is64 and sub is dplan.col:
+                pair = (CFL, CIL)
+            elif hm.covers(sub) or hm32.covers(sub):
+                kf = hm.FORWARD if is64 else hm32.FORWARD[hm32.tpu_kernel(sub.logn)]
+                ki = hm.INVERSE if is64 else hm32.INVERSE[hm32.tpu_kernel(sub.logn)]
+                pair = (kf.name, ki.name)
+            else:
+                continue  # the engine
+            for name in pair:
+                want[name] = want.get(name, 0) + 1
+        check(run == want, f"{cell} dist_fourstep_ntt, _intt launched {run}")
+        if is64:
+            launches.update({CFL: run[CFL], CIL: run[CIL]})
+        single = g.FourStepPlan.from_params(p, device=dev)
+        check(torch.equal(spec.reshape(1, p.n), g.fourstep_ntt_full(x, single)),
+              f"{cell} forward == single-chip fourstep_ntt_full")
+        check(torch.equal(back, xl), f"{cell} inverse(forward(x)) == x")
+        four[is64] = (dplan, xl, spec, p)
+        del back
+
+    # -- 23. K7' one shard at a time: sp = 4 and 8 at u64 2^24 against its plain
+    # version and the same columns of the sp = 1 launch
+    dplan, xl, spec, p = four[True]
+    lp = dplan.colmat
+    whole = {False: hml.col_phase_local(xl, lp, 0, 1, False)}
+    whole[True] = hml.col_phase_local(whole[False], lp, 0, 1, True)
+    for inverse in (False, True):
+        src = whole[False] if inverse else xl
+        same(CIL if inverse else CFL, whole[inverse],
+             hml.col_phase_local_plain(src, lp, 0, 1, inverse), f"K7' sp 1 inverse={inverse}")
+        for sp in (4, 8):
+            bl = lp.B // sp
+            for sh in range(sp):
+                cols = slice(sh * bl, (sh + 1) * bl)
+                xs = src[:, :, cols].contiguous()
+                got = hml.col_phase_local(xs, lp, sh, sp, inverse)
+                want = hml.col_phase_local_plain(xs, lp, sh, sp, inverse)
+                e = int((got - want).abs().max().item())
+                err[CIL if inverse else CFL] = max(err.get(CIL if inverse else CFL, 0), e)
+                if not (torch.equal(got, want) and torch.equal(got, whole[inverse][:, :, cols])):
+                    raise AssertionError(f"K7' sp {sp} shard {sh} inverse={inverse} differs")
+            print(f"ok   K7' sp {sp}, all {sp} shards, inverse={inverse} == plain version and "
+                  f"the sp 1 columns")
+
+    # -- 24. the dist merge at u64 2^20 x 1 (sp 1: the tail is the whole twisted
+    # ring, from_eval on the big-ring plan), and the tails of sp = 8 and 4
+    pm = g.NTTParameters(sizes["merge"], PLUS, np.uint64)
+    plan = g.MergePlan.from_params(pm, device=dev)
+    xm = from_numpy_u64(rng.integers(0, pm.modulus.value, size=(1, pm.n), dtype=np.uint64), dev)
+    cell = f"dist merge u64 2^{pm.logn}x1 (sp 1)"
+    reset()
+    fm = dist_merge_ntt(xm, plan, mesh)
+    bm = dist_merge_intt(fm, plan, mesh)
+    run = counted()
+    check(set(run) <= {K1, K2, hml.COLFWD.name, hml.COLINV.name, hml.ROWMAT.name} and run,
+          f"{cell} dist_merge_ntt, _intt launched {run}")
+    check(torch.equal(fm, g.ntt_lanes(xm, plan)), f"{cell} forward == single-chip ntt_lanes")
+    check(torch.equal(bm, xm), f"{cell} inverse(forward(x)) == x")
+    for sp in sizes["merge_tails"]:
+        for r in range(sp):
+            tail = merge_dist_tails(plan, sp, r)
+            xt = from_numpy_u64(rng.integers(0, pm.modulus.value, size=(1, tail.n),
+                                             dtype=np.uint64), dev)
+            ft, it = g.ntt_lanes(xt, tail), g.intt_lanes(xt, tail)
+            if tail.bigring:
+                lpt = hml.large_plan(tail)
+                want = (hml.merge_u64_large_plain(xt, lpt),
+                        hml.merge_u64_large_plain(xt, lpt, inverse=True))
+            elif hm.covers(tail):
+                want = hm.merge_u64_fwd_plain(xt, tail), hm.merge_u64_inv_plain(xt, tail)
+            else:
+                want = g.ntt_lanes(xt, tail, use_pallas=False), g.intt_lanes(xt, tail, use_pallas=False)
+            if not (torch.equal(ft, want[0]) and torch.equal(it, want[1])):
+                raise AssertionError(f"merge tail sp {sp} rank {r} differs from its plain version")
+        print(f"ok   dist merge 2^{pm.logn} tails of sp {sp} (2^{tail.logn}, "
+              f"{'big-ring plan' if tail.bigring else 'K1/K2' if hm.covers(tail) else 'engine'}"
+              f"), every rank, forward and "
+              f"inverse == plain versions")
+
+    # -- 25. the models: DistRNSPolynomialMultiplier at 2^20, ladder 4, batch 4, and
+    # DistPolynomialMultiplier at 2^16 x 4, against the single-chip polymuls
+    logn = sizes["rns"]
+    qs = g.find_ntt_primes(59, logn, 4)
+    fours, merges = [], []
+    for q in qs:
+        f = g.NTTFactors(g.Modulus64(q), *g.ntt_root_pair(q, logn))
+        fours.append(g.NTTParameters4Step(logn, MINUS, np.uint64, factors=f))
+        merges.append(g.NTTParameters(logn, MINUS, np.uint64, factors=f))
+    mod_idx = np.arange(4) % 4
+    a_np, b_np = (np.stack([rng.integers(0, q, size=1 << logn, dtype=np.uint64) for q in qs])
+                  for _ in range(2))
+    a, b = from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)
+    p0 = fours[0]
+    rmodel = DistRNSPolynomialMultiplier(fours, mesh, device=dev)
+    cell = f"DistRNSPolynomialMultiplier 2^{logn}x4 ladder 4 (sp 1)"
+    reset()
+    out = rmodel.step_lanes(a.view(4, p0.n1, p0.n2), b.view(4, p0.n1, p0.n2), mod_idx)
+    run = counted()
+    rows_k12 = hr.covers(rmodel.dplan.row)  # K12 takes the rows at 2^12-2^17
+    check(run == ({hr.FORWARD.name: 2, hr.INVERSE.name: 1} if rows_k12 else {}),
+          f"{cell} launched {run}")
+    want = td.rns_polymul_lanes(a, b, g.RNSMergePlan.from_params(merges, device=dev), mod_idx)
+    check(torch.equal(out.reshape(4, -1), want), f"{cell} == single-chip rns_polymul_lanes")
+
+    f = g.NTTFactors(g.Modulus64(qs[0]), *g.ntt_root_pair(qs[0], sizes["poly"]))
+    pp = g.NTTParameters4Step(sizes["poly"], MINUS, np.uint64, factors=f)
+    model = DistPolynomialMultiplier(pp, mesh, pipeline_chunks=2, device=dev)
+    a_np, b_np = (rng.integers(0, qs[0], size=(4, pp.n), dtype=np.uint64) for _ in range(2))
+    a, b = from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)
+    cell = f"DistPolynomialMultiplier 2^{pp.logn}x4 (sp 1, pipeline_chunks 2)"
+    reset()
+    out = model.step_lanes(a.view(4, pp.n1, pp.n2), b.view(4, pp.n1, pp.n2))
+    run = counted()
+    check(run.get(CFL, 0) == 4 and run.get(CIL, 0) == 2, f"{cell} launched {run}")
+    single = g.MergePlan.from_params(g.NTTParameters(pp.logn, MINUS, np.uint64, factors=f),
+                                     device=dev)
+    check(torch.equal(out.reshape(4, -1), g.polymul_lanes(a, b, single)),
+          f"{cell} == single-chip polymul_lanes")
+    print(f"dist phase {time.perf_counter() - t0:.1f} s before timing")
+
+    if cuda:  # -- times: K7' at its cell, and dist_fourstep_ntt at 2^24 x 1
+        print(card_line())
+        dplan, xl, spec, p = four[True]
+        n = p.n
+
+        def k7_local_bound(inverse):
+            return bound_of(2 * 8 * n, 16 * (n // 2 * (p.n1.bit_length() - 1)
+                                             + (3 if inverse else 2) * n))
+
+        cell = f"dist 4-step u64 2^{p.logn}x1 sp 1"
+        timed(CFL, lambda: hml.col_phase_local(xl, dplan.colmat, 0, 1, False),
+              lambda: hml.col_phase_local_plain(xl, dplan.colmat, 0, 1, False),
+              k7_local_bound(False), cell)
+        timed(CIL, lambda: hml.col_phase_local(xl, dplan.colmat, 0, 1, True),
+              lambda: hml.col_phase_local_plain(xl, dplan.colmat, 0, 1, True),
+              k7_local_bound(True), cell)
+        shard = xl[:, :, :p.n2 // 4].contiguous()
+        e2e(f"K7' one shard of sp 4, {cell.replace('sp 1', '')}",
+            lambda: hml.col_phase_local(shard, dplan.colmat, 1, 4, False))
+        print(f"bound K7' one shard of sp 4: {k7_local_bound(False)[0] / 4:.5f} ms")
+        single = g.FourStepPlan.from_params(p, device=dev)
+        for what, fn in (("dist_fourstep_ntt", lambda: dist_fourstep_ntt(xl, dplan, mesh)),
+                         ("dist_fourstep_intt", lambda: dist_fourstep_intt(spec, dplan, mesh)),
+                         ("fourstep_ntt_full (single chip)",
+                          lambda: g.fourstep_ntt_full(xl.view(1, n), single))):
+            e2e(f"{what} {cell} end to end", fn)
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1244,6 +1476,7 @@ def main() -> int:
                   f"{bound[0] / k_ms:.1%} of it")
     rns_phase(dev, rng, reset, launches, err, times, bounds)
     rns32_phase(dev, rng, reset, launches, err, times, bounds)
+    dist_phase(dev, rng, reset, launches, err, times, bounds)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
@@ -1252,8 +1485,8 @@ def main() -> int:
          "max_abs_err": err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hf.KERNELS, *hr.KERNELS,
-                  *hr32.KERNELS)]}))
+        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
+                  *hr.KERNELS, *hr32.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,7 +27,11 @@ paths of both word sizes so far:
   `rns_fourstep_{ntt,intt}_{lanes,full}`) and RNSPolynomialMultiplier,
   on the u64 RNS kernels (ops.hopper_rns: K12 at logn 12-17, K13 at
   18-23, K14 for the 4-step at 14-23) and, for u32 ladders with every
-  q < 2^30, the stacked u32 kernels at logn 8-25 (ops.hopper_rns32).
+  q < 2^30, the stacked u32 kernels at logn 8-25 (ops.hopper_rns32);
+- the distributed path on torch.distributed (parallel: mesh,
+  fourstep_dist with K7' in ops.hopper_merge_large, merge_dist,
+  fourstep_rns_dist, dryrun) and the Dist models of models.polymul;
+  as in gpuntt_tpu, the top level exports none of their names.
 
 Entry points run on the first CUDA card unless the caller passes
 device="cpu"; without a card, a plan made for the default device raises

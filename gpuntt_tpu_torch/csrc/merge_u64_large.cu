@@ -41,6 +41,17 @@
 // launches are held by per-stage barrier and shared-memory latency.
 // Tensor cores, TMA and clusters are not used.
 //
+// K7' (col_phase_local, :452, via _colfwd_kernel / _colinv_kernel): the
+// distributed 4-step's fused column phase on one shard's B / sp columns.
+// merge_u64_large_colfwd_local / _colinv_local launch the same two kernels
+// on the (batch, A, B / sp) slice, with logB the slice's width and the
+// scale table's pointers moved to the shard's first tile.  The twist
+// indexes ws[b >> logT] by the local column b; with B / sp a multiple of
+// T, b mod T is the same locally and globally, so that offset is all it
+// takes to multiply by W at the global column indices.  Bound: the
+// slice's bytes, read once and written once (0.020 ms a shard at 2^24 /
+// 4); design and limits are K7's.
+//
 // RNS (K13, ops/hopper_rns.py): the same kernels replace the stacked ones
 // of gpuntt_tpu/ops/pallas_mxu_rns.py,
 //   rns_u64_large_colfwd  <- _rns_colfwd_kernel (:375)
@@ -239,6 +250,14 @@ int rows(int device, bool inverse, const uint64_t* x, uint64_t* y, long long nro
   return launch_status();
 }
 
+// K7': the offset of shard `shard`'s first row of the (2^(logB_ring - logT),
+// 2^logA) scale table, its slice 2^logB columns wide; -1 for a shard or a
+// slice narrower than a tile, which the entries refuse.
+long long shard_offset(long long shard, int logA, int logB, int logT) {
+  if (shard < 0 || shard >= (1LL << 31) || logA < 0 || logT < 0 || logT > logB) return -1;
+  return shard << (logB - logT + logA);
+}
+
 // An RNS schedule of `entries` moduli for `rings` rings, 2^shift each.
 bool schedule_ok(long long rings, long long entries, int shift) {
   return shift >= 0 && shift < 31 && entries > 0 && (entries << shift) == rings;
@@ -294,6 +313,33 @@ int merge_u64_large_colinv(int device, const uint64_t* x, uint64_t* y, long long
   OneModulus f = one_modulus(tw, tws, q, one_s, c_inv, c_inv_s);
   f.r.wt = wt, f.r.wts = wts, f.r.ws = ws, f.r.wss = wss;
   return col(device, false, x, y, batch, logA, logB, logT, f, xnp, (cudaStream_t)stream);
+}
+
+// K7': the column entries on shard `shard` of a ring whose (batch, 2^logA,
+// 2^logB) slices x and y hold that shard's 2^logB columns; ws and wss are
+// the whole ring's scale tables, of which the shard's 2^(logB - logT) rows
+// are read.
+int merge_u64_large_colfwd_local(int device, const uint64_t* x, uint64_t* y,
+                                 long long batch, int logA, int logB, long long shard,
+                                 const uint64_t* tw, const uint64_t* tws, const uint64_t* wt,
+                                 const uint64_t* wts, const uint64_t* ws, const uint64_t* wss,
+                                 int logT, uint64_t q, uint64_t one_s, int xnp, void* stream) {
+  const long long off = shard_offset(shard, logA, logB, logT);
+  if (off < 0) return (int)cudaErrorInvalidValue;
+  return merge_u64_large_colfwd(device, x, y, batch, logA, logB, tw, tws, wt, wts, ws + off,
+                                wss + off, logT, q, one_s, xnp, stream);
+}
+
+int merge_u64_large_colinv_local(int device, const uint64_t* x, uint64_t* y,
+                                 long long batch, int logA, int logB, long long shard,
+                                 const uint64_t* tw, const uint64_t* tws, const uint64_t* wt,
+                                 const uint64_t* wts, const uint64_t* ws, const uint64_t* wss,
+                                 int logT, uint64_t q, uint64_t one_s, uint64_t c_inv,
+                                 uint64_t c_inv_s, int xnp, void* stream) {
+  const long long off = shard_offset(shard, logA, logB, logT);
+  if (off < 0) return (int)cudaErrorInvalidValue;
+  return merge_u64_large_colinv(device, x, y, batch, logA, logB, tw, tws, wt, wts, ws + off,
+                                wss + off, logT, q, one_s, c_inv, c_inv_s, xnp, stream);
 }
 
 int merge_u64_large_rowmat(int device, const uint64_t* x, uint64_t* y, long long nrows,

@@ -14,6 +14,10 @@ big-ring plan holds no N-entry table (MergePlan.bigring): its module
 registers an empty `anchor` buffer instead, whose device the plan
 follows.  `RNSPolynomialMultiplier` is the port of the JAX package's
 RNS model, on the RNS route of dispatch (rns_polymul_lanes).
+`DistPolynomialMultiplier` and `DistRNSPolynomialMultiplier` are the
+distributed models (JAX :101-166) over parallel/: two distributed
+4-step forwards, the pointwise product, the distributed inverse, on
+rank-local (B/dp, n1, n2/sp) blocks; X^N - 1 only, as there.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from ..ops.dispatch import _rns_mod_idx, polymul_lanes, rns_polymul_lanes
 from ..ops.merge_ntt import MergePlan, from_lanes, to_lanes
 from ..ops.rns import RNSMergePlan
-from ..params.merge import NTTParameters
+from ..params.merge import NTTParameters, ReductionPolynomial
 
 _TABLES = ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")
 
@@ -139,3 +143,95 @@ class RNSPolynomialMultiplier(torch.nn.Module):
         out = super().__call__(to_lanes(a, plan.is64, plan.device),
                                to_lanes(b, plan.is64, plan.device))
         return from_lanes(out, plan.is64)
+
+
+def _cyclic_only(params) -> None:
+    for p in params:
+        if p.poly_reduction != ReductionPolynomial.X_N_minus:
+            raise ValueError("4-step polymul diagonalises cyclic convolution (X_N_minus) only")
+
+
+def _mesh_device(mesh, device):
+    """The plan's device: `device`, or the host for a cpu mesh, or the card."""
+    if device is None and mesh.device_type == "cpu":
+        return torch.device("cpu")
+    return device
+
+
+class DistPolynomialMultiplier(torch.nn.Module):
+    """c = a * b mod (q, X^N - 1) via the distributed 4-step NTT.
+
+    Operands are this rank's (B/dp, n1, n2/sp) blocks (mesh.BLOCKS), and
+    the product comes back in the same layout; all cross-rank traffic is
+    the all_to_alls inside the transforms.  The plan lives on the mesh's
+    device (or `device`); an empty `anchor` buffer carries it along
+    `.to(device)`."""
+
+    def __init__(self, params, mesh, pipeline_chunks: int = 1, device=None):
+        super().__init__()
+        from ..parallel.fourstep_dist import DistFourStepPlan
+
+        _cyclic_only([params])
+        self.params = params
+        self.mesh = mesh
+        self.pipeline_chunks = pipeline_chunks
+        self._dplan = DistFourStepPlan.from_params(params, device=_mesh_device(mesh, device))
+        self.register_buffer("anchor", torch.empty(0, dtype=torch.int64,
+                                                   device=self._dplan.device))
+
+    @property
+    def dplan(self):
+        return self._dplan.to(self.anchor.device)
+
+    def step_lanes(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The full step: two forwards, the pointwise product, the inverse."""
+        from ..ops.dispatch import pointwise_mult_lanes
+        from ..parallel.fourstep_dist import dist_fourstep_intt, dist_fourstep_ntt
+
+        d, pc = self.dplan, self.pipeline_chunks
+        fa = dist_fourstep_ntt(a, d, self.mesh, pipeline_chunks=pc)
+        fb = dist_fourstep_ntt(b, d, self.mesh, pipeline_chunks=pc)
+        fc = pointwise_mult_lanes(fa, fb, d.base)
+        return dist_fourstep_intt(fc, d, self.mesh, pipeline_chunks=pc)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.step_lanes(a, b)
+
+
+class DistRNSPolynomialMultiplier(torch.nn.Module):
+    """Residue-ladder products over a device mesh: operands are rank-local
+    (B/dp, n1, n2/sp) blocks whose rows cycle through the ladder under
+    `mod_idx` (row b modulo q_{mod_idx[b]}, the schedule read as
+    dist_rns_fourstep_ntt reads it); the per-row Barrett product is local.
+    X^N - 1 members only."""
+
+    def __init__(self, members, mesh, device=None):
+        super().__init__()
+        from ..parallel.fourstep_rns_dist import DistRNSFourStepPlan
+
+        _cyclic_only(members)
+        self.mesh = mesh
+        self._dplan = DistRNSFourStepPlan.from_members(members,
+                                                       device=_mesh_device(mesh, device))
+        self.mod_count = self._dplan.mod_count
+        self.register_buffer("anchor", torch.empty(0, dtype=torch.int64,
+                                                   device=self._dplan.device))
+
+    @property
+    def dplan(self):
+        return self._dplan.to(self.anchor.device)
+
+    def step_lanes(self, a: torch.Tensor, b: torch.Tensor, mod_idx) -> torch.Tensor:
+        from ..ops.dispatch import rns_pointwise_mult_lanes
+        from ..parallel.fourstep_rns_dist import (dist_rns_fourstep_intt,
+                                                  dist_rns_fourstep_ntt, local_schedule)
+
+        d = self.dplan
+        mi = local_schedule(mod_idx, a.shape[0], self.mesh, self.mod_count)
+        fa = dist_rns_fourstep_ntt(a, d, self.mesh, mi)
+        fb = dist_rns_fourstep_ntt(b, d, self.mesh, mi)
+        fc = rns_pointwise_mult_lanes(fa, fb, d.base, mi)
+        return dist_rns_fourstep_intt(fc, d, self.mesh, mi)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor, mod_idx) -> torch.Tensor:
+        return self.step_lanes(a, b, mod_idx)

@@ -51,6 +51,10 @@ _ENTRIES = {
                                    _i32, _u64, _u64, _i32, _p],
         "merge_u64_large_colinv": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,
                                    _i32, _u64, _u64, _u64, _u64, _i32, _p],
+        "merge_u64_large_colfwd_local": [_i32, _p, _p, _i64, _i32, _i32, _i64, _p, _p, _p, _p,
+                                         _p, _p, _i32, _u64, _u64, _i32, _p],
+        "merge_u64_large_colinv_local": [_i32, _p, _p, _i64, _i32, _i32, _i64, _p, _p, _p, _p,
+                                         _p, _p, _i32, _u64, _u64, _u64, _u64, _i32, _p],
         "merge_u64_large_rowmat": [_i32, _p, _p, _i64, _i32, _p, _p, _u64, _u64, _u64,
                                    _u64, _i32, _i32, _p],
         **{f"rns_u64_large_{d}": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,

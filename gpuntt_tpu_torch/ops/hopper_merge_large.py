@@ -21,6 +21,12 @@ csrc/merge_u64_large.cu, replace the two Pallas kernels of that module:
     merge_u64_large_colinv  <- _colinv_kernel     (K7 inverse, :398)
     merge_u64_large_rowmat  <- _row_matmul_kernel (K8, :499), rows of B <= 512
 
+and K7's two kernels on one shard's B / sp columns replace col_phase_local
+(K7', :452), the distributed 4-step's fused column phase
+(parallel/fourstep_dist.py):
+
+    merge_u64_large_colfwd_local, merge_u64_large_colinv_local  (`col_phase_local`)
+
 and the rows of B = 2^11..2^17 run on hopper_merge.py's K1/K2/K3 through
 B-point sub-plans, as the JAX route runs them on its in-VMEM kernels.
 Rows of more than 2^17 words recurse into a nested LargePlan (logn
@@ -81,10 +87,16 @@ COLINV = KernelStats("merge_u64_large_colinv", "gpuntt_tpu/ops/pallas_mxu_large.
 ROWMAT = KernelStats("merge_u64_large_rowmat", "gpuntt_tpu/ops/pallas_mxu_large.py:499",
                      source=SOURCE)
 KERNELS = (COLFWD, COLINV, ROWMAT)
+# K7': K7's kernels on one shard's columns (col_phase_local)
+COLFWD_LOCAL = KernelStats("merge_u64_large_colfwd_local",
+                           "gpuntt_tpu/ops/pallas_mxu_large.py:452", source=SOURCE)
+COLINV_LOCAL = KernelStats("merge_u64_large_colinv_local",
+                           "gpuntt_tpu/ops/pallas_mxu_large.py:452", source=SOURCE)
+LOCAL_KERNELS = (COLFWD_LOCAL, COLINV_LOCAL)
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
+    for k in (*KERNELS, *LOCAL_KERNELS):
         k.launches = k.plain_calls = 0
 
 
@@ -220,12 +232,14 @@ class LargePlan:
     def from_spec(q: int, logn: int, root: int, iroot: int, xnp: bool, n_inv: int,
                   a_col: int | None = None, tile: int | None = None,
                   max_row_logn: int = MAX_ROW_LOGN, row_kwargs: dict | None = None,
-                  device=None) -> "LargePlan":
+                  col_only: bool = False, device=None) -> "LargePlan":
         """Plan for a merge NTT given its field spec, from exponent algebra
         as MXULargePlan.from_spec builds it (`root` is omega for X^N - 1,
         psi for X^N + 1; `n_inv` the whole inverse scaling).  `a_col`,
         `tile` and `max_row_logn` set the split; `row_kwargs` configure
-        a nested plan only."""
+        a nested plan only.  A `col_only` plan builds no rows (`rows` and
+        `nested` None): the distributed 4-step's column phase (K7',
+        parallel/fourstep_dist.py) is all it serves."""
         if q >= 1 << 62:
             raise ValueError("the big-ring kernels require q < 2^62")
         order = 2 << logn if xnp else 1 << logn
@@ -235,37 +249,67 @@ class LargePlan:
 
         device = torch.device(device) if device is not None else default_device()
         A, B, T = LargePlan._split(logn, a_col, tile)
-        logA, logB = A.bit_length() - 1, B.bit_length() - 1
+        logA = A.bit_length() - 1
         brA = [bitreverse(a, logA) for a in range(A)]
         if xnp:
             w_base = [pow(root, 2 * a + 1, q) for a in brA]
             wi_base = [pow(iroot, 2 * a + 1, q) for a in brA]
-            row_root, row_iroot = pow(root, 2 * A, q), pow(iroot, 2 * A, q)
         else:
             w_base = [pow(root, a, q) for a in brA]
             wi_base = [pow(iroot, a, q) for a in brA]
-            row_root, row_iroot = pow(root, A, q), pow(iroot, A, q)
-        b_inv = pow(B, q - 2, q)
-        nested = None
-        if B > ROW_MAT_MAX and not 11 <= logB <= min(max_row_logn, MAX_ROW_LOGN):
-            nested = LargePlan.from_spec(q, logB, row_root, row_iroot, False, b_inv,
-                                         max_row_logn=max_row_logn, device=device,
-                                         **(row_kwargs or {}))
-        return LargePlan._build(q, logn, A, B, T, root, iroot, xnp, n_inv,
-                                _w_factor(w_base, T, B, q), _w_factor(wi_base, T, B, q),
-                                nested, device)
-
-    @staticmethod
-    def _build(q, logn, A, B, T, root, iroot, xnp, n_inv, w_fwd, w_inv, nested,
-               device) -> "LargePlan":
-        logA, logB = A.bit_length() - 1, B.bit_length() - 1
         col = _merge_plan(q, logA, xnp, pow(root, B, q), pow(iroot, B, q), n_inv * B % q,
                           device)
-        rows = None
-        if nested is None:
-            r_exp = 2 * A if xnp else A
-            rows = _merge_plan(q, logB, False, pow(root, r_exp, q), pow(iroot, r_exp, q),
-                               pow(B, q - 2, q), device)
+        r_exp = 2 * A if xnp else A
+        rows = None if col_only else (pow(root, r_exp, q), pow(iroot, r_exp, q))
+        return LargePlan._build(q, logn, A, B, T, col, rows, _w_factor(w_base, T, B, q),
+                                _w_factor(wi_base, T, B, q), max_row_logn, row_kwargs,
+                                device)
+
+    @staticmethod
+    def from_eval(q: int, logn: int, omega: int, iomega: int, psi: int, ipsi: int,
+                  n_inv: int, a_col: int | None = None, tile: int | None = None,
+                  device=None) -> "LargePlan":
+        """The big-ring plan of MergePlan.from_eval's twisted transform
+        out[k] = sum_j x_j (psi omega^br(k))^j (MXULargePlan.from_eval,
+        pallas_mxu_large.py:131), whose twist x_j psi^j splits over
+        j = aB + b: psi^(aB) enters the column plan (a from_eval plan with
+        omega^B, psi^B), psi^b the factored W, whose bases w_a become
+        w_a psi, so the tile table gains psi^(b mod T) and the scale table
+        psi^(T (b div T)).  The rows are those of the X^N - 1 plan of
+        omega; no elementwise pre-twist runs outside the kernels."""
+        if q >= 1 << 62:
+            raise ValueError("the big-ring kernels require q < 2^62")
+        from ..common.device import default_device
+
+        device = torch.device(device) if device is not None else default_device()
+        A, B, T = LargePlan._split(logn, a_col, tile)
+        logA = A.bit_length() - 1
+        brA = [bitreverse(a, logA) for a in range(A)]
+        w_base = [pow(omega, a, q) * psi % q for a in brA]
+        wi_base = [pow(iomega, a, q) * ipsi % q for a in brA]
+        col = MergePlan.from_eval(q, logA, pow(omega, B, q), pow(iomega, B, q),
+                                  pow(psi, B, q), pow(ipsi, B, q), n_inv * B % q,
+                                  device=device)
+        return LargePlan._build(q, logn, A, B, T, col, (pow(omega, A, q), pow(iomega, A, q)),
+                                _w_factor(w_base, T, B, q), _w_factor(wi_base, T, B, q),
+                                MAX_ROW_LOGN, None, device)
+
+    @staticmethod
+    def _build(q, logn, A, B, T, col, rows, w_fwd, w_inv, max_row_logn, row_kwargs, device,
+               nested=None) -> "LargePlan":
+        """The plan from its column plan, the rows' root pair (None for a
+        col_only plan) and the factored W tables; rows of B > 512 words
+        outside 2^11..2^max_row_logn get a nested plan unless `nested` is
+        given."""
+        logB = B.bit_length() - 1
+        if rows is not None and nested is None and B > ROW_MAT_MAX and not (
+                11 <= logB <= min(max_row_logn, MAX_ROW_LOGN)):
+            nested = LargePlan.from_spec(q, logB, *rows, False, pow(B, q - 2, q),
+                                         max_row_logn=max_row_logn, device=device,
+                                         **(row_kwargs or {}))
+        row_plan = None
+        if rows is not None and nested is None:
+            row_plan = _merge_plan(q, logB, False, *rows, pow(B, q - 2, q), device)
 
         def dev(table):
             table = np.ascontiguousarray(table, dtype=np.uint64)
@@ -277,12 +321,13 @@ class LargePlan:
         return LargePlan(logn=logn, q=q, A=A, B=B, tile=T, col=col,
                          wt_fwd=wtf, wt_fwd_shoup=wtfs, ws_fwd=wsf, ws_fwd_shoup=wsfs,
                          wt_inv=wti, wt_inv_shoup=wtis, ws_inv=wsi, ws_inv_shoup=wsis,
-                         rows=rows, nested=nested)
+                         rows=row_plan, nested=nested)
 
     @staticmethod
     def from_jax_arrays(q: int, logn: int, A: int, B: int, tile: int, wt_fwd, ws_fwd,
                         wt_inv, ws_inv, nested: "LargePlan | None" = None,
-                        n_inv: int | None = None, device=None) -> "LargePlan":
+                        n_inv: int | None = None, col_only: bool = False,
+                        device=None) -> "LargePlan":
         """The plan of a JAX MXULargePlan (from_spec's, psi = 1), from its
         numbers and its W tables as uint64 numpy arrays (hi << 32 | lo of
         the `wt_*`/`ws_*` pairs; `ws_*` as (B / T, A) or (B / T, A, 1)).
@@ -307,14 +352,19 @@ class LargePlan:
         xnp = int(wtf[0, 1]) != 1
         root = int(wtf[0 if xnp else A // 2, 1])
         iroot = int(wti[0 if xnp else A // 2, 1])
-        needs_nested = B > ROW_MAT_MAX and not 1 << 11 <= B <= 1 << MAX_ROW_LOGN
+        needs_nested = (B > ROW_MAT_MAX and not 1 << 11 <= B <= 1 << MAX_ROW_LOGN
+                        and not col_only)
         if (needs_nested and nested is None) or (nested is not None and (
-                nested.n != B or B <= ROW_MAT_MAX)):
+                nested.n != B or B <= ROW_MAT_MAX or col_only)):
             raise ValueError(f"rows of {B} words do not fit the nested plan {nested}")
         if n_inv is None:
             n_inv = pow(1 << logn, q - 2, q)
-        return LargePlan._build(q, logn, A, B, tile, root, iroot, xnp, n_inv, tabs[0],
-                                tabs[1], nested, device)
+        col = _merge_plan(q, A.bit_length() - 1, xnp, pow(root, B, q), pow(iroot, B, q),
+                          n_inv * B % q, device)
+        r_exp = 2 * A if xnp else A
+        rows = None if col_only else (pow(root, r_exp, q), pow(iroot, r_exp, q))
+        return LargePlan._build(q, logn, A, B, tile, col, rows, tabs[0], tabs[1],
+                                MAX_ROW_LOGN, None, device, nested=nested)
 
     def to(self, device) -> "LargePlan":
         """This plan with every table on `device`."""
@@ -362,8 +412,12 @@ def _route_a_col(logn: int) -> int | None:
 
 
 def large_plan(plan: MergePlan) -> LargePlan:
-    """The big-ring plan of a MergePlan, built on its device at first use
-    and cached on it."""
+    """The big-ring plan of a MergePlan (of a from_eval plan, its twisted
+    counterpart), built on its device at first use and cached on it."""
+    if "large" not in plan._lazy and plan.twist is not None:
+        plan._lazy["large"] = LargePlan.from_eval(
+            plan.q, plan.logn, plan.root, plan.iroot, *plan.twist, plan.n_inv,
+            a_col=_route_a_col(plan.logn), device=plan.device)
     if "large" not in plan._lazy:
         plan._lazy["large"] = LargePlan.from_spec(
             plan.q, plan.logn, plan.root, plan.iroot, plan.xnp, plan.n_inv,
@@ -375,28 +429,42 @@ def large_plan(plan: MergePlan) -> LargePlan:
 
 
 def _twist(y, wt, wts, ws, wss, lp: LargePlan):
-    """y (batch, A, B) times W[a, b] = wt[a, b % T] * ws[b // T, a]."""
-    v = y.reshape(y.shape[0], lp.A, lp.B // lp.tile, lp.tile)
+    """y (batch, A, B') times W[a, b] = wt[a, b % T] * ws[b // T, a], for
+    the B' columns whose scale rows `ws` holds."""
+    v = y.reshape(y.shape[0], lp.A, -1, lp.tile)
     v = bo.shoup_mul64(v, wt[:, None, :], wts[:, None, :], lp.q)
     v = bo.shoup_mul64(v, ws.t()[:, :, None], wss.t()[:, :, None], lp.q)
     return v.reshape(y.shape)
 
 
+def col_phase_local_plain(x, lp: LargePlan, shard: int, sp: int, inverse: bool):
+    """K7' (and, at sp = 1, K7) on the (batch, A, B / sp) columns of
+    shard `shard`, the global columns [shard B / sp, (shard + 1) B / sp):
+    x mod q, then forward the A-point NTT down every column and W, or
+    inverse W^-1 and the column inverse with its c_inv; W at the global
+    column indices through the shard's rows of the scale table."""
+    nt = x.shape[2] // lp.tile
+    rows = slice(shard * nt, (shard + 1) * nt)
+    y = bo.reduce_forced64(x, lp.q)
+    if inverse:
+        y = _twist(y, lp.wt_inv, lp.wt_inv_shoup, lp.ws_inv[rows], lp.ws_inv_shoup[rows], lp)
+        return merge_intt_lanes(y.transpose(1, 2), lp.col).transpose(1, 2).contiguous()
+    y = merge_ntt_lanes(y.transpose(1, 2), lp.col).transpose(1, 2)
+    return _twist(y, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd[rows], lp.ws_fwd_shoup[rows], lp)
+
+
 def colfwd_plain(x, lp: LargePlan):
     """K7 forward: x mod q, the A-point NTT down every column, then W."""
     batch = x.shape[0]
-    cols = bo.reduce_forced64(x, lp.q).view(batch, lp.A, lp.B).transpose(1, 2)
-    y = merge_ntt_lanes(cols, lp.col).transpose(1, 2)
-    return _twist(y, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd, lp.ws_fwd_shoup,
-                  lp).reshape(batch, lp.n)
+    return col_phase_local_plain(x.view(batch, lp.A, lp.B), lp, 0, 1, False).reshape(batch,
+                                                                                    lp.n)
 
 
 def colinv_plain(x, lp: LargePlan):
     """K7 inverse: x mod q, W^-1, then the column inverse with its c_inv."""
     batch = x.shape[0]
-    y = _twist(bo.reduce_forced64(x, lp.q).view(batch, lp.A, lp.B), lp.wt_inv,
-               lp.wt_inv_shoup, lp.ws_inv, lp.ws_inv_shoup, lp)
-    return merge_intt_lanes(y.transpose(1, 2), lp.col).transpose(1, 2).reshape(batch, lp.n)
+    return col_phase_local_plain(x.view(batch, lp.A, lp.B), lp, 0, 1, True).reshape(batch,
+                                                                                   lp.n)
 
 
 def rowmat_plain(x, plan: MergePlan, inverse: bool):
@@ -425,24 +493,58 @@ def _lib():
     return library("merge_u64_large")
 
 
+def _col_tables(lp: LargePlan, inverse: bool):
+    """The column entries' table pointers and (inverse) c_inv with its
+    Shoup companion."""
+    col = lp.col
+    if inverse:
+        tables = (col.inv_table, col.inv_shoup, lp.wt_inv, lp.wt_inv_shoup, lp.ws_inv,
+                  lp.ws_inv_shoup)
+        return tuple(t.data_ptr() for t in tables), (col.n_inv, col.n_inv_shoup)
+    tables = (col.fwd_table, col.fwd_shoup, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd,
+              lp.ws_fwd_shoup)
+    return tuple(t.data_ptr() for t in tables), ()
+
+
 def _col(stats: KernelStats, entry: str, x, lp: LargePlan, inverse: bool):
     _check(x, lp.n, lp.device)
     if x.device.type == "cpu":
         stats.plain_calls += 1
         return (colinv_plain if inverse else colfwd_plain)(x, lp)
-    col = lp.col
-    if inverse:
-        tables = (col.inv_table, col.inv_shoup, lp.wt_inv, lp.wt_inv_shoup, lp.ws_inv,
-                  lp.ws_inv_shoup)
-        scale = (col.n_inv, col.n_inv_shoup)
-    else:
-        tables = (col.fwd_table, col.fwd_shoup, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd,
-                  lp.ws_fwd_shoup)
-        scale = ()
+    tables, scale = _col_tables(lp, inverse)
     y = torch.empty_like(x)
     _launch(stats, getattr(_lib(), entry), x, x.data_ptr(), y.data_ptr(), x.shape[0],
-            col.logn, lp.B.bit_length() - 1, *(t.data_ptr() for t in tables),
-            lp.tile.bit_length() - 1, lp.q, (1 << 64) // lp.q, *scale, int(col.xnp))
+            lp.col.logn, lp.B.bit_length() - 1, *tables, lp.tile.bit_length() - 1, lp.q,
+            (1 << 64) // lp.q, *scale, int(lp.col.xnp))
+    return y
+
+
+def col_phase_local(x: torch.Tensor, lp: LargePlan, shard: int, sp: int,
+                    inverse: bool) -> torch.Tensor:
+    """K7' on a contiguous (batch, A, B / sp) tensor, the columns of shard
+    `shard` of `sp` (col_phase_local, pallas_mxu_large.py:452): forward
+    W o (Mcol @ X), inverse Ginv_col @ (W^-1 o X), with W at the global
+    column indices.  The shard's width must hold whole W tiles."""
+    stats = COLINV_LOCAL if inverse else COLFWD_LOCAL
+    bl = lp.B // sp if sp > 0 else 0
+    if (x.dtype != torch.int64 or x.dim() != 3 or x.shape[1:] != (lp.A, bl)
+            or bl * sp != lp.B or bl % lp.tile or not 0 <= shard < sp
+            or not x.is_contiguous() or x.device != lp.device):
+        raise NTTDispatchError(
+            f"{stats.name} takes a contiguous (batch, {lp.A}, B / sp) int64 tensor on "
+            f"{lp.device} whose width holds whole tiles of {lp.tile} (B = {lp.B}, "
+            f"shard {shard} of {sp}), got {tuple(x.shape)} {x.dtype} on {x.device} "
+            f"contiguous={x.is_contiguous()}")
+    if x.device.type == "cpu":
+        stats.plain_calls += 1
+        return col_phase_local_plain(x, lp, shard, sp, inverse)
+    if x.device.type != "cuda":
+        raise NTTDeviceError(f"no merge_u64_large kernel for {x.device}")
+    tables, scale = _col_tables(lp, inverse)
+    y = torch.empty_like(x)
+    _launch(stats, getattr(_lib(), stats.name), x, x.data_ptr(), y.data_ptr(), x.shape[0],
+            lp.col.logn, bl.bit_length() - 1, shard, *tables, lp.tile.bit_length() - 1, lp.q,
+            (1 << 64) // lp.q, *scale, int(lp.col.xnp))
     return y
 
 

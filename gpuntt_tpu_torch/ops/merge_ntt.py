@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..arith.modulus import Modulus
-from ..params.bitrev import bitrev_permute
+from ..params.bitrev import bitrev_permute, bitreverse_indices
 from ..params.merge import NTTParameters, ReductionPolynomial, _power_table
 from . import barrett as bo
 from .limb import from_numpy_u64, signed, to_numpy_u64
@@ -54,7 +54,10 @@ class MergePlan:
     the engine, which calls it.  The JAX package refuses that rebuild
     inside a trace, where the tables would become compiled constants;
     eager torch has no trace, so the rebuild is always allowed and costs
-    only the memory and the seconds."""
+    only the memory and the seconds.
+
+    `twist` is (psi, ipsi) for a plan of the evaluation-twisted transform
+    (`from_eval`), None otherwise."""
 
     logn: int
     q: int
@@ -71,8 +74,10 @@ class MergePlan:
     inv_table: torch.Tensor | None
     inv_shoup: torch.Tensor | None
     device: torch.device
+    twist: tuple | None = None
     _moved: dict = dataclasses.field(default_factory=dict, repr=False)
-    # lazily built: "tables" (with_tables), "large" (the big-ring plan)
+    # lazily built: "tables" (with_tables), "large" (the big-ring plan),
+    # ("dist", sp, rank) (a distributed transform's tail, parallel/merge_dist)
     _lazy: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -143,6 +148,30 @@ class MergePlan:
         return plan._with(np.asarray(fwd_table, dtype=np.uint64),
                           np.asarray(inv_table, dtype=np.uint64))
 
+    @staticmethod
+    def from_eval(q: int, logn: int, omega: int, iomega: int, psi: int, ipsi: int,
+                  n_inv: int, device=None, dtype=np.uint64) -> "MergePlan":
+        """The plan of the evaluation-twisted transform
+        out[k] = sum_j x_j (psi omega^br(k))^j, omega of order n (the JAX
+        package's MXUMergePlan.from_eval): the merge network whose stage s,
+        group g multiplies by (psi omega^br(g, s))^(n >> (s + 1)).  Its
+        tables are laid out as an X^N + 1 plan's (entry 2^s + g; the
+        kernels' and the engine's `xnp` indexing), so `reduction_poly`
+        reads X_N_plus whatever the ring; psi = omega = psi_N^2 is the
+        X^N + 1 transform, psi = 1 the X^N - 1 one.  A shard of a
+        coefficient-sharded transform is one (parallel/merge_dist.py), and
+        the kernels take it: `genuine_root` checks omega, not the twist.
+        A u64 big ring (`bigring`) skips the N-entry tables, and its
+        big-ring plan (hopper_merge_large.LargePlan.from_eval) carries
+        the twist."""
+        if pow(omega, 1 << logn, q) != 1 or omega * iomega % q != 1 or psi * ipsi % q != 1:
+            raise ValueError("from_eval needs omega of order dividing n and the inverse pairs")
+        plan = dataclasses.replace(
+            MergePlan.from_arrays(q, logn, ReductionPolynomial.X_N_plus, omega, iomega,
+                                  n_inv, None, None, device=device, dtype=dtype),
+            twist=(psi % q, ipsi % q))
+        return plan if plan.bigring else plan.with_tables()
+
     def _with(self, fwd: np.ndarray, inv: np.ndarray) -> "MergePlan":
         """This plan holding the bit-reversed tables `fwd`, `inv`."""
         if len(fwd) != len(inv) or len(fwd) not in (self.n, 1 << max(self.logn - 1, 0)):
@@ -163,6 +192,10 @@ class MergePlan:
         first call and cached (the engine's; see the class note)."""
         if self.fwd_table is not None:
             return self
+        if "tables" not in self._lazy and self.twist is not None:
+            self._lazy["tables"] = self._with(
+                _eval_table(self.q, self.logn, self.root, self.twist[0]),
+                _eval_table(self.q, self.logn, self.iroot, self.twist[1]))
         if "tables" not in self._lazy:
             size = self.n if self.xnp else self.n >> 1
             self._lazy["tables"] = self._with(
@@ -200,6 +233,18 @@ class MergePlan:
             add=lambda a, b: bo.modadd32(a, b, q),
             sub=lambda a, b: bo.modsub32(a, b, q),
             mulc=lambda x, w, ws: bo.shoup_mul32(x, w, ws, q))
+
+
+def _eval_table(q: int, logn: int, omega: int, psi: int) -> np.ndarray:
+    """The heap-ordered twiddles of `from_eval`: entry 2^s + g is
+    (psi omega^br(g, s))^(n >> (s + 1)) for stage s and group g < 2^s."""
+    out = np.ones(1 << logn, dtype=np.uint64)
+    for s in range(logn):
+        e = (1 << logn) >> (s + 1)
+        pw = np.asarray(_power_table(pow(omega, e, q), q, 1 << s), dtype=np.uint64)
+        row = pw[bitreverse_indices(s)].astype(object) * pow(psi, e, q) % q
+        out[1 << s:2 << s] = row.astype(np.uint64)
+    return out
 
 
 # ------------------------------------------------------------- transforms

@@ -18,7 +18,11 @@ all on the cyclic schedule — ntt_rns_lanes, intt_rns_lanes and
 rns_polymul_lanes (at 2^16 also ntt_rns_lanes with its schedule copied
 to the card on every call, the cost its cache saves), and for the RNS
 4-step at 2^16 x 64 and 2^20 x 8, ladder 8, rns_fourstep_ntt_lanes and
-rns_fourstep_intt_lanes.  It prints for each entry:
+rns_fourstep_intt_lanes; and for the distributed 4-step at u64 2^24 x 1
+on a world of one rank (NCCL, a HashStore), dist_fourstep_ntt and
+dist_fourstep_intt (K7' and the rows on K1/K2, the all_to_all, the
+torch glue), whose idle share is the host cost of the mesh and
+collective layer.  It prints for each entry:
 
 - the window's time per call on the events, and the device's busy and
   idle share of it (the sum of the kernels' device time over the
@@ -165,6 +169,24 @@ def main(iters: int = 20) -> int:
                            lambda: g.rns_fourstep_intt_lanes(a, plan, mod_idx))):
             print(f"RNS 4-step u64 2^{logn}x{batch} ladder 8 {entry}:")
             profile(fn, iters, a.numel() * 8)
+    import torch.distributed as dist
+
+    from gpuntt_tpu_torch.parallel import mesh as M
+    from gpuntt_tpu_torch.parallel.fourstep_dist import (DistFourStepPlan, dist_fourstep_intt,
+                                                         dist_fourstep_ntt)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = M.make_mesh(1, 1, device=dev)
+    p = g.NTTParameters4Step(24, g.ReductionPolynomial.X_N_minus, np.uint64)
+    dplan = DistFourStepPlan.from_params(p, device=dev)
+    x = torch.from_numpy(rng.integers(0, p.modulus.value, size=(1, p.n1, p.n2),
+                                      dtype=np.int64)).to(dev)
+    spec = dist_fourstep_ntt(x, dplan, mesh)
+    for entry, fn in (("dist_fourstep_ntt", lambda: dist_fourstep_ntt(x, dplan, mesh)),
+                      ("dist_fourstep_intt", lambda: dist_fourstep_intt(spec, dplan, mesh))):
+        print(f"dist 4-step u64 2^24x1 world size 1 {entry}:")
+        profile(fn, iters, x.numel() * 8)
+    dist.destroy_process_group()
     return 0
 
 

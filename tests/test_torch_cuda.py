@@ -9,7 +9,10 @@ and both reduction polynomials, on any input word; wide and narrow moduli agains
 golden NTTCPU, the big rings against the native oracle at 2^24 and the
 4-step against NTT4StepCPU there; the RNS schedules and model
 against the same entries on the CPU; the launch counters of the u32,
-big-ring and 4-step routes; the wrappers' refusals; CUDA-event timing.
+big-ring and 4-step routes; the wrappers' refusals; CUDA-event timing;
+the distributed path: K7' on every shard of sp 1-8 at u64 2^20 and
+2^24, the merge's per-rank tail plans, and the dist entries and models
+at world size 1 on NCCL against the single-chip entries.
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -31,7 +34,7 @@ from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
-from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
+from gpuntt_tpu_torch.ops.limb import from_numpy_u64, signed, to_numpy_u64
 from gpuntt_tpu_torch.utils.timing import time_cuda
 
 pytestmark = pytest.mark.cuda
@@ -669,3 +672,158 @@ def test_rns32_wrappers_refuse_on_card(card):
                          (x.reshape(-1, 2).t(), midx)):
         with pytest.raises(tg.NTTDispatchError):
             hr32.rns_u32_fwd(bad_x, plan, bad_m)
+
+
+# ------------------------------------------------------- the distributed path
+
+
+@pytest.mark.parametrize("sp", [1, 2, 4, 8])
+@pytest.mark.parametrize("logn", [20, 24])
+def test_k7_local_matches_plain_on_card(card, logn, sp):
+    """K7' on every shard of sp, at the dist 4-step's colmat shapes (u64
+    2^20: 32 x 32768, 2^24: 256 x 65536): against its plain version and
+    the same columns of the sp = 1 launch, both directions, one launch
+    each, any u64 word."""
+    from gpuntt_tpu_torch.parallel.fourstep_dist import DistFourStepPlan
+
+    p = tg.NTTParameters4Step(logn, POLYS[0], np.uint64)
+    lp = DistFourStepPlan.from_params(p, device=card).colmat
+    x = from_numpy_u64(np.random.default_rng(sp).integers(
+        0, 1 << 64, size=(1, p.n), dtype=np.uint64, endpoint=False), card).view(1, p.n1, p.n2)
+    bl = p.n2 // sp
+    for inverse in (False, True):
+        whole = hml.col_phase_local(x, lp, 0, 1, inverse)
+        for sh in range(sp):
+            xs = x[:, :, sh * bl:(sh + 1) * bl].contiguous()
+            hml.reset_counts()
+            got = hml.col_phase_local(xs, lp, sh, sp, inverse)
+            torch.cuda.synchronize()
+            k = hml.COLINV_LOCAL if inverse else hml.COLFWD_LOCAL
+            assert (k.launches, k.plain_calls) == (1, 0)
+            assert torch.equal(got, hml.col_phase_local_plain(xs, lp, sh, sp, inverse))
+            assert torch.equal(got, whole[:, :, sh * bl:(sh + 1) * bl])
+
+
+def test_k7_local_refuses_on_card(card):
+    from gpuntt_tpu_torch.parallel.fourstep_dist import DistFourStepPlan
+
+    p = tg.NTTParameters4Step(16, POLYS[0], np.uint64)
+    lp = DistFourStepPlan.from_params(p, device=card).colmat
+    x = torch.zeros((1, p.n1, p.n2), dtype=torch.int64, device=card)
+    for args in ((x.cpu(), 0, 1), (x[:, :, :64].contiguous(), 0, 8), (x, 1, 1),
+                 (x[:, :, :256], 0, 2)):
+        with pytest.raises(tg.NTTDispatchError):
+            hml.col_phase_local(args[0], lp, args[1], args[2], False)
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn,sp", [(14, 4), (20, 8), (20, 4), (21, 8)])
+def test_merge_dist_tails_on_card(card, logn, sp, poly):
+    """Every rank's tail plan (MergePlan.from_eval): 2^12 and 2^17 tails
+    on K1/K2, 2^18 tails on the twisted big-ring plan, against their plain
+    versions and against the tail cut from the full network's tables on
+    the engine (2^12)."""
+    from gpuntt_tpu_torch.parallel.merge_dist import _sliced_tail, merge_dist_tails
+
+    plan = tg.MergePlan.from_params(tg.NTTParameters(logn, poly, np.uint64), device=card)
+    rng = np.random.default_rng(logn + sp)
+    for r in range(sp):
+        tail = merge_dist_tails(plan, sp, r)
+        x = from_numpy_u64(rng.integers(0, plan.q, size=(2, tail.n), dtype=np.uint64), card)
+        hm.reset_counts()
+        hml.reset_counts()
+        f, i = tg.ntt_lanes(x, tail), tg.intt_lanes(x, tail)
+        torch.cuda.synchronize()
+        if tail.bigring:
+            lp = hml.large_plan(tail)
+            assert (hml.COLFWD.launches, hml.COLINV.launches) == (1, 1)
+            assert torch.equal(f, hml.merge_u64_large_plain(x, lp))
+            assert torch.equal(i, hml.merge_u64_large_plain(x, lp, inverse=True))
+        else:
+            assert (hm.FORWARD.launches, hm.INVERSE.launches) == (1, 1)
+            assert torch.equal(f, hm.merge_u64_fwd_plain(x, tail))
+            assert torch.equal(i, hm.merge_u64_inv_plain(x, tail))
+        if logn == 14:
+            cut = _sliced_tail(plan, sp, r)
+            assert torch.equal(f, tg.ntt_lanes(x, cut))
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one rank on NCCL (a HashStore: no network) and its 1 x 1
+    mesh; the group is destroyed after the module."""
+    import torch.distributed as dist
+
+    from gpuntt_tpu_torch.parallel import mesh as M
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    yield M.make_mesh(1, 1)
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype,logn", [(np.uint64, 20), (np.uint64, 24), (np.uint32, 20),
+                                        (np.uint64, 16)])
+def test_dist_fourstep_world_one_on_card(card, nccl_mesh, dtype, logn):
+    """dist_fourstep_ntt / _intt at world size 1 on NCCL equal the
+    single-chip fourstep_ntt_full and invert it; pipelined too."""
+    from gpuntt_tpu_torch.parallel.fourstep_dist import (DistFourStepPlan, dist_fourstep_intt,
+                                                         dist_fourstep_ntt)
+
+    p = tg.NTTParameters4Step(logn, POLYS[0], dtype)
+    dplan = DistFourStepPlan.from_params(p, device=card)
+    batch = 2 if logn < 24 else 1
+    x_np = np.random.default_rng(logn).integers(0, p.modulus.value, size=(batch, p.n),
+                                                dtype=np.uint64)
+    x = torch.from_numpy(x_np.view(np.int64)).to(card)
+    want = tg.fourstep_ntt_full(x, tg.FourStepPlan.from_params(p, device=card))
+    for chunks in (1, batch):
+        spec = dist_fourstep_ntt(x.view(batch, p.n1, p.n2), dplan, nccl_mesh,
+                                 pipeline_chunks=chunks)
+        assert torch.equal(spec.reshape(batch, p.n), want)
+        back = dist_fourstep_intt(spec, dplan, nccl_mesh, pipeline_chunks=chunks)
+        assert torch.equal(back.reshape(batch, p.n), x)
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("dtype,logn", [(np.uint64, 14), (np.uint64, 20), (np.uint32, 20)])
+def test_dist_merge_world_one_on_card(card, nccl_mesh, dtype, logn, poly):
+    from gpuntt_tpu_torch.parallel.merge_dist import dist_merge_intt, dist_merge_ntt
+
+    p = tg.NTTParameters(logn, poly, dtype)
+    plan = tg.MergePlan.from_params(p, device=card)
+    x = torch.from_numpy(np.random.default_rng(logn).integers(
+        0, p.modulus.value, size=(2, p.n), dtype=np.uint64).view(np.int64)).to(card)
+    f = dist_merge_ntt(x, plan, nccl_mesh)
+    assert torch.equal(f, tg.ntt_lanes(x, plan))
+    assert torch.equal(dist_merge_intt(f, plan, nccl_mesh), x)
+    unscaled = dist_merge_intt(f, plan, nccl_mesh, scale=False)
+    assert torch.equal(plan.ops().mulc(unscaled, plan.n_inv, signed(plan.n_inv_shoup)), x)
+
+
+def test_dist_models_world_one_on_card(card, nccl_mesh):
+    """Both Dist models at world size 1 against the single-chip polymuls."""
+    from gpuntt_tpu_torch.models.polymul import (DistPolynomialMultiplier,
+                                                 DistRNSPolynomialMultiplier)
+
+    qs = tg.find_ntt_primes(59, 16, 3)
+    rng = np.random.default_rng(7)
+    fours, merges = [], []
+    for q in qs:
+        f = tg.NTTFactors(tg.Modulus64(q), *tg.ntt_root_pair(q, 16))
+        fours.append(tg.NTTParameters4Step(16, POLYS[0], np.uint64, factors=f))
+        merges.append(tg.NTTParameters(16, POLYS[0], np.uint64, factors=f))
+    a, b = (from_numpy_u64(np.stack([rng.integers(0, q, size=1 << 16, dtype=np.uint64)
+                                     for q in qs]), card) for _ in range(2))
+    p0 = fours[0]
+    out = DistRNSPolynomialMultiplier(fours, nccl_mesh).step_lanes(
+        a.view(3, p0.n1, p0.n2), b.view(3, p0.n1, p0.n2), [0, 1, 2])
+    want = td.rns_polymul_lanes(a, b, tg.RNSMergePlan.from_params(merges, device=card),
+                                [0, 1, 2])
+    assert torch.equal(out.reshape(3, -1), want)
+    model = DistPolynomialMultiplier(p0, nccl_mesh, pipeline_chunks=3)
+    single = tg.MergePlan.from_params(merges[0], device=card)
+    a0 = from_numpy_u64(rng.integers(0, qs[0], size=(3, 1 << 16), dtype=np.uint64), card)
+    out = model(a0.view(3, p0.n1, p0.n2), a0.view(3, p0.n1, p0.n2))
+    assert torch.equal(out.reshape(3, -1), tg.polymul_lanes(a0, a0, single))
