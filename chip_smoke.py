@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's merge, 4-step, RNS and distributed paths once on one CUDA card.
+"""Drive the port's merge, 4-step, RNS, distributed and factored-merge paths on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -72,7 +72,20 @@ at once) and runs, on the card:
    against its plain version; DistRNSPolynomialMultiplier at 2^20,
    ladder 4, batch 4 against rns_polymul_lanes and
    DistPolynomialMultiplier at 2^16 x 4 against polymul_lanes, with the
-   launch counts read around each; K7''s and dist_fourstep_ntt's times.
+   launch counts read around each; K7''s and dist_fourstep_ntt's times;
+26-29. the factored merge kernels of csrc/kmerge.cu (`kmerge_phase`):
+   K15's counterpart at u64 2^16 x 128, X^N + 1, the 61-bit pool prime,
+   through ntt_lanes, intt_lanes and polymul_lanes with use_pallas="vpu"
+   (the launch counts read around each call: K15 only), every row against
+   the plain versions and the default route (K1, K3), two rows against
+   NTTCPU; its check cells (logn 7 against schoolbook, 12 X^N - 1, a
+   62-bit and a past-62-bit q at 12, 14 and 15 on both sides of the
+   one-block limit, 2^20 x 16 and 2^24 x 1 against the default route,
+   signed input and PerCoefficient); K17's kmerge_u32 at u32 2^16 x 128
+   and 2^20 x 16, q = 469762049, every row against the plain version and
+   ntt_lanes (K4, K6), and at logn 7, 8 X^N - 1, a 30-bit q at 14 and
+   2^25 x 1; the four entries' and their plain versions' times beside
+   K1/K2 and K4.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -639,6 +652,249 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
         e2e(f"{what} {cellw} end to end", fn)
 
 
+# the kmerge phase's (logn, batch) cells: K15's main path, its big check
+# cells, K17's two widths and the top of the u32 pool
+KMERGE_FULL = dict(main=(16, 128), k15=((14, 8), (15, 8), (20, 16), (24, 1)),
+                   k17=((16, 128), (20, 16)), k17_top=(25, 1))
+
+
+def kmerge_phase(dev, rng, reset, launches, err, times, bounds, sizes=KMERGE_FULL) -> None:
+    """26-29: the factored merge kernels of csrc/kmerge.cu, K15's
+    counterpart on the use_pallas="vpu" route and K17's (kmerge_u32).
+    `sizes` are the larger cells; a CPU device (the kernels' plain
+    versions counted in place of their launches, no timing) rehearses the
+    phase at small ones."""
+    import torch
+
+    import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
+
+    PLUS = g.ReductionPolynomial.X_N_plus
+    MINUS = g.ReductionPolynomial.X_N_minus
+    # (q, psi of order 2^13): q = 2^62 - 1.1e9, and a q past 2^62
+    WIDE62 = (4611684918915809281, 4166544109213919754)
+    OVER62 = (4611686018427494401, 795177494079348431)
+    F15, I15 = hk64.FORWARD.name, hk64.INVERSE.name
+    F17, I17 = hk.FORWARD.name, hk.INVERSE.name
+    cuda = dev.type == "cuda"
+    same, timed, e2e = recorders(err, times, bounds)
+    t0 = time.perf_counter()
+
+    def counted() -> dict:
+        """{kernel: launches} of the merge kernels since reset() (on a CPU
+        rehearsal, plain-version calls); raises if a plain version ran on
+        the card."""
+        ks = (*hk64.KERNELS, *hk.KERNELS, *hm.KERNELS, *hm32.KERNELS, *hml.KERNELS)
+        if cuda:
+            torch.cuda.synchronize()
+            if any(k.plain_calls for k in ks):
+                raise AssertionError(f"plain versions ran: {[k.name for k in ks if k.plain_calls]}")
+        return {k.name: n for k in ks if (n := k.launches if cuda else k.plain_calls)}
+
+    def params(logn, poly, dtype=np.uint64, wide=None):
+        if wide is None:
+            return g.NTTParameters(logn, poly, dtype)
+        q, psi = wide
+        psi = pow(psi, 1 << (12 - logn), q)
+        return g.NTTParameters(logn, poly, dtype, factors=g.NTTFactors(
+            g.Modulus64(q), psi * psi % q, psi))
+
+    def residues(p, batch):
+        return rng.integers(0, p.modulus.value, size=(batch, p.n), dtype=np.uint64)
+
+    def lanes32(v):
+        return torch.from_numpy(np.asarray(v).astype(np.int64)).to(dev)
+
+    def product_want(p, gen, x_np, y_np):
+        """The polymul of rows x, y on the "vpu" route: schoolbook's at logn
+        7, NTTCPU's above; past 2^62 the inverse of the reference's Barrett
+        product mod q (out of its 62-bit domain, it is not the product)."""
+        if p.logn == 7:
+            return np.stack([g.schoolbook_poly_multiplication(u, v, p.modulus, p.poly_reduction)
+                             for u, v in zip(x_np, y_np)])
+        fx, fy = gen.ntt(x_np), gen.ntt(y_np)
+        if p.modulus.value < 1 << 62:
+            return gen.intt(gen.mult(fx, fy))
+        cpu = g.MergePlan.from_params(p, device="cpu")
+        return gen.intt(g.pointwise_mult(fx, fy, cpu) % np.uint64(p.modulus.value))
+
+    # -- 26. K15 on the main-path width: u64 2^16 x 128, X^N + 1, the pool
+    # prime, through the public entries with use_pallas="vpu"
+    lm, bm = logn, batch = sizes["main"]
+    p = params(logn, PLUS)
+    plan = g.MergePlan.from_params(p, device=dev)
+    a_np, b_np = residues(p, batch), residues(p, batch)
+    a, b = from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)
+    cell = f"u64 2^{logn}x{batch} vpu"
+    t1 = time.perf_counter()
+    kp = hk.kernel_plan(plan)
+    for inverse in (False, True):
+        kp.w(inverse)
+    print(f"K15 plan u64 2^{logn} X^N+1: {time.perf_counter() - t1:.3f} s, "
+          f"{kp.device_bytes()} bytes on {dev}")
+    reset()
+    fa = g.ntt_lanes(a, plan, use_pallas="vpu")
+    run_f = counted()
+    reset()
+    back = g.intt_lanes(fa, plan, use_pallas="vpu")
+    run_i = counted()
+    reset()
+    prod = g.polymul_lanes(a, b, plan, use_pallas="vpu")
+    run_p = counted()
+    check(run_f == {F15: 1} and run_i == {I15: 1} and run_p == {F15: 2, I15: 1},
+          f"{cell} ntt_lanes, intt_lanes, polymul_lanes launched K15's counterpart only, "
+          f"no K1-K3, no plain version ({run_f}, {run_i}, {run_p})")
+    launches[F15], launches[I15] = run_f[F15] + run_p[F15], run_i[I15] + run_p[I15]
+    fa_plain, fb_plain = hk.kmerge_plain(a, kp), hk.kmerge_plain(b, kp)
+    same(F15, fa, fa_plain, f"{cell} ntt_lanes, all rows,")
+    same(I15, back, hk.kmerge_plain(fa, kp, inverse=True), f"{cell} intt_lanes, all rows,")
+    check(torch.equal(prod, hk.kmerge_plain(g.pointwise_mult_lanes(fa_plain, fb_plain, plan),
+                                            kp, inverse=True)),
+          f"{cell} polymul_lanes == the plain versions' pipeline, all rows")
+    check(torch.equal(back, a), f"{cell} intt(ntt(a)) == a, all rows")
+    check(torch.equal(fa, g.ntt_lanes(a, plan)) and torch.equal(prod, g.polymul_lanes(a, b, plan)),
+          f"{cell} ntt_lanes and polymul_lanes == the default route (K1, K3), all rows")
+    gen = g.NTTCPU(p)
+    for r in (0, batch - 1):
+        check(np.array_equal(to_numpy_u64(fa[r]), gen.ntt(a_np[r])), f"{cell} row {r} == NTTCPU")
+        check(np.array_equal(to_numpy_u64(prod[r]), product_want(p, gen, a_np[r], b_np[r])),
+              f"{cell} polymul row {r} == NTTCPU")
+
+    # -- 27. K15's check cells: schoolbook at logn 7, X^N - 1 at 12, a 62-bit
+    # and a past-62-bit q, both sides of the one-block limit (14, 15), the
+    # big rings against the default route; signed input and PerCoefficient
+    for logn, batch, poly, wide, label in (
+            (7, 4, MINUS, None, ""), (12, 4, MINUS, None, ""), (12, 4, PLUS, WIDE62, " WIDE62"),
+            (12, 4, PLUS, OVER62, " OVER62"),
+            *((logn, batch, PLUS, None, "") for logn, batch in sizes["k15"])):
+        p = params(logn, poly, wide=wide)
+        planc = g.MergePlan.from_params(p, device=dev)
+        x_np, y_np = residues(p, batch), residues(p, batch)
+        x, y = from_numpy_u64(x_np, dev), from_numpy_u64(y_np, dev)
+        name = f"K15 u64 2^{logn}x{batch} {poly.name}{label}"
+        reset()
+        fx = g.ntt_lanes(x, planc, use_pallas="vpu")
+        bx = g.intt_lanes(fx, planc, use_pallas="vpu")
+        pxy = g.polymul_lanes(x, y, planc, use_pallas="vpu")
+        run = counted()
+        check(run == {F15: 3, I15: 2}, f"{name} vpu entries launched {run}")
+        kpc = hk.kernel_plan(planc)
+        print(f"{name}: K15 plan {kpc.device_bytes()} bytes on {dev} (both W tables)")
+        same(F15, fx, hk.kmerge_plain(x, kpc), f"{name} ntt_lanes")
+        same(I15, bx, hk.kmerge_plain(fx, kpc, inverse=True), f"{name} intt_lanes")
+        check(torch.equal(bx, x), f"{name} intt(ntt(x)) == x")
+        check(torch.equal(fx, g.ntt_lanes(x, planc)), f"{name} ntt_lanes == the default route")
+        if p.modulus.value < 1 << 62:
+            check(torch.equal(pxy, g.polymul_lanes(x, y, planc)),
+                  f"{name} polymul_lanes == the default route")
+        genc = g.NTTCPU(p)
+        for r in (range(batch) if logn <= 12 else (batch - 1,) if logn <= 20 else ()):
+            check(np.array_equal(to_numpy_u64(fx[r]), genc.ntt(x_np[r])),
+                  f"{name} row {r} == NTTCPU")
+            check(np.array_equal(to_numpy_u64(pxy[r]),
+                                 product_want(p, genc, x_np[r:r + 1], y_np[r:r + 1])[0]),
+                  f"{name} polymul row {r} == {'schoolbook' if logn == 7 else 'NTTCPU'}")
+        del fx, bx, pxy, x, y
+    p = params(12, PLUS)
+    planc = g.MergePlan.from_params(p, device=dev)
+    q = p.modulus.value
+    s = torch.from_numpy(rng.integers(-(q // 2), q // 2, size=(4, p.n), dtype=np.int64)).to(dev)
+    reset()
+    fs = g.ntt_lanes(s, planc, use_pallas="vpu", signed_input=True)
+    st = s.abs().t().contiguous()
+    ft = g.ntt_lanes(st, planc, use_pallas="vpu", layout=g.NTTLayout.PerCoefficient)
+    run = counted()
+    check(run == {F15: 2}, f"K15 u64 2^12 signed input and PerCoefficient launched {run}")
+    check(torch.equal(fs, g.ntt_lanes(s, planc, signed_input=True))
+          and torch.equal(g.intt_lanes(fs, planc, use_pallas="vpu", signed_output=True), s),
+          "K15 u64 2^12 signed_input / signed_output == the default route, round trip")
+    check(torch.equal(ft, g.ntt_lanes(st, planc, layout=g.NTTLayout.PerCoefficient)),
+          "K15 u64 2^12 PerCoefficient == the default route")
+
+    # -- 28. K17 (kmerge_u32) at the JAX bench line's u32 widths, X^N + 1,
+    # q = 469762049, then its check cells
+    k17 = {}
+    (l16, b16), (l20, b20) = sizes["k17"]
+    for logn, batch, poly, bits in ((l16, b16, PLUS, None), (l20, b20, PLUS, None),
+                                    (7, 4, PLUS, None), (8, 4, MINUS, None),
+                                    (14, 4, PLUS, 30), (*sizes["k17_top"], PLUS, None)):
+        if bits is None:
+            p32 = params(logn, poly, np.uint32)
+        else:
+            q30 = g.find_ntt_primes(bits, logn, 1)[0]
+            p32 = g.NTTParameters(logn, poly, np.uint32, factors=g.NTTFactors(
+                g.Modulus32(q30), *g.ntt_root_pair(q30, logn)))
+        plan32 = g.MergePlan.from_params(p32, device=dev)
+        kp32 = hk.kernel_plan(plan32)
+        x_np = residues(p32, batch).astype(np.uint32)
+        x = lanes32(x_np)
+        name = f"K17 u32 2^{logn}x{batch} {poly.name}" + (f" {bits}-bit q" if bits else "")
+        reset()
+        fx = hk.kmerge_u32(x, kp32)
+        bx = hk.kmerge_u32(fx, kp32, inverse=True)
+        run = counted()
+        check(run == {F17: 1, I17: 1}, f"{name} kmerge_u32 launched {run}")
+        if (logn, batch) == (l16, b16):
+            launches.update(run)
+        same(F17, fx, hk.kmerge_plain(x, kp32), f"{name} forward, all rows,")
+        same(I17, bx, hk.kmerge_plain(fx, kp32, inverse=True), f"{name} inverse, all rows,")
+        check(torch.equal(bx, x), f"{name} inverse(forward(x)) == x")
+        check(torch.equal(fx, g.ntt_lanes(x, plan32)),
+              f"{name} == ntt_lanes ({'the engine' if logn < 8 else 'K4-K6'}), all rows")
+        gen32 = g.NTTCPU(p32)
+        for r in (0, batch - 1) if logn < 24 else ():
+            check(np.array_equal(fx[r].cpu().numpy().astype(np.uint32), gen32.ntt(x_np[r])),
+                  f"{name} row {r} == NTTCPU")
+        if logn <= 8:
+            y_np = residues(p32, batch).astype(np.uint32)
+            fy = hk.kmerge_u32(lanes32(y_np), kp32)
+            pxy = hk.kmerge_u32(g.pointwise_mult_lanes(fx, fy, plan32), kp32, inverse=True)
+            check(np.array_equal(pxy.cpu().numpy().astype(np.uint32),
+                                 product_want(p32, gen32, x_np, y_np)),
+                  f"{name} inverse(forward(x) o forward(y)) == "
+                  f"{'schoolbook' if logn == 7 else 'NTTCPU'}, all rows")
+        if (logn, batch) in sizes["k17"]:
+            k17[logn] = (plan32, kp32, x, fx)
+    print(f"kmerge phase {time.perf_counter() - t0:.1f} s before timing")
+    if not cuda:
+        return
+
+    # -- 29. times: each entry and its plain version (plain, kernel, kernel,
+    # plain), beside K1/K2 and K4 on the same tensors
+    timed(F15, lambda: hk64.kmerge_u64(a, kp), lambda: hk.kmerge_plain(a, kp),
+          bound_ms(bm, lm, 1, 16), cell)
+    timed(I15, lambda: hk64.kmerge_u64(fa, kp, inverse=True),
+          lambda: hk.kmerge_plain(fa, kp, inverse=True), bound_ms(bm, lm, 1, 16), cell)
+    k1 = e2e(f"{hm.FORWARD.name} (K1) {cell}", lambda: hm.merge_u64_fwd(a, plan))
+    k2 = e2e(f"{hm.INVERSE.name} (K2) {cell}", lambda: hm.merge_u64_inv(fa, plan))
+    print(f"{F15} / K1 {times[F15][0] / k1:.3f}, {I15} / K2 {times[I15][0] / k2:.3f}")
+    for what, fn in (("ntt_lanes", lambda: g.ntt_lanes(a, plan, use_pallas="vpu")),
+                     ("intt_lanes", lambda: g.intt_lanes(fa, plan, use_pallas="vpu")),
+                     ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan, use_pallas="vpu"))):
+        e2e(f"{what} {cell} end to end", fn)
+    plan32, kp32, x, fx = k17[l16]
+    cell32 = f"u32 2^{l16}x{b16} kmerge_u32"
+    timed(F17, lambda: hk.kmerge_u32(x, kp32), lambda: hk.kmerge_plain(x, kp32),
+          bound_ms(b16, l16, 1, 3), cell32)
+    timed(I17, lambda: hk.kmerge_u32(fx, kp32, inverse=True),
+          lambda: hk.kmerge_plain(fx, kp32, inverse=True), bound_ms(b16, l16, 1, 3), cell32)
+    k4 = e2e(f"{hm32.FORWARD['K4'].name} (K4) u32 2^{l16}x{b16}",
+             lambda: hm32.merge_u32_fwd(x, plan32))
+    k4i = e2e(f"{hm32.INVERSE['K4'].name} (K4) u32 2^{l16}x{b16}",
+              lambda: hm32.merge_u32_inv(fx, plan32))
+    print(f"{F17} / K4 {times[F17][0] / k4:.3f}, {I17} / K4 {times[I17][0] / k4i:.3f}")
+    plan32, kp32, x, fx = k17[l20]
+    for what, fn in (("kmerge_u32 forward", lambda: hk.kmerge_u32(x, kp32)),
+                     ("kmerge_u32 inverse", lambda: hk.kmerge_u32(fx, kp32, inverse=True)),
+                     ("merge_u32_forward (K6)", lambda: hm32.merge_u32_fwd(x, plan32))):
+        e2e(f"{what} u32 2^{l20}x{b20}", fn)
+
+
 DIST_FULL = dict(four=24, merge=20, rns=20, poly=16, merge_tails=(8, 4))
 
 
@@ -870,6 +1126,8 @@ def main() -> int:
     from gpuntt_tpu_torch.ops import _build
     from gpuntt_tpu_torch.ops import barrett as bo
     from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
     from gpuntt_tpu_torch.ops import hopper_merge as hm
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops import hopper_merge_large as hml
@@ -890,6 +1148,8 @@ def main() -> int:
         hf.reset_counts()
         hr.reset_counts()
         hr32.reset_counts()
+        hk64.reset_counts()
+        hk.reset_counts()
 
     def counted() -> dict:
         """{kernel: launches} of the u64 kernels that ran since reset();
@@ -1476,6 +1736,7 @@ def main() -> int:
                   f"{bound[0] / k_ms:.1%} of it")
     rns_phase(dev, rng, reset, launches, err, times, bounds)
     rns32_phase(dev, rng, reset, launches, err, times, bounds)
+    kmerge_phase(dev, rng, reset, launches, err, times, bounds)
     dist_phase(dev, rng, reset, launches, err, times, bounds)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
@@ -1486,7 +1747,7 @@ def main() -> int:
          "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
          "bound_by": bounds[k.name][1], "library_ms": None}
         for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
-                  *hr.KERNELS, *hr32.KERNELS)]}))
+                  *hr.KERNELS, *hr32.KERNELS, *hk64.KERNELS, *hk.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@
 // Each arithmetic function computes what its namesake in ops/barrett.py
 // computes, on the operands the kernels give it.  Moduli satisfy
 // q < 2^62, the reference's documented Barrett domain
-// (modular_arith.cuh:66-67).
+// (modular_arith.cuh:66-67); add_mod, sub_mod, shoup_mul and reduce_any
+// stay exact for any q < 2^63 (every intermediate is below 2q < 2^64),
+// which csrc/kmerge.cu relies on.
 
 #pragma once
 
@@ -86,7 +88,7 @@ inline Stacked stacked(const int* mod_idx, int shift, const uint64_t* tw, const 
                  tw_len, 0, 0, consts};
 }
 
-// (a + b) mod q for a, b < q: a + b < 2q < 2^63, no wrap.
+// (a + b) mod q for a, b < q: a + b < 2q < 2^64, no wrap.
 __device__ __forceinline__ uint64_t add_mod(uint64_t a, uint64_t b, uint64_t q) {
   const uint64_t s = a + b;
   return s >= q ? s - q : s;

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels at first use.
 
 Each source in csrc/ (merge_u64.cu, merge_u64_large.cu, merge_u32.cu,
-fourstep.cu) is compiled by its own nvcc call into a shared library with
+fourstep.cu, kmerge.cu) is compiled by its own nvcc call into a shared library with
 a plain C interface and loaded with ctypes: `library(name)` builds and loads one,
 `build_all()` starts every missing build at once and waits for them
 together.  Builds land in the gitignored csrc/build/ directory under
@@ -79,6 +79,14 @@ _ENTRIES = {
         **{f"rns_fourstep_u64_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p,
                                          _p, _p, _p, _p, _p, _p, _p]
            for d in ("fwd", "inv")},
+    },
+    "kmerge": {
+        **{f"kmerge_{w}_forward": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p, _p,
+                                   word, word, _i32, _p]
+           for w, word in (("u64", _u64), ("u32", _u32))},
+        **{f"kmerge_{w}_inverse": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p, _p,
+                                   word, word, word, word, _i32, _p]
+           for w, word in (("u64", _u64), ("u32", _u32))},
     },
 }
 

@@ -42,7 +42,11 @@ one first):
 
 The wrappers run their plain versions for CPU tensors.  `use_pallas` on
 ntt_lanes / intt_lanes / polymul_lanes picks the route as the JAX
-package's argument does (`_chosen_path`).
+package's argument does (`_chosen_path`); a string that names no MXU
+path (such as "vpu") takes the VPU merge kernels' counterparts: K4's on
+u32 ("hopper-merge32"), and on u64 K15's, hopper_kmerge64.py
+("hopper-kmerge64", logn 7-24, q < 2^63, any factors; it raises outside
+that range and for an evaluation-twisted plan).
 
 `staged_ntt_lanes` / `staged_polymul_lanes` keep the JAX package's
 big-ring entries (logn 24-28): thin calls into the same route.
@@ -74,9 +78,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.errors import NTTDispatchError
 from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
+from . import hopper_kmerge64 as hk64
 from . import hopper_merge as hm
 from . import hopper_merge32 as hm32
 from . import hopper_merge_large as hml
@@ -119,6 +123,7 @@ _TRANSFORMS = {
     "hopper-merge": (hm.merge_u64_fwd, hm.merge_u64_inv),
     "hopper-merge-large": (hml.merge_u64_large_fwd, hml.merge_u64_large_inv),
     "hopper-merge32": (hm32.merge_u32_fwd, hm32.merge_u32_inv),
+    "hopper-kmerge64": (hk64.merge_fwd, hk64.merge_inv),
     "engine": (merge_ntt_lanes, merge_intt_lanes),
 }
 
@@ -134,8 +139,10 @@ def _chosen_path(plan: MergePlan, x_shape, use_pallas) -> str:
     True take the plan's kernel route (no backend to check here), False
     the engine; a JAX path name takes its counterpart, or the engine
     where that kernel does not take the plan (as _resolve_mxu falls to
-    XLA); any other true value names the VPU merge kernel, K4's
-    counterpart on u32.  Its u64 twin K15 is not ported: that raises."""
+    XLA); any other true value names the VPU merge kernels: K4's
+    counterpart on u32, K15's on u64 for any factors (`hopper_kmerge64.
+    route`, which raises outside logn 7-24, for q >= 2^63 and for a
+    twisted plan)."""
     if use_pallas == "auto" or use_pallas is True:
         return _kernel_path(plan, x_shape, NTTLayout.PerPolynomial)
     if not use_pallas:
@@ -144,9 +151,7 @@ def _chosen_path(plan: MergePlan, x_shape, use_pallas) -> str:
         path, kernels = _NAMED_PATHS[use_pallas]
         return path if kernels.covers(plan) and plan.genuine_root else "engine"
     if plan.is64:
-        raise NTTDispatchError(
-            f"use_pallas={use_pallas!r} names the u64 VPU merge kernel K15 "
-            "(gpuntt_tpu/ops/pallas_merge64.py), which has no Hopper counterpart yet")
+        return hk64.route(plan)
     return "hopper-merge32" if hm32.covers(plan) else "engine"
 
 

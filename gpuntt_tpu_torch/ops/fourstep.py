@@ -49,7 +49,7 @@ from . import barrett as bo
 from . import hopper_fourstep as hf
 from .hopper_merge_large import _pows
 from .limb import from_numpy_u64, signed
-from .merge_ntt import ButterflyOps, ct_stages, gs_stages
+from .merge_ntt import ButterflyOps, butterfly_ops, ct_stages, gs_stages
 
 _TABLES = ("n1_fwd", "n1_fwd_sh", "n2_fwd", "n2_fwd_sh",
            "n1_inv", "n1_inv_sh", "n2_inv", "n2_inv_sh")
@@ -194,14 +194,7 @@ class FourStepPlan:
         return self._moved[device]
 
     def ops(self) -> ButterflyOps:
-        q = self.q
-        if self.is64:
-            return ButterflyOps(add=lambda a, b: bo.modadd64(a, b, q),
-                                sub=lambda a, b: bo.modsub64(a, b, q),
-                                mulc=lambda x, w, ws: bo.shoup_mul64(x, w, ws, q))
-        return ButterflyOps(add=lambda a, b: bo.modadd32(a, b, q),
-                            sub=lambda a, b: bo.modsub32(a, b, q),
-                            mulc=lambda x, w, ws: bo.shoup_mul32(x, w, ws, q))
+        return butterfly_ops(self.q, self.is64)
 
 
 def transpose_lanes(x: torch.Tensor, row: int, col: int) -> torch.Tensor:

@@ -223,16 +223,21 @@ class MergePlan:
         return self._moved[device]
 
     def ops(self) -> ButterflyOps:
-        q = self.q
-        if self.is64:
-            return ButterflyOps(
-                add=lambda a, b: bo.modadd64(a, b, q),
-                sub=lambda a, b: bo.modsub64(a, b, q),
-                mulc=lambda x, w, ws: bo.shoup_mul64(x, w, ws, q))
+        return butterfly_ops(self.q, self.is64)
+
+
+def butterfly_ops(q: int, is64: bool) -> ButterflyOps:
+    """The canonical add, sub and Shoup product mod q of a word size
+    (exact for q < 2^63 on u64 words, q < 2^30 on u32)."""
+    if is64:
         return ButterflyOps(
-            add=lambda a, b: bo.modadd32(a, b, q),
-            sub=lambda a, b: bo.modsub32(a, b, q),
-            mulc=lambda x, w, ws: bo.shoup_mul32(x, w, ws, q))
+            add=lambda a, b: bo.modadd64(a, b, q),
+            sub=lambda a, b: bo.modsub64(a, b, q),
+            mulc=lambda x, w, ws: bo.shoup_mul64(x, w, ws, q))
+    return ButterflyOps(
+        add=lambda a, b: bo.modadd32(a, b, q),
+        sub=lambda a, b: bo.modsub32(a, b, q),
+        mulc=lambda x, w, ws: bo.shoup_mul32(x, w, ws, q))
 
 
 def _eval_table(q: int, logn: int, omega: int, psi: int) -> np.ndarray:

@@ -8,7 +8,9 @@ Needs a CUDA card (exits 1 without one).  For each merge cell — u64
 pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool prime
 469762049), all X^N + 1 — it runs `iters` (default 20) calls of
 ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
-two CUDA events; for each 4-step cell — u64 and u32 at 2^24 x 1 and
+two CUDA events, and at u64 2^16 x 128 the same with use_pallas="vpu"
+(K15's counterpart), and kmerge_u32 (K17's) at u32 2^16 x 128 in both
+directions; for each 4-step cell — u64 and u32 at 2^24 x 1 and
 2^16 x 128, X^N - 1, the pool primes of NTTParameters4Step — the same
 of fourstep_ntt_lanes and fourstep_intt_lanes; for each RNS cell — u64
 2^16 x 64 with a ladder of 8 (K12) and 2^18 x 12 with 3 (K13), X^N - 1,
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 
-_OURS = ("merge_u", "fourstep")  # the namespaces of csrc/
+_OURS = ("merge_u", "fourstep", "kmerge")  # the namespaces of csrc/
 
 
 def _ladder(g, logn: int, count: int, four: bool = False, u32: bool = False):
@@ -128,6 +130,22 @@ def main(iters: int = 20) -> int:
                           ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan))):
             print(f"u{bits} 2^{logn}x{batch} {entry}:")
             profile(fn, iters, a.numel() * 8)
+        if (logn, batch) != (16, 128):
+            continue
+        if dtype == np.uint64:
+            for entry, fn in (
+                    ("ntt_lanes", lambda: g.ntt_lanes(a, plan, use_pallas="vpu")),
+                    ("intt_lanes", lambda: g.intt_lanes(fa, plan, use_pallas="vpu")),
+                    ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan, use_pallas="vpu"))):
+                print(f"u64 2^16x128 {entry} use_pallas=vpu (K15):")
+                profile(fn, iters, a.numel() * 8)
+            continue
+        from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+
+        kp = hk.kernel_plan(plan)
+        for inverse in (False, True):
+            print(f"u32 2^16x128 kmerge_u32 inverse={inverse} (K17):")
+            profile(lambda: hk.kmerge_u32(a, kp, inverse=inverse), iters, a.numel() * 8)
     for dtype, logn, batch in ((np.uint64, 24, 1), (np.uint64, 16, 128), (np.uint32, 24, 1),
                                (np.uint32, 16, 128)):
         p = g.NTTParameters4Step(logn, g.ReductionPolynomial.X_N_minus, dtype)

@@ -4,7 +4,8 @@ Each kernel against its plain PyTorch version on the same card, at
 every logn the kernels take (u64 11-17, the u64 big rings 18-28, u32
 8-25, the 4-step's 12-24 in both word sizes, the RNS kernels K12 at
 11-17, K13 at 18-23, K14 at 14-23 and the stacked u32 kernels at 8-25
-on cyclic and ordered schedules)
+on cyclic and ordered schedules, the factored kernels K15 at 7-24 and
+K17 at 7-25)
 and both reduction polynomials, on any input word; wide and narrow moduli against the
 golden NTTCPU, the big rings against the native oracle at 2^24 and the
 4-step against NTT4StepCPU there; the RNS schedules and model
@@ -36,6 +37,8 @@ from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, signed, to_numpy_u64
 from gpuntt_tpu_torch.utils.timing import time_cuda
+
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -827,3 +830,81 @@ def test_dist_models_world_one_on_card(card, nccl_mesh):
     a0 = from_numpy_u64(rng.integers(0, qs[0], size=(3, 1 << 16), dtype=np.uint64), card)
     out = model(a0.view(3, p0.n1, p0.n2), a0.view(3, p0.n1, p0.n2))
     assert torch.equal(out.reshape(3, -1), tg.polymul_lanes(a0, a0, single))
+
+
+# ------------------------------------------ K15 and K17 (csrc/kmerge.cu)
+
+
+def _kmerge_params(logn, poly, dtype, bits):
+    """The pool prime (bits None) or a found prime of `bits` bits."""
+    if bits is None:
+        return tg.NTTParameters(logn, poly, dtype)
+    q = tg.find_ntt_primes(bits, logn, 1)[0]
+    mod = tg.Modulus64 if dtype == np.uint64 else tg.Modulus32
+    return tg.NTTParameters(logn, poly, dtype,
+                            factors=tg.NTTFactors(mod(q), *tg.ntt_root_pair(q, logn)))
+
+
+@pytest.mark.parametrize("bits", [None, 63, 46])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(7, 25))
+def test_kmerge_u64_matches_plain_on_card(card, logn, poly, bits):
+    """K15's counterpart at every logn it takes (one block per ring up to
+    14, column and row launches above), on the pool prime, a q past 2^62
+    and a 46-bit q, on any u64 word; ntt_lanes with use_pallas="vpu"
+    launches it."""
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
+
+    p = _kmerge_params(logn, poly, np.uint64, bits)
+    plan = tg.MergePlan.from_params(p, device=card)
+    kp = hk.kernel_plan(plan)
+    x = from_numpy_u64(np.random.default_rng(logn).integers(
+        0, 1 << 64, size=(1 if logn > 20 else 2, p.n), dtype=np.uint64, endpoint=False), card)
+    hk64.reset_counts()
+    fx, ix = hk64.kmerge_u64(x, kp), hk64.kmerge_u64(x, kp, inverse=True)
+    torch.cuda.synchronize()
+    assert [(k.launches, k.plain_calls) for k in hk64.KERNELS] == [(1, 0), (1, 0)]
+    assert torch.equal(fx, hk.kmerge_plain(x, kp))
+    assert torch.equal(ix, hk.kmerge_plain(x, kp, inverse=True))
+    xr = bo.reduce_forced64(x, p.modulus.value)
+    assert torch.equal(tg.ntt_lanes(xr, plan, use_pallas="vpu"), fx)
+    assert torch.equal(tg.intt_lanes(fx, plan, use_pallas="vpu"), xr)
+    assert hk64.FORWARD.launches == 2 and hk64.INVERSE.launches == 2
+
+
+@pytest.mark.parametrize("widest", [False, True])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(7, 26))
+def test_kmerge_u32_matches_plain_on_card(card, logn, poly, widest):
+    """K17's counterpart at every logn it takes (one block per ring up to
+    15), on the pool prime and on the widest NTT prime below 2^30 for the
+    ring (30 bits up to logn 23, then 28 and 29), on any u32 word."""
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+
+    bits = (30 if logn <= 23 else 28 if logn == 24 else 29) if widest else None
+    p = _kmerge_params(logn, poly, np.uint32, bits)
+    kp = hk.KernelMergePlan.from_params(p, device=card)
+    x = torch.from_numpy(np.random.default_rng(logn).integers(
+        0, 1 << 32, size=(1 if logn > 20 else 2, p.n), dtype=np.int64)).to(card)
+    hk.reset_counts()
+    fx, ix = hk.kmerge_u32(x, kp), hk.kmerge_u32(x, kp, inverse=True)
+    torch.cuda.synchronize()
+    assert [(k.launches, k.plain_calls) for k in hk.KERNELS] == [(1, 0), (1, 0)]
+    assert torch.equal(fx, hk.kmerge_plain(x, kp))
+    assert torch.equal(ix, hk.kmerge_plain(x, kp, inverse=True))
+    assert torch.equal(hk.kmerge_u32(fx, kp, inverse=True), x % p.modulus.value)
+
+
+def test_kmerge_refuses_on_card(card):
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
+
+    kp = hk.KernelMergePlan.from_params(tg.NTTParameters(12, POLYS[1], np.uint64),
+                                        device=card)
+    x = torch.zeros((2, kp.n), dtype=torch.int64, device=card)
+    for bad in (x.to(torch.int32), x.cpu(), x.reshape(-1, 2).t(), x[:, :-1]):
+        with pytest.raises(tg.NTTDispatchError):
+            hk64.kmerge_u64(bad, kp)
+    with pytest.raises(tg.NTTDispatchError):
+        hk.kmerge_u32(x, kp)

@@ -40,6 +40,8 @@ from gpuntt_tpu_torch.parallel.merge_dist import dist_merge_intt, dist_merge_ntt
 
 import torch_dist_ranks as R
 
+torch.set_num_threads(2)
+
 JMINUS = jg.ReductionPolynomial.X_N_minus
 
 

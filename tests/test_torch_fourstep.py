@@ -2,10 +2,14 @@
 
 - The public entries (fourstep_ntt_lanes, fourstep_intt_lanes with and
   without its scaling, fourstep_ntt_full, fourstep_intt_full,
-  transpose_lanes) against the JAX package's on its XLA engine, u64 and
-  u32, both reduction polynomials, logn 12, 13, 16 and 17 at batch 1-3,
-  a 3-D batch, and u64 logn 20.  The port takes device="cpu", so its
-  kernels' plain versions run through the same route and composition.
+  transpose_lanes), u64 and u32, both reduction polynomials, logn 12,
+  13, 16 and 17 at batch 1-3, a 3-D batch, and u64 logn 20: against the
+  JAX package's entries on its XLA engine at logn 12 (rows on K10 and
+  K11's row twin) and u32 logn 17 (rows delegated to the merge kernels),
+  one XLA compile per word size and logn; elsewhere against the JAX
+  package's golden NTT4StepCPU (`golden_entries`), which needs no
+  compile.  The port takes device="cpu", so its kernels' plain versions
+  run through the same route and composition.
 - The `_full` entries against the golden NTT4StepCPU at logn 14 and 18,
   and custom splits on both sides of the row rule.
 - The kernels' plain versions against the Pallas kernels they replace
@@ -95,13 +99,37 @@ def _port_entries(x, plan):
             tg.fourstep_intt_full(x, plan), tg.transpose_lanes(x, plan.n1, plan.n2))
 
 
-def check_entries(jp, tp, shape, seed):
+def golden_entries(jp, x):
+    """What the six entries give for x, from NTT4StepCPU row by row: the
+    _full entries are its ntt / intt, the lanes entries the same inside
+    the transposes the _full entries add (fourstep.fourstep_ntt_full),
+    and the unscaled inverse the inverse times n."""
+    gen, n1, n2, q = jg.NTT4StepCPU(jp), jp.n1, jp.n2, jp.modulus.value
+
+    def t(r, row, col):  # transpose_lanes on one row
+        return r.reshape(row, col).T.reshape(-1)
+
+    rows = x.reshape(-1, jp.n)
+    outs = [[t(gen.ntt(t(r, n2, n1)), n2, n1) for r in rows],
+            [t(gen.intt(t(r, n1, n2)), n2, n1) for r in rows]]
+    outs.append([(o.astype(object) * jp.n % q).astype(jp.dtype) for o in outs[1]])
+    outs += [[gen.ntt(r) for r in rows], [gen.intt(r) for r in rows],
+             [t(r, n1, n2) for r in rows]]
+    return [np.stack(o).reshape(x.shape) for o in outs]
+
+
+def check_entries(jp, tp, shape, seed, golden=False):
+    """The port's six entries on a numpy seed against the JAX package's
+    on its XLA engine, or with golden=True against `golden_entries`."""
     x = data(jp, shape, seed)
-    # params=None: the XLA engine does not read them, and both
-    # polynomials of one pool prime then share one compile
-    jplan = dataclasses.replace(jf.FourStepPlan.from_params(jp), params=None)
-    want = [jfrom(o, jp.dtype == np.uint64) for o in _jax_entries(jto(x, jp.dtype == np.uint64),
-                                                                   jplan)]
+    if golden:
+        want = golden_entries(jp, x)
+    else:
+        # params=None: the XLA engine does not read them, and both
+        # polynomials of one pool prime then share one compile
+        jplan = dataclasses.replace(jf.FourStepPlan.from_params(jp), params=None)
+        want = [jfrom(o, jp.dtype == np.uint64)
+                for o in _jax_entries(jto(x, jp.dtype == np.uint64), jplan)]
     plan = tg.FourStepPlan.from_params(tp, device="cpu")
     hf.reset_counts()
     got = [unlanes(o, tp.dtype) for o in _port_entries(lanes(x), plan)]
@@ -116,10 +144,16 @@ ENTRY_CELLS = [(logn, dtype, poly, 1 + i % 3)
                for dtype in (np.uint64, np.uint32) for poly in POLYS]
 
 
+# the cells held against the XLA engine: one per word size on the rows'
+# kernel route (n2 <= 512), one with the rows delegated (n2 = 4096)
+JAX_ENGINE_CELLS = {(12, np.uint64), (12, np.uint32), (17, np.uint32)}
+
+
 @pytest.mark.parametrize("logn,dtype,poly,batch", ENTRY_CELLS)
 def test_entries_match_jax(logn, dtype, poly, batch):
     jp, tp = both(logn, poly, dtype)
-    plan = check_entries(jp, tp, (batch, jp.n), logn + batch)
+    plan = check_entries(jp, tp, (batch, jp.n), logn + batch,
+                         golden=(logn, dtype) not in JAX_ENGINE_CELLS)
     # the route ran the kernels' plain versions: the column phase for
     # ntt_lanes, intt_lanes and the two _full entries, and the rows
     col = hf.COL64 if plan.is64 else hf.COL32
@@ -130,13 +164,13 @@ def test_entries_match_jax(logn, dtype, poly, batch):
 
 def test_entries_match_jax_on_a_3d_batch():
     jp, tp = both(13, PLUS, np.uint32)
-    check_entries(jp, tp, (2, 2, jp.n), 3)
+    check_entries(jp, tp, (2, 2, jp.n), 3, golden=True)
 
 
 def test_entries_match_jax_at_logn_20():
     jp, tp = both(20, MINUS, np.uint64)
     hm.reset_counts()
-    check_entries(jp, tp, (1, jp.n), 20)
+    check_entries(jp, tp, (1, jp.n), 20, golden=True)
     # rows of 2^15 on K1/K2: two forwards, two inverses
     assert [k.plain_calls for k in hm.KERNELS] == [2, 2, 0]
 

@@ -15,7 +15,8 @@
   11-17, the big-ring column and row kernels at small splits (A = 4..512,
   B = 8..2048, a nested plan), u32 at every tile shape of its split rule
   (logn 8-23).  This checks the kernels' index arithmetic, twiddle
-  addressing and shape refusals without a card.
+  addressing and shape refusals without a card (`_emulate` also serves
+  the other files' sources: kmerge.cu in test_torch_kmerge.py).
 - Wrapper contract: CPU tensors take the plain version (counted), other
   devices launch or raise, bad operands raise, and the route table.
 """
@@ -194,7 +195,7 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
 static EmuDim3 threadIdx = {0}, blockIdx = {0};
 static uint32_t emu_smem[1 << 15];  // the largest dynamic tiles, u32 ...
-alignas(16) static uint64_t emu_smem64[1 << 13];  // ... and u64
+alignas(16) static uint64_t emu_smem64[1 << 14];  // ... and u64
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -217,7 +218,8 @@ template <class F> void emu_launch(long long grid, F f) {
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 4, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1}
+_LAUNCHES = {"merge_u64": 4, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1,
+             "kmerge": 3}
 
 
 def _emulated_source(name: str) -> str:

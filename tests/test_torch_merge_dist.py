@@ -36,6 +36,8 @@ from gpuntt_tpu_torch.parallel.merge_dist import _shard_twists, _sliced_tail, me
 import torch_dist_ranks as R
 from test_torch_merge import _emulate  # the host emulation of csrc/
 
+torch.set_num_threads(2)
+
 POLYS = {"minus": "X_N_minus", "plus": "X_N_plus"}
 
 

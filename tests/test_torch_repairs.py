@@ -14,7 +14,8 @@ lanes entries (CPU, exact equality).
 - F3: `use_pallas` on ntt_lanes / intt_lanes / polymul_lanes, read as
   the JAX package reads it (its outputs on use_pallas=False, the XLA
   engine), with the route each value takes counted on the kernels'
-  plain versions; PolynomialMultiplier.step_lanes.
+  plain versions ("vpu" on u64: K15's counterpart);
+  PolynomialMultiplier.step_lanes.
 - Every callable in gpuntt_tpu.__all__ has its parameters in the port.
 """
 
@@ -35,6 +36,7 @@ from gpuntt_tpu.ops.merge_ntt import from_lanes as jfrom
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import dispatch as td
+from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
@@ -179,7 +181,7 @@ def jax_merge_ref(dtype):
 
 
 def _counts():
-    ks = (*hm.KERNELS, *hml.KERNELS, *hm32.KERNELS)
+    ks = (*hm.KERNELS, *hml.KERNELS, *hm32.KERNELS, *hk64.KERNELS)
     return {k.name: k.plain_calls for k in ks if k.plain_calls}
 
 
@@ -196,6 +198,7 @@ def _counts():
     (np.uint32, 12, True, {"merge_u32_forward_k4"}),
     (np.uint32, 18, "mxu32-large", {"merge_u32_forward_k6"}),
     (np.uint32, 12, False, set()),
+    (np.uint64, 12, "vpu", {"kmerge_u64_forward"}),  # K15's counterpart
 ])
 def test_f3_use_pallas_routes(dtype, logn, use_pallas, fwd):
     """Each value's route, by the plain versions its forward ran (none:
@@ -213,13 +216,13 @@ def test_f3_use_pallas_routes(dtype, logn, use_pallas, fwd):
     else:
         want = [from_lanes(tg.ntt_lanes(x, plan, use_pallas=False), is64),
                 from_lanes(tg.polymul_lanes(x, y, plan, use_pallas=False), is64)]
-    for k in (hm, hml, hm32):
+    for k in (hm, hml, hm32, hk64):
         k.reset_counts()
     fx = tg.ntt_lanes(x, plan, use_pallas=use_pallas)
     assert set(_counts()) == fwd
     np.testing.assert_array_equal(from_lanes(fx, is64), want[0])
     assert torch.equal(tg.intt_lanes(fx, plan, use_pallas=use_pallas), x)
-    for k in (hm, hml, hm32):
+    for k in (hm, hml, hm32, hk64):
         k.reset_counts()
     got = tg.polymul_lanes(x, y, plan, use_pallas=use_pallas)
     np.testing.assert_array_equal(from_lanes(got, is64), want[1])
@@ -227,14 +230,22 @@ def test_f3_use_pallas_routes(dtype, logn, use_pallas, fwd):
 
 
 def test_f3_vpu_on_u64_names_k15():
+    """use_pallas="vpu" on a u64 plan runs K15's counterpart (its plain
+    version here) in every entry, and gives the JAX package's outputs (the
+    XLA engine's, which its K15 equals; tests/test_torch_kmerge.py holds
+    the plain version against K15 itself in interpret mode)."""
     plan = tg.MergePlan.from_params(tg.NTTParameters(12, tg.ReductionPolynomial.X_N_plus,
                                                      np.uint64), device="cpu")
-    x = torch.zeros((1, plan.n), dtype=torch.int64)
-    for fn in (tg.ntt_lanes, tg.intt_lanes):
-        with pytest.raises(tg.NTTDispatchError, match="K15"):
-            fn(x, plan, use_pallas="vpu")
-    with pytest.raises(tg.NTTDispatchError, match="K15"):
-        tg.polymul_lanes(x, x, plan, use_pallas="vpu")
+    x_np, y_np, fx_want, prod_want = jax_merge_ref(np.uint64)
+    x, y = to_lanes(x_np, True), to_lanes(y_np, True)
+    hk64.reset_counts()
+    hm.reset_counts()
+    fx = tg.ntt_lanes(x, plan, use_pallas="vpu")
+    np.testing.assert_array_equal(from_lanes(fx, True), fx_want)
+    assert torch.equal(tg.intt_lanes(fx, plan, use_pallas="vpu"), x)
+    np.testing.assert_array_equal(
+        from_lanes(tg.polymul_lanes(x, y, plan, use_pallas="vpu"), True), prod_want)
+    assert _counts() == {"kmerge_u64_forward": 3, "kmerge_u64_inverse": 2}
 
 
 @pytest.mark.parametrize("dtype", [np.uint64, np.uint32])

@@ -30,6 +30,10 @@ from gpuntt_tpu_torch.parallel.fourstep_rns_dist import (DistRNSFourStepPlan,
                                                          dist_rns_fourstep_ntt)
 from gpuntt_tpu_torch.parallel.merge_dist import dist_merge_intt, dist_merge_ntt
 
+# four ranks of one thread each: the test process and the other test
+# workers share the host's cores (the test files set 2 after importing this)
+torch.set_num_threads(1)
+
 MINUS = tg.ReductionPolynomial.X_N_minus
 PLUS = tg.ReductionPolynomial.X_N_plus
 DTYPES = {"u64": np.uint64, "u32": np.uint32}
