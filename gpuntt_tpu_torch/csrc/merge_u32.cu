@@ -37,9 +37,7 @@
 // int8 digit matmuls and K4 rolls sublanes under masks, because the TPU
 // has no wide multiplier.  This card multiplies 32 x 32 -> 64 natively
 // (__umulhi), so each stage is the reference's radix-2 butterfly with a
-// 32-bit Shoup constant product.  Every stage keeps canonical residues
-// (not K4's lazy [0, 4q)), so the values at the phase boundary equal the
-// engine's and the plain versions can split the network at the same stage.
+// 32-bit Shoup constant product.
 //
 // Two phases through device memory, as merge_u64.cu.  The ring is an
 // (A, B) matrix, element j at (j / B, j % B):
@@ -61,33 +59,62 @@
 //   logn 14-22: A = 2..512, C = 2^13 / A = 4096..16 columns.
 //   logn 23-25: A = 256..1024, C = 128..32 columns.
 //
+// What bounds a launch, and the design.  A transform at 2^20 x 16 must
+// read and write its batch once, 256 MiB of int64 lanes (0.080 ms at
+// 3.35 TB/s); its 13 * 2^27 butterflies of three 32-bit multiplies each
+// are far below the integer rate, so the function is bound by device
+// memory.  A launch that runs one stage per pass over shared memory is
+// not: a barrier and a tile pass per stage, and the index arithmetic
+// and two twiddle words per butterfly, hold a 13-stage row launch near
+// 1 TB/s.  So each launch runs its stages as radix-32 passes in
+// registers (csrc/radix.cuh): a thread takes an item of 2^5 words (2^r
+// in the short pass), runs 5 stages on them and hands them on through
+// the tile.  An L-stage network is ceil(L / 5) passes with a barrier
+// between two (network()):
+//   - Rows of 2^13: passes of 5, 5 and 3 stages; rows of 2^15: three of
+//     5.  The forward's first pass reads its words from device memory,
+//     32 a thread in flight at a stride of B / 32 (the lanes of a warp
+//     on adjacent words); the inverse copies its rows into the tile 16
+//     bytes a lane first (tile_in), and both copy the tile out 16 bytes a
+//     lane (tile_out): 3 barriers forward, 4 inverse.  Rows are at least
+//     64 words (logn >= 7): two passes.
+//   - Columns: A <= 32 is one pass from device memory to device memory,
+//     A = 64..1024 two with one barrier.  An item holds one column's
+//     words, and the lanes of a warp hold adjacent columns, so every
+//     read and write of device memory is coalesced.
+//   - The tile has one spare word after every 32 (radix::padded): the
+//     lanes of a pass of 32 words read and write 32 distinct banks at
+//     every stride, and an item's offsets depend on its stride alone.
+//   - Twiddles: an item reads the 2^r - 1 entries of one subtree of the
+//     table's heap, from a heap index computed once per item.  The row
+//     launch reads them through __ldg from the plan's packed table, one
+//     8-byte word per entry holding the entry and its Shoup companion;
+//     the column launch's entries, the same for every column, are copied
+//     to shared memory once per block for its passes after the first.
+//   - Lazy butterflies (merge_u32.cuh, Lazy): values stay in [0, 4q)
+//     inside a launch and become canonical residues as they are stored.
+//     q < 2^30, so 4q < 2^32 and no step wraps.  The values between the
+//     column and the row launch are canonical, as the plain versions
+//     (and the engine) hold them where they split the network.
+//   - 128 registers a thread, 2 blocks an SM (__launch_bounds__): an
+//     item of 32 words and its 31 twiddles fit without spilling.
+// Tensor cores, TMA and clusters are not used: the work is integer
+// arithmetic on 32-bit words.
+//
 // Lanes: the port's u32 data are int64 tensors holding values < 2^32, so
 // each kernel loads 8-byte words, keeps its tile in 32-bit words and
 // stores 8-byte words (twice the bytes of a uint32 layout).
 //
-// Bound: at 2^16 x 128 (64 MiB of int64 lanes per operand) a transform
-// must read and write the batch once, 128 MiB (0.040 ms at 3.35 TB/s);
-// the two phases move it twice.  Its 2^26 butterflies of three 32-bit
-// multiplies each are far below the integer throughput, so the function
-// is bound by device memory.  On the H100 the launches are not: a row
-// launch runs 13 stages, each a barrier and a pass over shared memory,
-// at ~0.8-1.0 TB/s, while the 3-stage column launch at 2^16 moves its
-// bytes at ~2.2 TB/s (PERF.md section 5).  Fewer barriers per stage
-// (radix-4/8 in registers) is the remedy, left to a later change.
-// Tensor cores, TMA and clusters are not used.
-//
-// An RNS batch adds its ring's modulus's tables to each block's reads:
-// 1 MiB of table and Shoup companion per modulus at 2^16 for X^N + 1,
-// 8 MiB for a ladder of 8, which L2 (50 MB) holds.
-//
-// Value bound: q < 2^30, so canonical sums (< 2q) and lazy Shoup results
-// (< 2q) stay inside the word (merge_u32.cuh).
+// An RNS batch adds its ring's modulus's table to each block's reads:
+// 512 KiB of packed table per modulus at 2^16 for X^N + 1, 4 MiB for a
+// ladder of 8, which L2 (50 MB) holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "merge_u32.cuh"
+#include "radix.cuh"
 
 namespace merge_u32 {
 namespace {
@@ -95,118 +122,245 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLogTile = 13;       // log2 words of the smallest tile (32 KiB)
 constexpr int kLogTileLarge = 15;  // log2 words of the largest tile (128 KiB)
+constexpr int kRadix = 5;          // log2 words of an item of a pass inside the tile
+constexpr int kPad = 5;            // one spare tile word after every 2^kPad
+constexpr int kBlocks = 2;         // blocks an SM holds (128 registers a thread)
 
-// Cooley-Tukey stages 0 .. logA-1 down the columns of an (A, 2^logC) tile.
-__device__ void ct_cols(uint32_t* s, int logA, int logC, const uint64_t* __restrict__ tw,
-                        const uint64_t* __restrict__ tws, uint32_t q, int xnp) {
-  const int work = 1 << (logA - 1 + logC);
-  for (int l = 0; l < logA; ++l) {
-    const int logt = logA - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int c = k & ((1 << logC) - 1), bf = k >> logC;
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (((i << (logt + 1)) + r) << logC) + c;
-      const int p1 = p0 + (1 << (logt + logC));
-      const int idx = xnp ? (1 << l) + i : i;
-      const uint32_t u = s[p0];
-      const uint32_t v = shoup_mul(s[p1], (uint32_t)tw[idx], (uint32_t)tws[idx], q);
-      s[p0] = add_mod(u, v, q);
-      s[p1] = sub_mod(u, v, q);
+// Words of a padded tile that holds 2^logw words.
+__host__ __device__ inline int padded_words(int logw) {
+  return (1 << logw) + ((1 << logw) >> kPad);
+}
+
+// A work item of a pass: word kk lies at tile word p + kk * S and at
+// device word g + kk * gs past the block's base; G is the heap index of
+// its group at the pass's first stage (radix.cuh).
+struct Item {
+  int p, S, G;
+  size_t g, gs;
+};
+
+// The items of a row pass: `nrows` rows of 2^logB words, the first of
+// them global row r0 (ring r0 >> logA, row r0 % A); row a's local stage
+// l, group i reads entry ((a << l) + i), offset by 2^(logA + l) for X^N + 1.
+struct RowGeo {
+  int logA, logB, r0, nrows, xnp;
+  __device__ __forceinline__ int words() const { return nrows << logB; }
+  __device__ __forceinline__ int items(int r) const { return nrows << (logB - r); }
+  template <int kR>
+  __device__ __forceinline__ Item item(int k, int l0) const {
+    const int lw = logB - kR, logT = logB - l0 - kR;
+    const int j = k >> lw, w = k & ((1 << lw) - 1);
+    const int i0 = w >> logT, rr = w & ((1 << logT) - 1);
+    const int p = (j << logB) + (i0 << (logB - l0)) + rr;
+    const int a = (r0 + j) & ((1 << logA) - 1);
+    return Item{p, 1 << logT, (xnp << (logA + l0)) + (a << l0) + i0, (size_t)p,
+                (size_t)1 << logT};
+  }
+};
+
+// The items of a column pass over an (A, 2^logC) tile of a ring whose
+// rows are 2^logB words: column c of the tile lies in one item's words,
+// and the lanes of a warp take adjacent columns.
+struct ColGeo {
+  int logA, logB, logC, xnp;
+  __device__ __forceinline__ int items(int r) const { return 1 << (logA + logC - r); }
+  template <int kR>
+  __device__ __forceinline__ Item item(int k, int l0) const {
+    const int logT = logA - l0 - kR;
+    const int c = k & ((1 << logC) - 1), w = k >> logC;
+    const int i0 = w >> logT, rr = w & ((1 << logT) - 1);
+    const int a = (i0 << (logA - l0)) + rr;
+    return Item{(a << logC) + c, 1 << (logT + logC), (xnp << l0) + i0,
+                ((size_t)a << logB) + c, (size_t)1 << (logT + logB)};
+  }
+};
+
+// The tile in shared memory, padded (radix::padded).
+struct Tile {
+  uint32_t* s;
+  template <int kN>
+  __device__ __forceinline__ void get(const Item& it, uint32_t (&v)[kN]) const {
+    const uint32_t* b = s + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) v[kk] = b[radix::padded_step<kPad>(kk, it.S)];
+  }
+  template <int kN>
+  __device__ __forceinline__ void put(const Item& it, const uint32_t (&v)[kN]) const {
+    uint32_t* b = s + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) b[radix::padded_step<kPad>(kk, it.S)] = v[kk];
+  }
+};
+
+// The launch's input, read by its first pass: the low 32 bits of each
+// word of x (kMul: the Barrett product with b's), reduced mod q when
+// `reduce`.  x may equal the output: every word is read before a
+// barrier that precedes its write, or by the thread that writes it.
+template <bool kMul_>
+struct In {
+  static constexpr bool kMul = kMul_;
+  const uint64_t* x;
+  const uint64_t* b;
+  Ring f;
+  int reduce;
+  __device__ __forceinline__ uint32_t word(uint64_t xv, uint64_t bv) const {
+    const uint32_t v = kMul ? barrett_mul((uint32_t)xv, (uint32_t)bv, f.q, f.bit, f.mu)
+                            : (uint32_t)xv;
+    return reduce ? reduce_any(v, f.q, f.one_s) : v;
+  }
+  template <int kN>
+  __device__ __forceinline__ void get(const Item& it, uint32_t (&v)[kN]) const {
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) {
+      const size_t e = it.g + kk * it.gs;
+      v[kk] = word(x[e], kMul ? b[e] : 0);
     }
-    __syncthreads();
+  }
+};
+
+// The launch's output, written by its last pass: canonical residues
+// (the forward's values lie in [0, 4q), the inverse's in [0, 2q)), or
+// for the inverse's last phase (`scale`) the canonical product by n^-1.
+template <bool kFwd>
+struct Out {
+  uint64_t* y;
+  Ring f;
+  int scale;
+  __device__ __forceinline__ uint64_t word(uint32_t v) const {
+    if (kFwd) return cond_sub(cond_sub(v, 2 * f.q), f.q);
+    return scale ? shoup_mul(v, f.n_inv, f.n_inv_s, f.q) : cond_sub(v, f.q);
+  }
+  template <int kN>
+  __device__ __forceinline__ void put(const Item& it, const uint32_t (&v)[kN]) const {
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) y[it.g + kk * it.gs] = word(v[kk]);
+  }
+};
+
+// Twiddles: the packed table in device memory (read-only path), or the
+// column launch's copy in shared memory.
+struct GlobalTw {
+  const uint64_t* t;
+  __device__ __forceinline__ uint64_t operator()(int i) const {
+    return __ldg(t + i);
+  }
+};
+struct SharedTw {
+  const uint64_t* t;
+  __device__ __forceinline__ uint64_t operator()(int i) const { return t[i]; }
+};
+
+// One pass of radix 2^kR: every item of the block, thread-strided.
+template <int kR, bool kFwd, class Geo, class Src, class Dst, class Tw>
+__device__ __forceinline__ void pass(const Geo& geo, int l0, const Src& src, const Dst& dst,
+                                     const Tw& tw, const Lazy& ar) {
+  const int items = geo.items(kR);
+  for (int k = threadIdx.x; k < items; k += kThreads) {
+    const Item it = geo.template item<kR>(k, l0);
+    uint32_t v[1 << kR];
+    src.get(it, v);
+    radix::network<kR, kFwd>(v, it.G, ar, tw);
+    dst.put(it, v);
   }
 }
 
-// Gentleman-Sande stages logA-1 .. 0 down the columns.
-__device__ void gs_cols(uint32_t* s, int logA, int logC, const uint64_t* __restrict__ tw,
-                        const uint64_t* __restrict__ tws, uint32_t q, int xnp) {
-  const int work = 1 << (logA - 1 + logC);
-  for (int l = logA - 1; l >= 0; --l) {
-    const int logt = logA - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int c = k & ((1 << logC) - 1), bf = k >> logC;
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (((i << (logt + 1)) + r) << logC) + c;
-      const int p1 = p0 + (1 << (logt + logC));
-      const int idx = xnp ? (1 << l) + i : i;
-      const uint32_t u = s[p0], v = s[p1];
-      s[p0] = add_mod(u, v, q);
-      s[p1] = shoup_mul(sub_mod(u, v, q), (uint32_t)tw[idx], (uint32_t)tws[idx], q);
-    }
-    __syncthreads();
+// A pass whose radix is known only at run time (a network's short pass).
+template <bool kFwd, class Geo, class Src, class Dst, class Tw>
+__device__ __forceinline__ void pass_r(int r, const Geo& geo, int l0, const Src& src,
+                                       const Dst& dst, const Tw& tw, const Lazy& ar) {
+  switch (r) {
+    case 1: pass<1, kFwd>(geo, l0, src, dst, tw, ar); break;
+    case 2: pass<2, kFwd>(geo, l0, src, dst, tw, ar); break;
+    case 3: pass<3, kFwd>(geo, l0, src, dst, tw, ar); break;
+    case 4: pass<4, kFwd>(geo, l0, src, dst, tw, ar); break;
+    default: pass<5, kFwd>(geo, l0, src, dst, tw, ar); break;
   }
 }
 
-// Cooley-Tukey stages logA .. logn-1 along `rows` rows of length 2^logB;
-// the tile's first row is global row r0 (ring r0 >> logA, row r0 % A).
-__device__ void ct_rows(uint32_t* s, int rows, int r0, int logA, int logB,
-                        const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-                        uint32_t q, int xnp) {
-  const int work = rows << (logB - 1);
-  const int amask = (1 << logA) - 1;
-  for (int l = 0; l < logB; ++l) {
-    const int logt = logB - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int j = k >> (logB - 1), bf = k & ((1 << (logB - 1)) - 1);
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (j << logB) + (i << (logt + 1)) + r, p1 = p0 + (1 << logt);
-      const int g = (((r0 + j) & amask) << l) + i;
-      const int idx = xnp ? (1 << (logA + l)) + g : g;
-      const uint32_t u = s[p0];
-      const uint32_t v = shoup_mul(s[p1], (uint32_t)tw[idx], (uint32_t)tws[idx], q);
-      s[p0] = add_mod(u, v, q);
-      s[p1] = sub_mod(u, v, q);
-    }
-    __syncthreads();
+// Rows of the tile, 16 bytes a lane: `in` into the tile, or the tile to
+// `out` (adjacent lanes on adjacent words, each 32-word run of the tile
+// read or written without a bank conflict).
+template <class Src, class Geo>
+__device__ __forceinline__ void tile_in(const Src& in, const Geo& geo, uint32_t* tile) {
+  const ulonglong2* x2 = reinterpret_cast<const ulonglong2*>(in.x);
+  const ulonglong2* b2 = reinterpret_cast<const ulonglong2*>(Src::kMul ? in.b : in.x);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < geo.words() / 2; i += kThreads) {
+    const ulonglong2 u = x2[i], w = Src::kMul ? b2[i] : u;
+    tile[radix::padded<kPad>(2 * i)] = in.word(u.x, w.x);
+    tile[radix::padded<kPad>(2 * i + 1)] = in.word(u.y, w.y);
   }
 }
 
-// Gentleman-Sande stages logn-1 .. logA along rows.
-__device__ void gs_rows(uint32_t* s, int rows, int r0, int logA, int logB,
-                        const uint64_t* __restrict__ tw, const uint64_t* __restrict__ tws,
-                        uint32_t q, int xnp) {
-  const int work = rows << (logB - 1);
-  const int amask = (1 << logA) - 1;
-  for (int l = logB - 1; l >= 0; --l) {
-    const int logt = logB - 1 - l;
-    for (int k = threadIdx.x; k < work; k += kThreads) {
-      const int j = k >> (logB - 1), bf = k & ((1 << (logB - 1)) - 1);
-      const int i = bf >> logt, r = bf & ((1 << logt) - 1);
-      const int p0 = (j << logB) + (i << (logt + 1)) + r, p1 = p0 + (1 << logt);
-      const int g = (((r0 + j) & amask) << l) + i;
-      const int idx = xnp ? (1 << (logA + l)) + g : g;
-      const uint32_t u = s[p0], v = s[p1];
-      s[p0] = add_mod(u, v, q);
-      s[p1] = shoup_mul(sub_mod(u, v, q), (uint32_t)tw[idx], (uint32_t)tws[idx], q);
-    }
-    __syncthreads();
+template <class Dst, class Geo>
+__device__ __forceinline__ void tile_out(const Dst& out, const Geo& geo, const uint32_t* tile) {
+  ulonglong2* y2 = reinterpret_cast<ulonglong2*>(out.y);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < geo.words() / 2; i += kThreads) {
+    ulonglong2 u;
+    u.x = out.word(tile[radix::padded<kPad>(2 * i)]);
+    u.y = out.word(tile[radix::padded<kPad>(2 * i + 1)]);
+    y2[i] = u;
   }
+}
+
+// An L-stage network (CT stages 0 .. L-1 forward, GS stages L-1 .. 0
+// inverse) over the block's items in ceil(L / kRadix) passes, a barrier
+// between two: full passes of kRadix stages and a short one of
+// L mod kRadix.  The first pass reads `src` (twiddles tw1), the last
+// writes `dst`, the others read and write the tile (twiddles tw2).  The
+// forward runs from stage 0 up and the inverse from stage L - 1 down;
+// the short pass runs last, so that a first pass reading device memory
+// holds 32 words a thread in flight, or first (`short_first`, the
+// inverse rows, whose input is in the tile already: the forward's
+// passes backwards).
+template <bool kFwd, class Geo, class Src, class Dst, class Tw2>
+__device__ __forceinline__ void network(int L, bool short_first, const Geo& geo,
+                                        uint32_t* tile, const Src& src, const Dst& dst,
+                                        const GlobalTw& tw1, const Tw2& tw2, const Lazy& ar) {
+  // L <= kLogTileLarge, so np <= 3: the passes are written out, with no
+  // loop counter to hold
+  const int np = (L + kRadix - 1) / kRadix, short_r = L - (np - 1) * kRadix;
+  const auto first = [&](int n) {  // the first stage of pass n
+    const int r = (short_first ? n == 0 : n == np - 1) ? short_r : kRadix;
+    const int done = short_first && n > 0 ? short_r + (n - 1) * kRadix : n * kRadix;
+    return kFwd ? done : L - done - r;
+  };
+  const int r0 = short_first || np == 1 ? short_r : kRadix;
+  const Tile t{tile};
+  if (np == 1) {
+    pass_r<kFwd>(r0, geo, first(0), src, dst, tw1, ar);
+    return;
+  }
+  pass_r<kFwd>(r0, geo, first(0), src, t, tw1, ar);
+  if (np == 3) {
+    __syncthreads();
+    pass<kRadix, kFwd>(geo, first(1), t, t, tw2, ar);
+  }
+  __syncthreads();
+  pass_r<kFwd>(short_first ? kRadix : short_r, geo, first(np - 1), t, dst, tw2, ar);
 }
 
 // Column phase.  Block = (ring, 2^logC adjacent columns), an (A, 2^logC)
 // tile.  Forward (first phase): reduce on load, CT stages.  Inverse (last
-// phase): GS stages, n^-1 on store.  x may equal y.
+// phase): GS stages, n^-1 on store.  x may equal y.  The first pass reads
+// x and the last writes y, the lanes of a warp on adjacent columns.
+// Past one pass, the column table's entries (2^logA words at most)
+// follow the tile in shared memory.
 template <bool kFwd, class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocks)
 cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp) {
   extern __shared__ uint32_t smem[];
   const int logB = logn - logA, tiles_log = logB - logC;
   const size_t ring = blockIdx.x >> tiles_log;
   const Ring f = fs.at(ring);
   const size_t off = (ring << logn) + ((size_t)(blockIdx.x & ((1u << tiles_log) - 1)) << logC);
-  const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
-  for (int e = threadIdx.x; e < words; e += kThreads) {
-    const uint32_t v = (uint32_t)x[off + ((size_t)(e >> logC) << logB) + (e & cmask)];
-    smem[e] = kFwd ? reduce_any(v, f.q, f.one_s) : v;
-  }
-  __syncthreads();
-  if (kFwd)
-    ct_cols(smem, logA, logC, f.tw, f.tws, f.q, xnp);
-  else
-    gs_cols(smem, logA, logC, f.tw, f.tws, f.q, xnp);
-  for (int e = threadIdx.x; e < words; e += kThreads)
-    y[off + ((size_t)(e >> logC) << logB) + (e & cmask)] =
-        kFwd ? smem[e] : shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q);
+  uint64_t* stw = reinterpret_cast<uint64_t*>(smem + padded_words(logA + logC));
+  if (logA > kRadix)  // read after the first barrier
+    for (int e = threadIdx.x; e < (1 << (logA - 1 + xnp)); e += kThreads) stw[e] = __ldg(f.tw + e);
+  network<kFwd>(logA, false, ColGeo{logA, logB, logC, xnp}, smem,
+                In<false>{x + off, nullptr, f, kFwd}, Out<kFwd>{y + off, f, !kFwd},
+                GlobalTw{f.tw}, SharedTw{stw}, Lazy{f.q, 2 * f.q});
 }
 
 // Row phase.  Block = 2^log_rows consecutive rows of the (batch * A, B)
@@ -214,41 +368,47 @@ cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp
 // launcher caps log_rows by F::ring_log).  `reduce`: reduce on load (the
 // first phase); `scale`: n^-1 on store (the inverse's last phase).  kMul:
 // the load is the Barrett product x o b, then reduced (the polymul's
-// inverse).  x may equal y.
+// inverse).  x may equal y.  Rows (B >= 64: two passes at least) go out
+// of the tile 16 bytes a lane (tile_out) after a barrier, and the
+// inverse's come in the same way (tile_in); the forward's first pass
+// reads x itself, 32 words a thread at a stride of B / 32, the lanes of
+// a warp on adjacent words.  The output's constants are read after the
+// passes, so that a stacked modulus's n^-1 holds no register through
+// them.
 template <bool kFwd, bool kMul, class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocks)
 rows(const uint64_t* x, const uint64_t* b, uint64_t* y, int total_rows, int logA, int logB,
      int log_rows, F fs, int reduce, int scale, int xnp) {
   extern __shared__ uint32_t smem[];
   const int r0 = (int)(blockIdx.x << log_rows);
   const int left = total_rows - r0;
   const int nrows = left < (1 << log_rows) ? left : (1 << log_rows);
-  const int words = nrows << logB;
-  const size_t off = (size_t)r0 << logB;
-  const Ring f = fs.at((size_t)r0 >> logA);
-  for (int e = threadIdx.x; e < words; e += kThreads) {
-    const uint32_t v = kMul ? barrett_mul((uint32_t)x[off + e], (uint32_t)b[off + e], f.q,
-                                          f.bit, f.mu)
-                            : (uint32_t)x[off + e];
-    smem[e] = reduce ? reduce_any(v, f.q, f.one_s) : v;
+  const size_t off = (size_t)r0 << logB, ring = (size_t)r0 >> logA;
+  const Ring f = fs.at(ring);
+  const RowGeo geo{logA, logB, r0, nrows, xnp};
+  const GlobalTw tw{f.tw};
+  const Lazy ar{f.q, 2 * f.q};
+  const In<kMul> in{x + off, kMul ? b + off : nullptr, f, reduce};
+  const Tile t{smem};
+  if (kFwd) {
+    network<kFwd>(logB, false, geo, smem, in, t, tw, tw, ar);
+  } else {
+    tile_in(in, geo, smem);
+    __syncthreads();
+    network<kFwd>(logB, true, geo, smem, t, t, tw, tw, ar);
   }
   __syncthreads();
-  if (kFwd)
-    ct_rows(smem, nrows, r0, logA, logB, f.tw, f.tws, f.q, xnp);
-  else
-    gs_rows(smem, nrows, r0, logA, logB, f.tw, f.tws, f.q, xnp);
-  for (int e = threadIdx.x; e < words; e += kThreads)
-    y[off + e] = scale ? shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q) : smem[e];
+  tile_out(Out<kFwd>{y + off, fs.at(ring), scale}, geo, smem);
 }
 
 // log2 words of a block's tile for rows of 2^logB words.
 int tile_log(int logB) { return logB > kLogTile ? logB : kLogTile; }
 
-// Shapes the tiles cover: rows of at most 2^15 words, and a column tile
-// of whole columns that is no wider than a row.
+// Shapes the tiles cover: rows of 2^6 to 2^15 words (two passes at
+// least), and a column tile of whole columns that is no wider than a row.
 bool shape_ok(long long batch, int logn, int logA) {
   const int logB = logn - logA;
-  if (batch <= 0 || logA < 0 || logB < 1 || logB > kLogTileLarge) return false;
+  if (batch <= 0 || logA < 0 || logB <= kRadix || logB > kLogTileLarge) return false;
   const int logW = tile_log(logB);
   if (logA > 0 && (logA > logW || logW > logn)) return false;
   // every row index and grid size fits an int
@@ -259,6 +419,12 @@ bool shape_ok(long long batch, int logn, int logA) {
 int grid_cols(long long batch, int logn, int logA) {
   const int logB = logn - logA;
   return (int)(batch << (logB - (tile_log(logB) - logA)));
+}
+
+// Shared memory of a column block: its padded tile, then (past one
+// pass) the column table's entries.
+int col_bytes(int logW, int logA) {
+  return 4 * padded_words(logW) + (logA > kRadix ? 8 << logA : 0);
 }
 
 // log2 rows of a row block: a tile's worth, no more than F puts in one
@@ -302,13 +468,13 @@ int forward(const uint64_t* x, uint64_t* y, long long batch, int logn, int logA,
             cudaStream_t st) {
   const int logB = logn - logA, logW = tile_log(logB);
   if (logA > 0) {
-    const int bytes = 4 << logW;
+    const int bytes = col_bytes(logW, logA);
     if (int rc = fit_smem(cols<true, F>, bytes)) return rc;
     cols<true, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
         x, y, logn, logA, logW - logA, f, xnp);
     if (int rc = launch_status()) return rc;
   }
-  const int log_rows = rows_log(logA, logB, f), bytes = 4 << (logB + log_rows);
+  const int log_rows = rows_log(logA, logB, f), bytes = 4 * padded_words(logB + log_rows);
   if (int rc = fit_smem(rows<true, false, F>, bytes)) return rc;
   rows<true, false, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
       logA > 0 ? y : x, nullptr, y, (int)(batch << logA), logA, logB, log_rows, f, logA == 0,
@@ -321,13 +487,13 @@ template <bool kMul, class F>
 int inverse(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, int logn,
             int logA, F f, int xnp, cudaStream_t st) {
   const int logB = logn - logA, logW = tile_log(logB);
-  const int log_rows = rows_log(logA, logB, f), bytes = 4 << (logB + log_rows);
+  const int log_rows = rows_log(logA, logB, f), bytes = 4 * padded_words(logB + log_rows);
   if (int rc = fit_smem(rows<false, kMul, F>, bytes)) return rc;
   rows<false, kMul, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
       a, b, y, (int)(batch << logA), logA, logB, log_rows, f, 1, logA == 0, xnp);
   if (int rc = launch_status()) return rc;
   if (logA > 0) {
-    const int bytes = 4 << logW;
+    const int bytes = col_bytes(logW, logA);
     if (int rc = fit_smem(cols<false, F>, bytes)) return rc;
     cols<false, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
         y, y, logn, logA, logW - logA, f, xnp);
@@ -335,16 +501,16 @@ int inverse(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, 
   return launch_status();
 }
 
-OneModulus one_modulus(const uint64_t* tw, const uint64_t* tws, uint32_t q, uint32_t one_s,
-                       uint32_t n_inv = 0, uint32_t n_inv_s = 0) {
-  return OneModulus{Ring{tw, tws, q, one_s, n_inv, n_inv_s, 0, 0}};
+OneModulus one_modulus(const uint64_t* tw, uint32_t q, uint32_t one_s, uint32_t n_inv = 0,
+                       uint32_t n_inv_s = 0) {
+  return OneModulus{Ring{tw, q, one_s, n_inv, n_inv_s, 0, 0}};
 }
 
-// The stacked tables of an RNS schedule: 2^logn entries per modulus for
-// X^N + 1, 2^(logn-1) for X^N - 1.
-Stacked rns(const int* mod_idx, int shift, int logn, const uint64_t* tw, const uint64_t* tws,
-            const uint64_t* consts, int xnp) {
-  return Stacked{mod_idx, shift, tw, tws, xnp ? 1LL << logn : 1LL << (logn - 1), consts};
+// The stacked packed tables of an RNS schedule: 2^logn entries per
+// modulus for X^N + 1, 2^(logn-1) for X^N - 1.
+Stacked rns(const int* mod_idx, int shift, int logn, const uint64_t* tw, const uint64_t* consts,
+            int xnp) {
+  return Stacked{mod_idx, shift, tw, xnp ? 1LL << logn : 1LL << (logn - 1), consts};
 }
 
 }  // namespace
@@ -357,63 +523,58 @@ using namespace merge_u32;
 // read), launches on `stream`, allocates nothing, does not synchronise,
 // and returns the cudaError_t of its launches (0 = none).  logA is log2 of
 // the column count A of the split (hopper_merge32.split); x may equal y.
-// The merge_u32_* entries take one modulus: its table and Shoup companion
-// as int64 words, and its numbers.  The rns_u32_* entries take an int32
-// schedule of batch >> shift moduli (ring i uses modulus
-// mod_idx[i >> shift], every entry in [0, mod_count)), the stacked
-// (mod_count, table) tables and the (mod_count, 6) constants of
-// ops/rns.py's RNSMergePlan.
+// `tw` is a packed table: one int64 word per entry of the bit-reversed
+// table, the entry in the low 32 bits and its Shoup companion
+// floor(w * 2^32 / q) in the high 32 (hopper_merge32.packed_tables).
+// The merge_u32_* entries take one modulus: its packed table and its
+// numbers.  The rns_u32_* entries take an int32 schedule of batch >> shift
+// moduli (ring i uses modulus mod_idx[i >> shift], every entry in
+// [0, mod_count)), the stacked (mod_count, table) packed tables and the
+// (mod_count, 6) constants of ops/rns.py's RNSMergePlan.
 extern "C" {
 
 int merge_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch,
-                      int logn, int logA, const uint64_t* tw, const uint64_t* tws,
-                      uint32_t q, uint32_t one_s, int xnp, void* stream) {
+                      int logn, int logA, const uint64_t* tw, uint32_t q, uint32_t one_s,
+                      int xnp, void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return forward(x, y, batch, logn, logA, one_modulus(tw, tws, q, one_s), xnp,
+  return forward(x, y, batch, logn, logA, one_modulus(tw, q, one_s), xnp,
                  (cudaStream_t)stream);
 }
 
 int merge_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batch,
-                      int logn, int logA, const uint64_t* tw, const uint64_t* tws,
-                      uint32_t q, uint32_t one_s, uint32_t n_inv, uint32_t n_inv_s,
-                      int xnp, void* stream) {
+                      int logn, int logA, const uint64_t* tw, uint32_t q, uint32_t one_s,
+                      uint32_t n_inv, uint32_t n_inv_s, int xnp, void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
   return inverse<false>(x, nullptr, y, batch, logn, logA,
-                        one_modulus(tw, tws, q, one_s, n_inv, n_inv_s), xnp,
-                        (cudaStream_t)stream);
+                        one_modulus(tw, q, one_s, n_inv, n_inv_s), xnp, (cudaStream_t)stream);
 }
 
 int rns_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
                     int logA, const int* mod_idx, long long entries, int shift,
-                    const uint64_t* tw, const uint64_t* tws, const uint64_t* consts, int xnp,
-                    void* stream) {
+                    const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, tws, consts, xnp),
-                 xnp, (cudaStream_t)stream);
+  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp), xnp,
+                 (cudaStream_t)stream);
 }
 
 int rns_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
                     int logA, const int* mod_idx, long long entries, int shift,
-                    const uint64_t* tw, const uint64_t* tws, const uint64_t* consts, int xnp,
-                    void* stream) {
+                    const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
   return inverse<false>(x, nullptr, y, batch, logn, logA,
-                        rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
-                        (cudaStream_t)stream);
+                        rns(mod_idx, shift, logn, tw, consts, xnp), xnp, (cudaStream_t)stream);
 }
 
 int rns_u32_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb, uint64_t* y,
                             long long batch, int logn, int logA, const int* mod_idx,
                             long long entries, int shift, const uint64_t* tw,
-                            const uint64_t* tws, const uint64_t* consts, int xnp,
-                            void* stream) {
+                            const uint64_t* consts, int xnp, void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<true>(fa, fb, y, batch, logn, logA,
-                       rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
-                       (cudaStream_t)stream);
+  return inverse<true>(fa, fb, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp),
+                       xnp, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 //
 // Each arithmetic function computes what its namesake in ops/barrett.py
 // computes, on the operands the kernels give it.  Moduli satisfy q < 2^30
-// (the route's bound, as the JAX package's K5/K6 route): canonical sums
-// stay < 2q and lazy Shoup results < 2q, both well inside the word.
+// (the route's bound, as the JAX package's K5/K6 route), so 4q < 2^32:
+// the kernels' lazy butterflies (Lazy) keep values in [0, 4q) inside a
+// launch, and lazy Shoup results (< 2q) stay well inside the word.
 
 #pragma once
 
@@ -14,13 +15,14 @@
 namespace merge_u32 {
 
 // The constants a block transforms its ring with: the transform's
-// bit-reversed table and its Shoup companion (int64 words holding u32
-// values), and the modulus's numbers: q, floor(2^32 / q), whatever
-// scaling the kernel applies last (n_inv) with its Shoup companion, and
-// the Barrett constants of the fused product (bit, mu).
+// bit-reversed table packed with its Shoup companion, one 8-byte word per
+// entry (w in the low 32 bits, floor(w * 2^32 / q) in the high 32: the
+// plan's packed copy, hopper_merge32.packed_tables), and the modulus's
+// numbers: q, floor(2^32 / q), whatever scaling the kernel applies last
+// (n_inv) with its Shoup companion, and the Barrett constants of the
+// fused product (bit, mu).
 struct Ring {
   const uint64_t* tw;
-  const uint64_t* tws;
   uint32_t q, one_s, n_inv, n_inv_s, mu;
   int bit;
 };
@@ -37,8 +39,8 @@ struct OneModulus {
 
 // RNS (the JAX package's stacked u32 kernel, pallas_mxu_rns.py:846-857):
 // ring i uses modulus m = mod_idx[i >> shift], so a schedule of one entry
-// per polynomial serves its 2^shift rings.  tw / tws are the starts of the
-// stacked (mod_count, tw_len) tables, `consts` the (mod_count, 6) int64
+// per polynomial serves its 2^shift rings.  tw is the start of the
+// stacked (mod_count, tw_len) packed tables, `consts` the (mod_count, 6) int64
 // words q, floor(2^32 / q), n_inv, n_inv_s, bit, mu of ops/rns.py's
 // RNSMergePlan.  A block covers rings of one modulus only (`ring_log`:
 // 2^shift rings share one), and reads its constants once.
@@ -46,14 +48,13 @@ struct Stacked {
   const int* mod_idx;
   int shift;
   const uint64_t* tw;
-  const uint64_t* tws;
   long long tw_len;
   const uint64_t* consts;
   __device__ __forceinline__ Ring at(size_t i) const {
     const long long m = mod_idx[i >> shift];
     const uint64_t* c = consts + 6 * m;
-    return Ring{tw + m * tw_len, tws + m * tw_len, (uint32_t)c[0], (uint32_t)c[1],
-                (uint32_t)c[2], (uint32_t)c[3], (uint32_t)c[5], (int)c[4]};
+    return Ring{tw + m * tw_len, (uint32_t)c[0], (uint32_t)c[1], (uint32_t)c[2],
+                (uint32_t)c[3], (uint32_t)c[5], (int)c[4]};
   }
   int ring_log() const { return shift; }
 };
@@ -103,5 +104,32 @@ __device__ __forceinline__ uint32_t barrett_mul(uint32_t a, uint32_t b, uint32_t
   const uint32_t w2 = (uint32_t)(((uint64_t)w * mu) >> (bit + 3));
   return cond_sub((uint32_t)z - w2 * q, q);
 }
+
+// Harvey's lazy butterflies on one modulus, for radix::network.  A
+// twiddle is a packed table word (w low, its Shoup companion high).
+//   ct: x, y in [0, 4q) -> x + y w, x - y w, both in [0, 4q) (mod q):
+//       x is brought below 2q, y w is a lazy Shoup product in [0, 2q).
+//   gs: x, y in [0, 2q) -> x + y, (x - y) w, both in [0, 2q) (mod q):
+//       x - y + 2q lies in (0, 4q), any u32 word for the lazy product.
+// Every value stays below 4q < 2^32, so no step wraps; the kernels bring
+// values to canonical residues as they store them (canon).
+struct Lazy {
+  uint32_t q, q2;
+  __device__ __forceinline__ void ct(uint32_t& x, uint32_t& y, uint64_t w) const {
+    const uint32_t u = cond_sub(x, q2);
+    const uint32_t t = shoup_mul_lazy(y, (uint32_t)w, (uint32_t)(w >> 32), q);
+    x = u + t;
+    y = u - t + q2;
+  }
+  __device__ __forceinline__ void gs(uint32_t& x, uint32_t& y, uint64_t w) const {
+    const uint32_t u = x, v = y;
+    x = cond_sub(u + v, q2);
+    y = shoup_mul_lazy(u - v + q2, (uint32_t)w, (uint32_t)(w >> 32), q);
+  }
+  // x in [0, 4q) -> x mod q.
+  __device__ __forceinline__ uint32_t canon(uint32_t x) const {
+    return cond_sub(cond_sub(x, q2), q);
+  }
+};
 
 }  // namespace merge_u32

@@ -63,14 +63,13 @@ _ENTRIES = {
                                  _i32, _p],
     },
     "merge_u32": {
-        "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _i32,
-                              _p],
-        "merge_u32_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _u32, _u32, _u32,
-                              _u32, _i32, _p],
-        **{f"rns_u32_{e}": [_i32, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p, _p,
-                            _i32, _p] for e in ("forward", "inverse")},
+        "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _u32, _u32, _i32, _p],
+        "merge_u32_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _u32, _u32, _u32, _u32,
+                              _i32, _p],
+        **{f"rns_u32_{e}": [_i32, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p, _i32,
+                            _p] for e in ("forward", "inverse")},
         "rns_u32_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p,
-                                    _p, _p, _i32, _p],
+                                    _p, _i32, _p],
     },
     "fourstep": {
         **{f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p,

@@ -16,11 +16,14 @@ and a u32 MergePlan on the same device.  On a CPU tensor it runs the
 kernel's plain version, and only there; on a CUDA tensor it launches
 the kernel or raises.  A transform is one launch up to logn 13 and two
 above: the ring is viewed as an (A, B) matrix (`split`), the first
-log A stages run down its columns and the last log B along its rows
-(see the note in merge_u32.cu).  The plain versions run the engine's
-merge network split at the same stage, so a mismatch can be traced to
-a phase; they run on any device, which is how the kernels are checked
-on the card.
+log A stages run down its columns and the last log B along its rows,
+a tile of 2^13 words (2^15 from logn 23) in shared memory per block.
+Inside a launch the stages run as radix-32 passes in registers, with
+lazy butterflies, and read the plan's table packed with its Shoup
+companion, one 8-byte word per entry (`packed_tables`; see the note in
+merge_u32.cu).  The plain versions run the engine's merge network split
+at the same stage, so a mismatch can be traced to a phase; they run on
+any device, which is how the kernels are checked on the card.
 
 The counts are kept per TPU kernel replaced, by the logn range that
 served the call: every launch adds one to that kernel's `launches`,
@@ -150,6 +153,20 @@ def _lib():
     return library("merge_u32")
 
 
+def packed_tables(plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward and inverse tables of a u32 MergePlan (or the stacked
+    tables of a u32 RNSMergePlan) packed with their Shoup companions as
+    the kernels read them: one int64 word per entry, the entry in the low
+    32 bits and its companion in the high 32.  Built at the first launch
+    and cached on the plan (on each device's copy)."""
+    if "packed32" not in plan._lazy:
+        pairs = (((plan.fwd_tables, plan.fwd_shoup), (plan.inv_tables, plan.inv_shoup))
+                 if hasattr(plan, "fwd_tables") else
+                 ((plan.fwd_table, plan.fwd_shoup), (plan.inv_table, plan.inv_shoup)))
+        plan._lazy["packed32"] = tuple((t | (s << 32)).contiguous() for t, s in pairs)
+    return plan._lazy["packed32"]
+
+
 def forward(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """merge_u32_fwd with its launch counted under `stats`."""
     _check(plan, x)
@@ -158,8 +175,8 @@ def forward(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tenso
         return merge_u32_fwd_plain(x, plan)
     y = torch.empty_like(x)
     _launch(stats, _lib().merge_u32_forward, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, split(plan.logn), plan.fwd_table.data_ptr(),
-            plan.fwd_shoup.data_ptr(), plan.q, (1 << 32) // plan.q, int(plan.xnp))
+            x.shape[0], plan.logn, split(plan.logn), packed_tables(plan)[0].data_ptr(),
+            plan.q, (1 << 32) // plan.q, int(plan.xnp))
     return y
 
 
@@ -171,9 +188,8 @@ def inverse(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tenso
         return merge_u32_inv_plain(x, plan)
     y = torch.empty_like(x)
     _launch(stats, _lib().merge_u32_inverse, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, split(plan.logn), plan.inv_table.data_ptr(),
-            plan.inv_shoup.data_ptr(), plan.q, (1 << 32) // plan.q, plan.n_inv,
-            plan.n_inv_shoup, int(plan.xnp))
+            x.shape[0], plan.logn, split(plan.logn), packed_tables(plan)[1].data_ptr(),
+            plan.q, (1 << 32) // plan.q, plan.n_inv, plan.n_inv_shoup, int(plan.xnp))
     return y
 
 

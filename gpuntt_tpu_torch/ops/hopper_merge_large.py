@@ -27,7 +27,12 @@ and K7's two kernels on one shard's B / sp columns replace col_phase_local
 
     merge_u64_large_colfwd_local, merge_u64_large_colinv_local  (`col_phase_local`)
 
-and the rows of B = 2^11..2^17 run on hopper_merge.py's K1/K2/K3 through
+K8 runs a block's rows of B <= 512 words (4096 words a block) as radix-8
+passes in registers with lazy butterflies, whose values stay below 4q:
+its wrapper (`rowmat`) takes plans with q < 2^62 only, where 4q < 2^64
+(see the note in csrc/merge_u64_large.cu).
+
+The rows of B = 2^11..2^17 run on hopper_merge.py's K1/K2/K3 through
 B-point sub-plans, as the JAX route runs them on its in-VMEM kernels.
 Rows of more than 2^17 words recurse into a nested LargePlan (logn
 27-28).  Splits, by the JAX package's rule:
@@ -562,6 +567,7 @@ def rowmat(stats: KernelStats, x: torch.Tensor, plan: MergePlan,
            inverse: bool) -> torch.Tensor:
     """merge_u64_large_rowmat with its launch counted under `stats` (the
     4-step's rows count under K10, hopper_fourstep.py)."""
+    # q < 2^62: K8's lazy butterflies hold values below 4q, which must fit 64 bits
     if not (plan.is64 and plan.q < (1 << 62) and 1 <= plan.logn <= 9):
         raise NTTDispatchError(
             f"merge_u64_large_rowmat takes u64 row plans with q < 2^62 and "

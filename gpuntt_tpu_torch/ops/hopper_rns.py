@@ -349,6 +349,7 @@ def rns_u64_large_rowmat(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor
     with the stacked B-point row plans: row r under modulus
     midx[r >> shift].  A block's 2^12 / B rows must lie in one ring of
     2^shift rows (they do whenever the ring has >= 2^12 words)."""
+    # every q < 2^62: K8's lazy butterflies hold values below 4q < 2^64
     if not (_narrow(plan) and 1 <= plan.logn <= 9):
         raise NTTDispatchError(
             f"rns_u64_large_rowmat takes u64 row plans with every q < 2^62 and logn 1-9, "

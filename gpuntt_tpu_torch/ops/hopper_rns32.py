@@ -131,12 +131,11 @@ def _run(family: dict, plain, entry: str, plan: RNSMergePlan, midx, shift: int,
     if xs[0].device.type == "cpu":
         stats.plain_calls += 1
         return plain(*xs, plan, midx, shift)
-    table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
-                    else (plan.fwd_tables, plan.fwd_shoup))
     y = torch.empty_like(xs[0])
     _launch(stats, getattr(_lib(), entry), xs[0], *(x.data_ptr() for x in xs), y.data_ptr(),
             xs[0].shape[0], plan.logn, hm32.split(plan.logn), midx.data_ptr(), midx.numel(),
-            shift, table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(), int(plan.xnp))
+            shift, hm32.packed_tables(plan)[int(inverse)].data_ptr(), plan.consts.data_ptr(),
+            int(plan.xnp))
     return y
 
 

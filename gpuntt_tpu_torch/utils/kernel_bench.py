@@ -1,0 +1,225 @@
+"""Check and time the kernels of csrc/merge_u32.cu and csrc/merge_u64_large.cu's
+row kernel (K8) on one CUDA card.
+
+    python3 gpuntt_tpu_torch/utils/kernel_bench.py
+
+Imports `gpuntt_tpu_torch` from the Python path, not relative to this
+file, so one copy of the script times two trees on one card, one after the other:
+
+    PYTHONPATH=<other tree> python3 gpuntt_tpu_torch/utils/kernel_bench.py
+
+It builds the two libraries (printing what `-Xptxas -v` says of each
+kernel), holds every wrapper against its plain version on the card at
+the value edges (exact equality), then times each kernel at the cells of
+PERF.md section 6 with CUDA events (utils/timing.time_cuda: 3 warm-ups,
+the median of 10 windows of 10 calls) and the end-to-end entries at u32
+2^20 x 16 and u64 2^27 x 1.  The last line is one JSON object of
+{name: [ms, spread]}.  Exits 1 without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import gpuntt_tpu_torch as g
+from gpuntt_tpu_torch.arith.host import is_prime_u64
+from gpuntt_tpu_torch.ops import _build
+from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+from gpuntt_tpu_torch.ops import hopper_rns as hr
+from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+from gpuntt_tpu_torch.ops.limb import from_numpy_u64
+from gpuntt_tpu_torch.utils.timing import time_cuda
+
+PLUS, MINUS = g.ReductionPolynomial.X_N_plus, g.ReductionPolynomial.X_N_minus
+
+
+def largest_ntt_prime(bits: int, logn: int) -> int:
+    """The largest prime q < 2^bits with 2^(logn + 1) | q - 1: the widest
+    modulus a word size's kernels take at logn (bits 62 for u64, 30 for
+    u32, where their lazy butterflies keep 4q below the word)."""
+    step = 2 << logn
+    k = ((1 << bits) - 2) // step
+    while k > 0 and not is_prime_u64(k * step + 1):
+        k -= 1
+    if k == 0:
+        raise ValueError(f"no NTT prime below 2^{bits} for logn {logn}")
+    return k * step + 1
+
+
+def params(logn: int, poly, dtype, q: int | None = None):
+    if q is None:
+        return g.NTTParameters(logn, poly, dtype)
+    om, psi = g.ntt_root_pair(q, logn)
+    mod = g.Modulus64(q) if dtype == np.uint64 else g.Modulus32(q)
+    return g.NTTParameters(logn, poly, dtype, factors=g.NTTFactors(mod, om, psi))
+
+
+def words(rng, shape, bits: int, dev) -> torch.Tensor:
+    """Any `bits`-bit words as int64 lanes (u64: the same 64 bits)."""
+    x = rng.integers(0, 1 << bits, size=shape, dtype=np.uint64, endpoint=False)
+    return from_numpy_u64(x, dev)
+
+
+def same(got, want, what: str) -> None:
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel != plain version")
+    print(f"ok   {what}")
+
+
+def ptxas_lines(name: str) -> None:
+    """Registers, shared memory and spills of each kernel of a build."""
+    log = _build.build_info.get(name, {}).get("log", "")
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'|Function properties for (\w+)", line)
+        if m:
+            fn = m.group(1) or m.group(2)
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas {name} {fn}: {line.split('info    :')[-1].strip()}")
+
+
+def check_k8(dev, rng) -> None:
+    """K8 (merge_u64_large_rowmat) at logB 1-9, both directions, both
+    polynomials, the 61-bit pool prime and the largest 62-bit NTT prime;
+    and its Stacked twin (rns_u64_large_rowmat) on a ladder of two."""
+    q62 = largest_ntt_prime(62, 9)
+    for logb in range(1, 10):
+        for poly in (MINUS, PLUS):
+            for q in (None, q62):
+                plan = g.MergePlan.from_params(params(logb, poly, np.uint64, q), device=dev)
+                x = words(rng, (4099 << (9 - logb), 1 << logb), 64, dev)
+                for inverse in (False, True):
+                    same(hml.merge_u64_large_rowmat(x, plan, inverse),
+                         hml.rowmat_plain(x, plan, inverse),
+                         f"K8 logB {logb} {poly.name} q={plan.q} inverse={inverse}")
+    for logb in (3, 9):
+        ms = [params(logb, MINUS, np.uint64, q) for q in (q62, largest_ntt_prime(61, 9))]
+        plan = g.RNSMergePlan.from_params(ms, device=dev)
+        shift = 12 - logb
+        midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+        x = words(rng, (3 << shift, 1 << logb), 64, dev)
+        for inverse in (False, True):
+            same(hr.rns_u64_large_rowmat(x, plan, midx, shift, inverse),
+                 hr.rowmat_plain(x, plan, midx, shift, inverse),
+                 f"K13-row logB {logb} inverse={inverse}")
+
+
+def check_u32(dev, rng) -> None:
+    """merge_u32.cu at every logn 7-25 (forward and inverse) and the fused
+    RNS polymul inverse, at the largest NTT prime below 2^30 of each logn."""
+    for logn in range(7, 26):
+        q = largest_ntt_prime(30, logn)
+        poly = PLUS if logn % 2 else MINUS
+        plan = g.MergePlan.from_params(params(logn, poly, np.uint32, q), device=dev)
+        batch = max(1, (1 << 21) >> logn)
+        x = words(rng, (batch, 1 << logn), 32, dev)
+        fx = hm32.merge_u32_fwd(x, plan)
+        same(fx, hm32.merge_u32_fwd_plain(x, plan), f"u32 logn {logn} q={q} forward")
+        same(hm32.merge_u32_inv(x, plan), hm32.merge_u32_inv_plain(x, plan),
+             f"u32 logn {logn} q={q} inverse")
+        if logn >= 8:
+            ms = [params(logn, poly, np.uint32, p)
+                  for p in (q, largest_ntt_prime(29, logn))]
+            rplan = g.RNSMergePlan.from_params(ms, device=dev)
+            midx = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+            a = words(rng, (2, 1 << logn), 32, dev)
+            b = words(rng, (2, 1 << logn), 32, dev)
+            same(hr32.rns_u32_polymul_inv(a, b, rplan, midx),
+                 hr32.rns_u32_polymul_inv_plain(a, b, rplan, midx),
+                 f"u32 RNS logn {logn} fused polymul inverse")
+
+
+def ladder(logn: int, count: int, poly, dtype, bits: int, dev):
+    ms = [params(logn, poly, dtype, q) for q in g.find_ntt_primes(bits, logn, count)]
+    return g.RNSMergePlan.from_params(ms, device=dev)
+
+
+def timings(dev, rng) -> dict:
+    out = {}
+
+    def t(name, fn):
+        ms, spread = time_cuda(fn)
+        out[name] = (ms, spread)
+        print(f"time {name}: {ms:.5f} ms (spread {spread:.3f})")
+
+    # K8 at 2^27 (512 x 512 rows of 512, the nested rows), K10, K13-row
+    p27 = g.NTTParameters(27, PLUS, np.uint64)
+    plan27 = g.MergePlan.from_params(p27, device=dev)
+    lp27 = hml.large_plan(plan27)
+    x27 = words(rng, (1, 1 << 27), 64, dev)
+    r27 = x27.view(-1, lp27.nested.B)
+    t("K8 fwd u64 rows 262144x512 (2^27)",
+      lambda: hml.merge_u64_large_rowmat(r27, lp27.nested.rows, False))
+    t("K8 inv u64 rows 262144x512 (2^27)",
+      lambda: hml.merge_u64_large_rowmat(r27, lp27.nested.rows, True))
+    t("ntt_lanes u64 2^27x1", lambda: g.ntt_lanes(x27, plan27))
+    fx27 = g.ntt_lanes(x27, plan27)
+    t("intt_lanes u64 2^27x1", lambda: g.intt_lanes(fx27, plan27))
+    del x27, r27, fx27
+    p9 = g.MergePlan.from_params(params(9, MINUS, np.uint64), device=dev)
+    r = words(rng, (16384, 512), 64, dev)
+    t("K10 u64 rows 16384x512 (4-step 2^16x128)",
+      lambda: hml.merge_u64_large_rowmat(r, p9, False))
+    l8 = ladder(9, 8, MINUS, np.uint64, 59, dev)
+    midx = torch.arange(8, dtype=torch.int32, device=dev).repeat(8)
+    r = words(rng, (8192, 512), 64, dev)
+    t("K13-row u64 rows 8192x512 L8 (RNS 4-step 2^16x64)",
+      lambda: hr.rns_u64_large_rowmat(r, l8, midx, 7, False))
+    # the u32 family
+    for logn, batch, k in ((16, 128, "K4"), (17, 4, "K5"), (20, 16, "K6"), (24, 2, "K6")):
+        plan = g.MergePlan.from_params(g.NTTParameters(logn, PLUS, np.uint32), device=dev)
+        x = words(rng, (batch, 1 << logn), 32, dev)
+        fx = hm32.merge_u32_fwd(x, plan)
+        t(f"{k} fwd u32 2^{logn}x{batch}", lambda: hm32.merge_u32_fwd(x, plan))
+        t(f"{k} inv u32 2^{logn}x{batch}", lambda: hm32.merge_u32_inv(fx, plan))
+        if logn == 20:
+            t("ntt_lanes u32 2^20x16", lambda: g.ntt_lanes(x, plan))
+            t("intt_lanes u32 2^20x16", lambda: g.intt_lanes(fx, plan))
+    plan = g.MergePlan.from_params(params(9, MINUS, np.uint32, 469762049), device=dev)
+    x = words(rng, (16384, 512), 32, dev)
+    t("K11-row fwd u32 rows 16384x512", lambda: hm32.merge_u32_fwd(x, plan))
+    for logn, batch, k in ((16, 128, "K16"), (20, 16, "K6 per modulus")):
+        plan = ladder(logn, 8, PLUS, np.uint32, 30, dev)
+        midx = torch.arange(8, dtype=torch.int32, device=dev).repeat(batch // 8)
+        x = words(rng, (batch, 1 << logn), 32, dev) % 469762049
+        fx = hr32.rns_u32_fwd(x, plan, midx)
+        t(f"{k} fwd RNS u32 2^{logn}x{batch} L8", lambda: hr32.rns_u32_fwd(x, plan, midx))
+        t(f"{k} inv RNS u32 2^{logn}x{batch} L8", lambda: hr32.rns_u32_inv(fx, plan, midx))
+        t(f"{k} fused inv RNS u32 2^{logn}x{batch} L8",
+          lambda: hr32.rns_u32_polymul_inv(fx, fx, plan, midx))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print("package", g.__file__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip())
+    t0 = time.perf_counter()
+    for name in ("merge_u32", "merge_u64_large"):
+        _build.library(name)
+    print(f"build {time.perf_counter() - t0:.1f} s")
+    for name in ("merge_u32", "merge_u64_large"):
+        ptxas_lines(name)
+    rng = np.random.default_rng(0)
+    check_k8(dev, rng)
+    check_u32(dev, rng)
+    torch.cuda.synchronize()
+    print(json.dumps(timings(dev, rng)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,9 @@ pool prime), u32 2^16 x 128 and u32 2^20 x 16 (the pool prime
 ntt_lanes, intt_lanes and polymul_lanes under torch.profiler, between
 two CUDA events, and at u64 2^16 x 128 the same with use_pallas="vpu"
 (K15's counterpart), and kmerge_u32 (K17's) at u32 2^16 x 128 in both
-directions; for each 4-step cell — u64 and u32 at 2^24 x 1 and
+directions; at u64 2^27 x 1 (K8's cell: K7 on the columns and the
+nested plan's K7 and K8 on its rows of 512; 1 GiB an operand) ntt_lanes
+and intt_lanes; for each 4-step cell — u64 and u32 at 2^24 x 1 and
 2^16 x 128, X^N - 1, the pool primes of NTTParameters4Step — the same
 of fourstep_ntt_lanes and fourstep_intt_lanes; for each RNS cell — u64
 2^16 x 64 with a ladder of 8 (K12) and 2^18 x 12 with 3 (K13), X^N - 1,
@@ -146,6 +148,17 @@ def main(iters: int = 20) -> int:
         for inverse in (False, True):
             print(f"u32 2^16x128 kmerge_u32 inverse={inverse} (K17):")
             profile(lambda: hk.kmerge_u32(a, kp, inverse=inverse), iters, a.numel() * 8)
+    # K8's cell: the 2^27 ring's nested rows of 512 (1 GiB an operand; no polymul)
+    p = g.NTTParameters(27, g.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = g.MergePlan.from_params(p, device=dev)
+    a = torch.from_numpy(rng.integers(0, p.modulus.value, size=(1, p.n),
+                                      dtype=np.int64)).to(dev)
+    fa = g.ntt_lanes(a, plan)
+    for entry, fn in (("ntt_lanes", lambda: g.ntt_lanes(a, plan)),
+                      ("intt_lanes", lambda: g.intt_lanes(fa, plan))):
+        print(f"u64 2^27x1 {entry}:")
+        profile(fn, iters, a.numel() * 8)
+    del a, fa, plan
     for dtype, logn, batch in ((np.uint64, 24, 1), (np.uint64, 16, 128), (np.uint32, 24, 1),
                                (np.uint32, 16, 128)):
         p = g.NTTParameters4Step(logn, g.ReductionPolynomial.X_N_minus, dtype)

@@ -36,6 +36,7 @@ from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, signed, to_numpy_u64
+from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 from gpuntt_tpu_torch.utils.timing import time_cuda
 
 torch.set_num_threads(2)
@@ -195,6 +196,61 @@ def test_polynomial_multiplier_reaches_large_route_on_card(card, logn):
     fa, fb = (hml.merge_u64_large_plain(v, lp) for v in (a, b))
     prod = bo.barrett_mul64(fa, fb, lp.q, model.plan.bit, model.plan.mu)
     assert torch.equal(out, hml.merge_u64_large_plain(prod, lp, inverse=True))
+
+
+def _factored(logn, poly, dtype, q):
+    omega, psi = tg.ntt_root_pair(q, logn)
+    mod = tg.Modulus64(q) if dtype == np.uint64 else tg.Modulus32(q)
+    return tg.NTTParameters(logn, poly, dtype, factors=tg.NTTFactors(mod, omega, psi))
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logb", range(1, 10))
+def test_k8_value_edges_on_card(card, logb, poly, edge):
+    """K8 against rowmat_plain at every row width (logB 1-9: one, two or
+    three radix-8 passes), both directions, on any u64 word, at the
+    61-bit pool prime or the largest NTT prime below 2^62 (4q just below
+    2^64, the edge of the lazy butterflies); then the Stacked instance
+    (rns_u64_large_rowmat) on a ladder of both, rows of each modulus."""
+    pool = tg.NTTParameters(logb, poly, np.uint64)
+    wide = _factored(logb, poly, np.uint64, largest_ntt_prime(62, 9))
+    plan = tg.MergePlan.from_params(wide if edge else pool, device=card)
+    shift = 12 - logb  # a row block's rows lie in one ring
+    rng = np.random.default_rng(logb)
+    x = from_numpy_u64(rng.integers(0, 1 << 64, size=(3 << shift, 1 << logb),
+                                    dtype=np.uint64, endpoint=False), card)
+    ladder = tg.RNSMergePlan.from_params([pool, wide] if edge else [wide, pool], device=card)
+    midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    for inverse in (False, True):
+        assert torch.equal(hml.merge_u64_large_rowmat(x, plan, inverse),
+                           hml.rowmat_plain(x, plan, inverse))
+        assert torch.equal(hr.rns_u64_large_rowmat(x, ladder, midx, shift, inverse),
+                           hr.rowmat_plain(x, ladder, midx, shift, inverse))
+
+
+@pytest.mark.parametrize("logn", range(8, 26))
+def test_u32_lazy_edge_on_card(card, logn):
+    """merge_u32.cu at the largest NTT prime below 2^30 of each logn (4q
+    just below 2^32, the edge of the lazy butterflies), on any u32 word:
+    forward, inverse and the fused polymul inverse of a ladder holding it
+    (rns_u32_polymul_inverse), against the plain versions."""
+    poly = POLYS[logn % 2]
+    q = largest_ntt_prime(30, logn)
+    p = _factored(logn, poly, np.uint32, q)
+    plan = tg.MergePlan.from_params(p, device=card)
+    batch = max(1, (1 << 21) >> logn)
+    rng = np.random.default_rng(logn)
+    x, b = (torch.from_numpy(rng.integers(0, 1 << 32, size=(batch, p.n), dtype=np.int64)).to(card)
+            for _ in range(2))
+    assert torch.equal(hm32.merge_u32_fwd(x, plan), hm32.merge_u32_fwd_plain(x, plan))
+    assert torch.equal(hm32.merge_u32_inv(x, plan), hm32.merge_u32_inv_plain(x, plan))
+    members = [p] + ([_factored(logn, poly, np.uint32, largest_ntt_prime(29, logn))]
+                     if logn < 25 else [])
+    ladder = tg.RNSMergePlan.from_params(members, device=card)
+    midx = (torch.arange(batch, dtype=torch.int32, device=card) % len(members)).flip(0)
+    assert torch.equal(hr32.rns_u32_polymul_inv(x, b, ladder, midx),
+                       hr32.rns_u32_polymul_inv_plain(x, b, ladder, midx))
 
 
 def _u32_plan(logn, poly, card, bits=None):

@@ -41,6 +41,7 @@ from gpuntt_tpu.ops.merge_ntt import merge_intt_lanes as jintt
 from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
@@ -194,13 +195,16 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
 static EmuDim3 threadIdx = {0}, blockIdx = {0};
-static uint32_t emu_smem[1 << 15];  // the largest dynamic tiles, u32 ...
+alignas(16) static uint32_t emu_smem[1 << 16];  // the largest dynamic tiles, u32 ...
 alignas(16) static uint64_t emu_smem64[1 << 14];  // ... and u64
+struct alignas(16) ulonglong2 { unsigned long long x, y; };
+template <class T> inline T __ldg(const T* p) { return *p; }
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __restrict__
 inline void __syncthreads() {}
 inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b) {
@@ -407,6 +411,66 @@ def test_cuda_source_large_emulated_matches_plain(emulated_large, emulated, logn
     assert torch.equal(hml._transform(fx, lp, True, steps), bo.reduce_forced64(x, q))
 
 
+def _factored(logn, poly, dtype, q):
+    om, psi = tg.ntt_root_pair(q, logn)
+    mod = tg.Modulus64(q) if dtype == np.uint64 else tg.Modulus32(q)
+    return tg.NTTParameters(logn, poly, dtype, factors=tg.NTTFactors(mod, om, psi))
+
+
+@pytest.mark.parametrize("logb", range(1, 10))
+def test_cuda_source_k8_emulated_every_pass_split(emulated_large, logb):
+    """K8's register passes at every row width: logB 1-3 one pass, 4-6
+    two, 7-9 three (radix 8, the short pass first forward and last
+    inverse), full blocks and a short one, on any u64 word, both
+    polynomials, at the pool prime and at the largest 62-bit NTT prime
+    (4q just below 2^64), against rowmat_plain."""
+    x = to_lanes(np.random.default_rng(logb).integers(
+        0, 1 << 64, size=((2 << (12 - logb)) + 3, 1 << logb), dtype=np.uint64), True)
+    for poly in (tg.ReductionPolynomial.X_N_minus, tg.ReductionPolynomial.X_N_plus):
+        for p in (tg.NTTParameters(logb, poly, np.uint64),
+                  _factored(logb, poly, np.uint64, largest_ntt_prime(62, 9))):
+            plan = tg.MergePlan.from_params(p, device="cpu")
+            table = ((plan.fwd_table, plan.fwd_shoup), (plan.inv_table, plan.inv_shoup))
+            for inverse in (False, True):
+                y = torch.empty_like(x)
+                assert emulated_large.merge_u64_large_rowmat(
+                    0, x.data_ptr(), y.data_ptr(), x.shape[0], logb,
+                    table[inverse][0].data_ptr(), table[inverse][1].data_ptr(), plan.q,
+                    (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup, int(inverse),
+                    int(plan.xnp), None) == 0
+                assert torch.equal(y, hml.rowmat_plain(x, plan, inverse)), (p.modulus.value,
+                                                                            inverse)
+
+
+@pytest.mark.parametrize("logn,poly,batch", [
+    (7, tg.ReductionPolynomial.X_N_plus, 5),    # rows of 2^7: passes of 2 and 5 stages
+    (9, tg.ReductionPolynomial.X_N_minus, 3),   # rows of 2^9: 4 and 5
+    (13, tg.ReductionPolynomial.X_N_plus, 2),   # rows of 2^13: 3, 5 and 5
+    (14, tg.ReductionPolynomial.X_N_minus, 2),  # columns of A = 2: one pass of 1
+    (20, tg.ReductionPolynomial.X_N_plus, 1),   # columns of A = 128: 2 and 5
+])
+def test_cuda_source_u32_emulated_lazy_edge(emulated32, logn, poly, batch):
+    """merge_u32.cu's pass splits at the largest NTT prime below 2^30 of
+    each logn (4q just below 2^32, the edge of the lazy value range), on
+    any u32 word, forward and inverse against the plain versions."""
+    plan = tg.MergePlan.from_params(_factored(logn, poly, np.uint32,
+                                              largest_ntt_prime(30, logn)), device="cpu")
+    assert plan.q > 1 << 29
+    x = torch.from_numpy(np.random.default_rng(logn).integers(
+        0, 1 << 32, size=(batch, plan.n), dtype=np.int64))
+    fwd, inv = hm32.packed_tables(plan)
+    y, z = torch.empty_like(x), torch.empty_like(x)
+    la, one_s = hm32.split(logn), (1 << 32) // plan.q
+    assert emulated32.merge_u32_forward(0, x.data_ptr(), y.data_ptr(), batch, logn, la,
+                                        fwd.data_ptr(), plan.q, one_s, int(plan.xnp),
+                                        None) == 0
+    assert torch.equal(y, hm32.merge_u32_fwd_plain(x, plan))
+    assert emulated32.merge_u32_inverse(0, x.data_ptr(), z.data_ptr(), batch, logn, la,
+                                        inv.data_ptr(), plan.q, one_s, plan.n_inv,
+                                        plan.n_inv_shoup, int(plan.xnp), None) == 0
+    assert torch.equal(z, hm32.merge_u32_inv_plain(x, plan))
+
+
 @pytest.mark.parametrize("entry,args", [
     ("colfwd", dict(logA=10)),        # A = 1024: past the 2^13-word tile at C = 8
     ("colfwd", dict(logA=0)),         # no column stage
@@ -451,17 +515,15 @@ def test_cuda_source_u32_emulated_matches_plain(emulated32, logn, poly, batch):
         0, 1 << 32, size=(batch, p.n), dtype=np.int64))
     la, q, one_s = hm32.split(logn), plan.q, (1 << 32) // plan.q
     y, z = torch.empty_like(x), torch.empty_like(x)
+    fwd, inv = hm32.packed_tables(plan)
     assert emulated32.merge_u32_forward(0, x.data_ptr(), y.data_ptr(), batch, logn, la,
-                                        plan.fwd_table.data_ptr(),
-                                        plan.fwd_shoup.data_ptr(), q, one_s,
-                                        int(plan.xnp), None) == 0
+                                        fwd.data_ptr(), q, one_s, int(plan.xnp), None) == 0
     assert torch.equal(y, hm32.merge_u32_fwd_plain(x, plan))
     # the plain inverse takes seconds on the CPU from 2^22 on: there the
     # inverse is held to the round trip of the forward just checked
     src = x if logn < 22 else y
     assert emulated32.merge_u32_inverse(0, src.data_ptr(), z.data_ptr(), batch, logn, la,
-                                        plan.inv_table.data_ptr(),
-                                        plan.inv_shoup.data_ptr(), q, one_s, plan.n_inv,
+                                        inv.data_ptr(), q, one_s, plan.n_inv,
                                         plan.n_inv_shoup, int(plan.xnp), None) == 0
     assert torch.equal(z, hm32.merge_u32_inv_plain(x, plan) if logn < 22 else x % q)
 
@@ -470,19 +532,18 @@ def test_cuda_source_u32_emulated_matches_plain(emulated32, logn, poly, batch):
     (20, 0, 1),   # rows of 2^20 words: no tile holds them
     (12, 2, 1),   # columns of a 2^13-word tile wider than the 2^10-word rows
     (14, 1, 0),   # empty batch
+    (5, 0, 1),    # rows of 2^5 words: one pass, below the rows' two
 ])
 def test_cuda_source_u32_emulated_refuses_bad_shapes(emulated32, logn, log_a, batch):
     p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint32)
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = torch.zeros((1, p.n), dtype=torch.int64)
+    fwd, inv = hm32.packed_tables(plan)
     for rc in (
             emulated32.merge_u32_forward(0, x.data_ptr(), x.data_ptr(), batch, logn, log_a,
-                                         plan.fwd_table.data_ptr(),
-                                         plan.fwd_shoup.data_ptr(), plan.q, 1, 1, None),
+                                         fwd.data_ptr(), plan.q, 1, 1, None),
             emulated32.merge_u32_inverse(0, x.data_ptr(), x.data_ptr(), batch, logn, log_a,
-                                         plan.inv_table.data_ptr(),
-                                         plan.inv_shoup.data_ptr(), plan.q, 1, 1, 1, 1,
-                                         None)):
+                                         inv.data_ptr(), plan.q, 1, 1, 1, 1, None)):
         assert rc == 1  # cudaErrorInvalidValue
 
 
@@ -561,13 +622,11 @@ def test_cuda_source_fourstep_composition_emulated(emulated_fourstep, emulated_l
 
     def u32(inverse):
         def run(x, plan, *_):
-            y, table, shoup = ((torch.empty_like(x), plan.inv_table, plan.inv_shoup)
-                               if inverse else
-                               (torch.empty_like(x), plan.fwd_table, plan.fwd_shoup))
+            y, table = torch.empty_like(x), hm32.packed_tables(plan)[int(inverse)]
             scale = (plan.n_inv, plan.n_inv_shoup) if inverse else ()
             entry = emulated32.merge_u32_inverse if inverse else emulated32.merge_u32_forward
             assert entry(0, x.data_ptr(), y.data_ptr(), x.shape[0], plan.logn,
-                         hm32.split(plan.logn), table.data_ptr(), shoup.data_ptr(), plan.q,
+                         hm32.split(plan.logn), table.data_ptr(), plan.q,
                          (1 << 32) // plan.q, *scale, 0, None) == 0
             return y
         return run

@@ -205,14 +205,12 @@ def emu(tmp_path_factory):
 
 
 def _entry(lib, entry, plan, midx, shift, *xs):
-    inverse = entry != "rns_u32_forward"
-    table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
-                    else (plan.fwd_tables, plan.fwd_shoup))
+    table = hm32.packed_tables(plan)[int(entry != "rns_u32_forward")]
     y = torch.empty_like(xs[0])
     rc = getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
                              plan.logn, hm32.split(plan.logn), midx.data_ptr(), midx.numel(),
-                             shift, table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(),
-                             int(plan.xnp), None)
+                             shift, table.data_ptr(), plan.consts.data_ptr(), int(plan.xnp),
+                             None)
     assert rc == 0, entry
     return y
 
@@ -243,8 +241,9 @@ def test_source_emulated_refuses_bad_schedules(emu):
     midx = sched([1, 0, 1])
     for entries, shift in ((3, 0), (3, 1), (0, 2)):  # 3 or 6 rings named for 4 rows, or none
         rc = emu.rns_u32_forward(0, x.data_ptr(), x.data_ptr(), 4, 12, hm32.split(12),
-                                 midx.data_ptr(), entries, shift, plan.fwd_tables.data_ptr(),
-                                 plan.fwd_shoup.data_ptr(), plan.consts.data_ptr(), 1, None)
+                                 midx.data_ptr(), entries, shift,
+                                 hm32.packed_tables(plan)[0].data_ptr(),
+                                 plan.consts.data_ptr(), 1, None)
         assert rc == 1  # cudaErrorInvalidValue
 
 
