@@ -30,18 +30,35 @@
 //
 // Tile: a block takes T adjacent rows of one ring's (n2, n1) matrix, T *
 // n1 = 2^12 u64 or 2^13 u32 words (32 KiB; T = n2 when the ring is
-// smaller).  It reads them as one contiguous run and stores them
-// transposed into shared memory as an (n1, T) tile whose rows are T + 1
-// words apart, so that neither the transposing store nor the column
-// stages meet bank conflicts.  After the stages each of the n1 tile rows
-// is twisted and written as T consecutive words of the (n1, n2) output.
+// smaller).
 //
 // Bound: each launch reads and writes the ring once; at u64 2^24 x 1
-// (n1 = 256) that is 256 MiB, 0.080 ms at 3.35 TB/s, against log n1 / 2
-// + 2 Shoup products per word (2^24 * 6 * 16 32-bit multiplies at 67 T/s:
-// 0.024 ms).  So the function is bound by device memory; the launches, as
-// merge_u64_large.cu's K7, are held by per-stage barriers and
-// shared-memory latency.  Tensor cores, TMA and clusters are not used.
+// (n1 = 256) that is 256 MiB, 0.080 ms at 3.35 TB/s.  Its log n1 / 2 + 3
+// Shoup products per word (u64: some 13 32-bit multiply-adds each, on
+// the SM's 64-lane integer pipe) take about as long, and with the
+// butterflies' adds, selects and addresses, longer.  So the n1-point
+// transforms, which run along each input row's n1 contiguous words,
+// take K8's register passes (merge_u64_large.cu), with as few
+// instructions a word as they can:
+//   - radix-8 passes (radix.cuh; n1 = 256: 2 + 3 + 3 forward, 3 + 3 + 2
+//     inverse), lazy butterflies (Lazy64 for u64, q < 2^62; merge_u32's
+//     Lazy for u32, q < 2^30), the n1 / 2-entry table in shared memory
+//     for the passes after the first;
+//   - the first pass reads x (reduced below 2q), an item along one row,
+//     so that the lanes of a warp read adjacent words (16 bytes at a time
+//     where an item's words are adjacent);
+//   - the tile holds the rows transposed, (n1, T) with a bank swizzle
+//     (ColPasses::at), and the passes after the first take the T rows of
+//     one item together, the lanes of a warp on adjacent rows: one
+//     twiddle, adjacent tile words, and in the last pass T adjacent words
+//     of y (128 bytes at T = 16), which it writes directly, twisted
+//     (the tile product lazy, the scale product canonical).  No
+//     separate load, transpose or store pass remains.
+//   - the 4-step's splits (n1 = 32-256) at the full tile run instances
+//     compiled for their shape, 4 blocks an SM (64 registers; 3 and 80
+//     with an RNS schedule); no spill.
+// Tensor cores, TMA and clusters are not used: the work is 64- and
+// 32-bit integer arithmetic.
 //
 // RNS (K14, ops/hopper_rns.py): the u64 kernel, a template over where a
 // ring's constants come from (merge_u64.cuh), replaces
@@ -59,57 +76,180 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "fourstep.cuh"
+#include "radix.cuh"
 
 namespace fourstep {
 namespace {
 
+using merge_u64::OneModulus;
+using merge_u64::Ring;
+using merge_u64::Stacked;
+
 constexpr int kThreads = 256;
+constexpr int kRadix = 3;     // log2 words of an item (radix-8 passes)
+constexpr int kMaxLog1 = 9;   // n1 <= 512
+
+// Blocks an SM holds, so that no instance spills: 4 (64 registers a
+// thread) for the route's shapes (kLog1 > 0) on one modulus, 3 (80) where
+// a block reads its modulus from an RNS schedule, 2 (128) for the generic
+// instance, whose pass radix is known only at run time.
+template <class F, int kLog1>
+constexpr int col_blocks() {
+  return kLog1 == 0 ? 2 : std::is_same<F, Stacked>::value ? 3 : 4;
+}
 
 // log2 words of the largest tile: 32 KiB of the word type.
 template <class W>
-constexpr int log_tile() {
+__host__ __device__ constexpr int log_tile() {
   return sizeof(W) == 8 ? 12 : 13;
 }
 
-// Block = (ring, tile of 2^logT rows of its (n2, n1) matrix); x -> y.
-// Reduce and transpose on load, column stages, twist on store.
-template <class W, bool kFwd, class F>
-__global__ void __launch_bounds__(kThreads)
-cols(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int log1, int log2, int logT,
-     int logTw, F fs) {
-  extern __shared__ uint64_t smem[];
-  W* s = reinterpret_cast<W*>(smem);
-  const int tiles_log = log2 - logT, pitch = (1 << logT) + 1;
-  const size_t ring = blockIdx.x >> tiles_log;
-  const Ring f = fs.at(ring);
-  const W q = (W)f.q, one_s = (W)f.one_s;
-  const int j0 = (int)(blockIdx.x & ((1u << tiles_log) - 1)) << logT;
-  const size_t base = ring << (log1 + log2);
-  const int words = 1 << (log1 + logT), amask = (1 << log1) - 1, cmask = (1 << logT) - 1;
-  const uint64_t* xt = x + base + ((size_t)j0 << log1);
-  for (int e = threadIdx.x; e < words; e += kThreads)
-    s[(e & amask) * pitch + (e >> log1)] = reduce_any((W)xt[e], q, one_s);
-  __syncthreads();
-  if (kFwd)
-    ct_tile<kThreads>(s, log1, logT, pitch, f.tw, f.tws, q);
-  else
-    gs_tile<kThreads>(s, log1, logT, pitch, f.tw, f.tws, q);
-  uint64_t* yt = y + base + j0;
-  for (int e = threadIdx.x; e < words; e += kThreads) {
-    const int a = e >> logT, c = e & cmask;
-    yt[((size_t)a << log2) + c] =
-        twist(s[a * pitch + c], a, j0 + c, log1, logTw, f.wt, f.wts, f.ws, f.wss, q);
-  }
+// An item of a pass of 2^kR words from stage l0: words kk at column
+// i + kk S of the block's row j (of its T rows of the (n2, n1) matrix),
+// whose group has table entry G.  The first pass, which reads x, takes
+// items along a row (kByRow: the lanes of a warp read adjacent words of
+// x); the others take the T rows of one column range (the lanes of a
+// warp take adjacent rows j: the same twiddle, adjacent tile words and,
+// in the last pass, adjacent words of y).
+struct Item {
+  int j, i, S, G;
+};
+
+template <int kR, bool kByRow>
+__device__ __forceinline__ Item item(int k, int l0, int log1, int logT) {
+  const int lw = log1 - kR;
+  const int j = kByRow ? k >> lw : k & ((1 << logT) - 1);
+  const int w = kByRow ? k & ((1 << lw) - 1) : k >> logT;
+  const int logS = log1 - l0 - kR, i0 = w >> logS;
+  return Item{j, (i0 << (log1 - l0)) + (w & ((1 << logS) - 1)), 1 << logS, i0};
 }
 
-// Shapes the kernels cover: n1 = 2..512 columns, rows of n2 = 2^1..2^30
-// words, a tile of T <= n2 rows within 32 KiB, a W tile Tw <= n2, and a
+// The passes of a block (radix::passes).  The tile holds the block's T
+// rows transposed, word (i, j) at (i << logT) + (j ^ ((i ^ (i >> kRadix))
+// & mask)): a row of the (n1, T) tile is a run of words whose order
+// depends on i, so that the first pass's stores (lanes along i, one or
+// 2^kRadix words apart) meet no bank conflict, and the other passes'
+// accesses (lanes along j) none either.  The first pass reduces x below
+// 2q; the last twists each word by W (W^-1) and writes it canonically
+// to the (n1, n2) output, whose row i holds it at column j0 + j.
+template <class W, bool kFwd>
+struct ColPasses {
+  int log1, log2, logT, logTw, j0, mask;
+  W* s;
+  const uint64_t* __restrict__ x;  // the block's first row
+  uint64_t* __restrict__ y;        // column j0 of the ring's output
+  Ring f;
+  typename Word<W>::Ar ar;
+  GlobalTw<W> gtw;
+  SharedTw<W> tw;
+
+  __device__ __forceinline__ int at(int i, int j) const {
+    return (i << logT) + (j ^ ((i ^ (i >> kRadix)) & mask));
+  }
+
+  template <int kR, bool kIn, bool kOut>
+  __device__ __forceinline__ void run(int l0) const {
+    constexpr int kN = 1 << kR;
+    constexpr bool kByRow = kIn && !kOut;
+    const W q = (W)f.q, one_s = (W)f.one_s;
+    const int items = 1 << (log1 + logT - kR);
+    // 16-byte loads where an item's words are adjacent and x allows them
+    const bool wide = kByRow && kN >= 2 && ((uintptr_t)x & 15) == 0;
+    for (int k = threadIdx.x; k < items; k += kThreads) {
+      const Item it = item<kR, kByRow>(k, l0, log1, logT);
+      W v[kN];
+      if (kIn) {
+        const uint64_t* p = x + (it.j << log1) + it.i;
+        if (wide && it.S == 1) {
+#pragma unroll
+          for (int h = 0; h < kN / 2; ++h) {
+            const ulonglong2 u = __ldg(reinterpret_cast<const ulonglong2*>(p) + h);
+            v[2 * h] = Word<W>::reduce(u.x, q, one_s);
+            v[2 * h + 1] = Word<W>::reduce(u.y, q, one_s);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kN; ++kk) v[kk] = Word<W>::reduce(__ldg(p + kk * it.S), q, one_s);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kN; ++kk) v[kk] = s[at(it.i + kk * it.S, it.j)];
+      }
+      if constexpr (kIn)
+        radix::network<kR, kFwd>(v, it.G, ar, gtw);
+      else
+        radix::network<kR, kFwd>(v, it.G, ar, tw);
+      if (kOut) {
+        // table offsets below n1 n2 <= 2^30 (shape_ok): 32-bit
+        const int b = j0 + it.j, tb = b & ((1 << logTw) - 1), sb = (b >> logTw) << log1;
+#pragma unroll
+        for (int kk = 0; kk < kN; ++kk) {
+          const int a = it.i + kk * it.S, t = (a << logTw) + tb, u = sb + a;
+          y[((size_t)a << log2) + it.j] = Word<W>::twist(
+              v[kk], __ldg(f.wt + t), __ldg(f.wts + t), __ldg(f.ws + u), __ldg(f.wss + u), q);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kN; ++kk) s[at(it.i + kk * it.S, it.j)] = v[kk];
+      }
+    }
+  }
+};
+
+// Block = (ring, tile of 2^logT rows of its (n2, n1) matrix); x -> y.
+// The n1-point network of every row (forward CT, inverse GS), then the
+// twist, in log n1 / 3 register passes.  The column table (n1 / 2
+// entries, cyclic) is copied to shared memory for the passes after the
+// first.  kLog1: the n1 the kernel is compiled for, with the full tile
+// of 2^log_tile words, or 0 for any (log1, logT).
+template <class W, bool kFwd, class F, int kLog1>
+__global__ void __launch_bounds__(kThreads, col_blocks<F, kLog1>())
+cols(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int log1_, int log2, int logT_,
+     int logTw, F fs) {
+  extern __shared__ uint64_t smem[];
+  __shared__ typename Word<W>::Tw stw[1 << (kMaxLog1 - 1)];
+  const int log1 = kLog1 ? kLog1 : log1_, logT = kLog1 ? log_tile<W>() - kLog1 : logT_;
+  const int tiles_log = log2 - logT;
+  const size_t ring = blockIdx.x >> tiles_log;
+  const Ring f = fs.at(ring);
+  const int j0 = (int)(blockIdx.x & ((1u << tiles_log) - 1)) << logT;
+  const size_t base = ring << (log1 + log2);
+  if (log1 > kRadix)  // read after the first barrier
+    for (int e = threadIdx.x; e < (1 << (log1 - 1)); e += kThreads)
+      stw[e] = Word<W>::twiddle(__ldg(f.tw + e), __ldg(f.tws + e));
+  constexpr int kBank = 128 / sizeof(W);  // words of one pass over the banks
+  const int mask = ((1 << logT) < kBank ? 1 << logT : kBank) - 1;
+  radix::passes<kRadix, kFwd>(
+      log1, ColPasses<W, kFwd>{log1, log2, logT, logTw, j0, mask, reinterpret_cast<W*>(smem),
+                               x + base + ((size_t)j0 << log1), y + base + j0, f,
+                               {(W)f.q, (W)(2 * f.q)}, GlobalTw<W>{f.tw, f.tws},
+                               SharedTw<W>{stw}});
+}
+
+// The instance for n1 = 2^log1 and tiles of 2^logT rows: the 4-step's
+// splits (n1 = 32-256, params/fourstep.py) at the full tile run one
+// compiled for their shape.
+template <class W, bool kFwd, class F>
+auto col_kernel(int log1, int logT) {
+  if (log1 + logT == log_tile<W>()) {
+    if (log1 == 5) return cols<W, kFwd, F, 5>;
+    if (log1 == 6) return cols<W, kFwd, F, 6>;
+    if (log1 == 7) return cols<W, kFwd, F, 7>;
+    if (log1 == 8) return cols<W, kFwd, F, 8>;
+  }
+  return cols<W, kFwd, F, 0>;
+}
+
+// Shapes the kernels cover: n1 = 2..512 columns, rows of n2 >= 2 words,
+// rings of at most 2^30 words (so that the twist's table offsets fit 32
+// bits), a tile of T <= n2 rows within 32 KiB, a W tile Tw <= n2, and a
 // grid within 2^31 blocks.
 template <class W>
 bool shape_ok(long long batch, int log1, int log2, int logT, int logTw) {
-  return batch > 0 && log1 >= 1 && log1 <= 9 && log2 >= 1 && log2 <= 30 && logT >= 0 &&
+  return batch > 0 && log1 >= 1 && log1 <= 9 && log2 >= 1 && log1 + log2 <= 30 && logT >= 0 &&
          logT <= log2 && log1 + logT <= log_tile<W>() && logTw >= 0 && logTw <= log2 &&
          batch < (1LL << 31) && (batch << (log2 - logT)) < (1LL << 31);
 }
@@ -126,10 +266,10 @@ int launch_cols(int device, const uint64_t* x, uint64_t* y, long long batch, int
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  // at most 36 KiB (u64, n1 = 512): under the 48 KB static limit
-  const int bytes = (int)sizeof(W) * (((1 << logT) + 1) << log1);
-  cols<W, kFwd, F><<<(int)(batch << (log2 - logT)), kThreads, bytes, st>>>(
-      x, y, log1, log2, logT, logTw, f);
+  // at most 32 KiB: under the 48 KB static limit
+  const int bytes = (int)sizeof(W) << (log1 + logT);
+  const auto k = col_kernel<W, kFwd, F>(log1, logT);
+  k<<<(int)(batch << (log2 - logT)), kThreads, bytes, st>>>(x, y, log1, log2, logT, logTw, f);
   return launch_status();
 }
 

@@ -1,6 +1,6 @@
 // Exact u64 modular arithmetic for the merge NTT kernels (device side),
-// the column stage loops that merge_u64.cu and merge_u64_large.cu
-// share, and where a block finds the constants of its ring.
+// merge_u64.cu's column stage loops, and where a block finds the
+// constants of its ring.
 //
 // Each arithmetic function computes what its namesake in ops/barrett.py
 // computes, on the operands the kernels give it.  Moduli satisfy

@@ -29,14 +29,32 @@
 // K7, the column phase: a block takes C adjacent columns of one ring, an
 // A x C tile of 2^13 words (64 KiB of dynamic shared memory, past the
 // 48 KB static limit) or the whole ring when it is smaller; C = 16 at
-// A = 512, 64 at A = 128.  One __syncthreads per stage.
+// A = 512, 32 at A = 256, 64 at A = 128.
 //
 // Bound: each launch reads and writes its operand once; at 2^24 x 1
-// that is 256 MiB, 0.080 ms at 3.35 TB/s, against log A + 2 Shoup
-// products per word for K7 (2^24 * 9 products at 67 T/s: 0.002 ms).  So
-// the function is bound by device memory, and, as for merge_u64.cu, K7
-// is held by per-stage barrier and shared-memory latency.
-//
+// that is 256 MiB, 0.080 ms at 3.35 TB/s.  Its log A / 2 + 3 Shoup
+// products per word (2^24 * 7 at 2^24, forward) cost some 13 32-bit
+// multiply-adds each on the SM's 64-lane integer pipe: about as long as
+// the bytes (0.08-0.10 ms at 1.75-1.98 GHz), and with the butterflies'
+// adds, selects and addresses, longer.  So K7 spends as few
+// instructions a word as it can, as K8 does (below):
+//   - Register passes down the columns (radix.cuh, ColPasses): log A
+//     stages as radix-8 passes (A = 256: 2 + 3 + 3 forward, 3 + 3 + 2
+//     inverse), an item 8 words of one column, 2 barriers for 8 stages.
+//     The lanes of a warp take adjacent columns of the same rows, so
+//     each access to x, y or the tile is a run of adjacent words (256
+//     bytes at C = 32), needs no padding against bank conflicts, and the
+//     warp's twiddle is one broadcast.
+//   - No load or store pass of its own: the first pass reads x (forward:
+//     reduced below 2q; inverse: times W^-1 by two lazy Shoup products),
+//     the last writes y (forward: times W, the tile product lazy and the
+//     scale product canonical; inverse: times c_inv).
+//   - The column table and its companion are copied to shared memory once
+//     per block (8 KiB at A = 512) for the passes after the first.
+//   - Lazy butterflies (Lazy64, q < 2^62, which the wrappers require).
+//   - A = 128, 256 and 512 at the full tile, the route's shapes, run
+//     instances compiled for them; 3 blocks an SM (72 KiB each), no spill.
+
 // K8, whole rows: a block takes 4096 / B rows of B <= 512 words (36 KiB
 // of static shared memory with its padding), the last block short when
 // the rows do not fill it.  At 2^27 (2^18 rows of 512) its bytes take
@@ -110,8 +128,6 @@
 namespace merge_u64_large {
 namespace {
 
-using merge_u64::ct_cols;
-using merge_u64::gs_cols;
 using merge_u64::one_modulus;
 using merge_u64::OneModulus;
 using merge_u64::reduce_any;
@@ -119,12 +135,19 @@ using merge_u64::Ring;
 using merge_u64::Stacked;
 using merge_u64::stacked;
 using merge_u64::shoup_mul;
+using merge_u64::shoup_mul_lazy;
 using merge_u64::Lazy64;
 using merge_u64::Twiddle;
-using merge_u64::twist;
 
 constexpr int kThreads = 256;
 constexpr int kLogColTile = 13;  // K7 tile: 2^13 words (64 KiB)
+constexpr int kMaxColLog = 9;    // K7 columns: at most 2^9 words
+constexpr int kColRadix = 3;     // K7: log2 words of an item (radix-8 passes)
+// K7: blocks an SM holds, 3 for the route's shapes (72 KiB of shared
+// memory each, 80 registers a thread), 2 (128 registers) for the generic
+// instance, whose pass radix is known only at run time; none spills
+template <int kLogA>
+constexpr int col_blocks() { return kLogA ? 3 : 2; }
 constexpr int kLogRowTile = 12;  // K8 tile: 2^12 words (32 KiB, and its padding)
 constexpr int kMaxRowLog = 9;    // K8 rows: at most 2^9 words
 constexpr int kRowRadix = 3;     // K8: log2 words of an item (radix-8 passes)
@@ -135,50 +158,131 @@ constexpr int kRowPad = 3;       // K8: one spare tile word after every 2^kRowPa
 template <bool kFwd>
 constexpr int row_blocks() { return kFwd ? 3 : 4; }
 
-// K7 forward: block = (ring, C columns); x -> y.  Reduce, CT stages, twist.
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-col_fwd(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logA, int logB,
-        int logC, F fs, int logT, int xnp) {
-  extern __shared__ uint64_t smem[];
-  const size_t ring = blockIdx.x >> (logB - logC);
-  const Ring f = fs.at(ring);
-  const int b0 = (blockIdx.x & ((1 << (logB - logC)) - 1)) << logC;
-  const size_t off = (ring << (logA + logB)) + b0;
-  const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
-  for (int e = threadIdx.x; e < words; e += kThreads)
-    smem[e] = reduce_any(x[off + ((size_t)(e >> logC) << logB) + (e & cmask)], f.q, f.one_s);
-  __syncthreads();
-  ct_cols<kThreads>(smem, logA, logC, f.tw, f.tws, f.q, xnp);
-  for (int e = threadIdx.x; e < words; e += kThreads) {
-    const int a = e >> logC, c = e & cmask;
-    y[off + ((size_t)a << logB) + c] =
-        twist(smem[e], a, b0 + c, logA, logT, f.wt, f.wts, f.ws, f.wss, f.q);
+// Twiddles of K7 and K8: the plan's two tables in device memory (the
+// first pass), or the block's interleaved copy in shared memory.
+struct GlobalTw {
+  const uint64_t* tw;
+  const uint64_t* tws;
+  __device__ __forceinline__ Twiddle operator()(int i) const {
+    return Twiddle{__ldg(tw + i), __ldg(tws + i)};
   }
-}
+};
+struct SharedTw {
+  const Twiddle* t;
+  __device__ __forceinline__ Twiddle operator()(int i) const { return t[i]; }
+};
 
-// K7 inverse: block = (ring, C columns); x -> y.  Reduce and twist by
-// W^-1, GS stages, then c_inv = f.n_inv (A^-1 for the standard scaling).
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-col_inv(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logA, int logB,
-        int logC, F fs, int logT, int xnp) {
+// K7's items: the C = 2^logC columns of an (A, C) tile, each the A-point
+// network down its column.  Item k of a pass of 2^kR words from stage
+// l0 holds rows row + kk S of column c = k mod C: the lanes of a warp
+// take adjacent columns of the same rows, so that each of their
+// accesses to x, y and the tile is a run of adjacent words (C = 32: 256
+// bytes, with no bank conflict and no padding) and their twiddle is one
+// broadcast.  Stage l, group i reads entry i, offset by 2^l for X^N + 1.
+struct ColItem {
+  int row, S, c, G;
+};
+
+struct ColGeo {
+  int logA, logC, xnp;
+  __device__ __forceinline__ int items(int r) const { return 1 << (logA - r + logC); }
+  template <int kR>
+  __device__ __forceinline__ ColItem item(int k, int l0) const {
+    const int logS = logA - l0 - kR, w = k >> logC, i0 = w >> logS;
+    return ColItem{(i0 << (logA - l0)) + (w & ((1 << logS) - 1)), 1 << logS,
+                   k & ((1 << logC) - 1), (xnp << l0) + i0};
+  }
+};
+
+// K7's passes over a block's tile (radix::passes).  The first reads x:
+// forward, each word reduced below 2q; inverse, each word times W^-1
+// (two lazy products, below 2q).  The last writes y canonically:
+// forward, times W (the tile product lazy, the scale product
+// canonical); inverse, times c_inv.  x and y point at the block's
+// first column of its ring, whose rows lie B words apart.
+template <bool kFwd>
+struct ColPasses {
+  ColGeo geo;
+  int logB, logT, b0;
+  uint64_t* s;
+  const uint64_t* __restrict__ x;
+  uint64_t* __restrict__ y;
+  Ring f;
+  Lazy64 ar;
+  GlobalTw gtw;
+  SharedTw tw;
+
+  // v W[a, b0 + c]: the tile table's product lazy (any v, below 2q),
+  // the scale table's canonical (kCanon) or lazy; table offsets below
+  // A B <= 2^30 (col_shape_ok): 32-bit
+  template <bool kCanon>
+  __device__ __forceinline__ uint64_t twist(uint64_t v, int a, int c) const {
+    const int b = b0 + c;
+    const int t = (a << logT) + (b & ((1 << logT) - 1)), j = ((b >> logT) << geo.logA) + a;
+    const uint64_t u = shoup_mul_lazy(v, __ldg(f.wt + t), __ldg(f.wts + t), f.q);
+    return kCanon ? shoup_mul(u, __ldg(f.ws + j), __ldg(f.wss + j), f.q)
+                  : shoup_mul_lazy(u, __ldg(f.ws + j), __ldg(f.wss + j), f.q);
+  }
+
+  template <int kR, bool kIn, bool kOut>
+  __device__ __forceinline__ void run(int l0) const {
+    constexpr int kN = 1 << kR;
+    const int items = geo.items(kR);
+    for (int k = threadIdx.x; k < items; k += kThreads) {
+      const ColItem it = geo.item<kR>(k, l0);
+      const size_t g0 = ((size_t)it.row << logB) + it.c, gs = (size_t)it.S << logB;
+      uint64_t* t = s + (it.row << geo.logC) + it.c;
+      const int ts = it.S << geo.logC;
+      uint64_t v[kN];
+#pragma unroll
+      for (int kk = 0; kk < kN; ++kk) {
+        if (!kIn)
+          v[kk] = t[kk * ts];
+        else if (kFwd)
+          v[kk] = shoup_mul_lazy(x[g0 + kk * gs], 1, f.one_s, f.q);
+        else
+          v[kk] = twist<false>(x[g0 + kk * gs], it.row + kk * it.S, it.c);
+      }
+      if constexpr (kIn)
+        radix::network<kR, kFwd>(v, it.G, ar, gtw);
+      else
+        radix::network<kR, kFwd>(v, it.G, ar, tw);
+#pragma unroll
+      for (int kk = 0; kk < kN; ++kk) {
+        if (!kOut)
+          t[kk * ts] = v[kk];
+        else if (kFwd)
+          y[g0 + kk * gs] = twist<true>(v[kk], it.row + kk * it.S, it.c);
+        else
+          y[g0 + kk * gs] = shoup_mul(v[kk], f.n_inv, f.n_inv_s, f.q);
+      }
+    }
+  }
+};
+
+// K7: block = (ring, C columns); x -> y.  Forward: reduce, CT stages,
+// twist by W.  Inverse: reduce and twist by W^-1, GS stages, then c_inv =
+// f.n_inv (A^-1 for the standard scaling).  The column table and its
+// companion are copied to shared memory for the passes after the first.
+// kLogA: the column count the kernel is compiled for, with the full
+// tile of 2^kLogColTile words, or 0 for any (logA, logC).
+template <bool kFwd, class F, int kLogA>
+__global__ void __launch_bounds__(kThreads, col_blocks<kLogA>())
+col_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int logA_, int logB,
+        int logC_, F fs, int logT, int xnp) {
   extern __shared__ uint64_t smem[];
+  __shared__ Twiddle stw[1 << kMaxColLog];
+  const int logA = kLogA ? kLogA : logA_, logC = kLogA ? kLogColTile - kLogA : logC_;
   const size_t ring = blockIdx.x >> (logB - logC);
   const Ring f = fs.at(ring);
   const int b0 = (blockIdx.x & ((1 << (logB - logC)) - 1)) << logC;
   const size_t off = (ring << (logA + logB)) + b0;
-  const int words = 1 << (logA + logC), cmask = (1 << logC) - 1;
-  for (int e = threadIdx.x; e < words; e += kThreads) {
-    const int a = e >> logC, c = e & cmask;
-    smem[e] = twist(reduce_any(x[off + ((size_t)a << logB) + c], f.q, f.one_s), a, b0 + c,
-                    logA, logT, f.wt, f.wts, f.ws, f.wss, f.q);
-  }
-  __syncthreads();
-  gs_cols<kThreads>(smem, logA, logC, f.tw, f.tws, f.q, xnp);
-  for (int e = threadIdx.x; e < words; e += kThreads)
-    y[off + ((size_t)(e >> logC) << logB) + (e & cmask)] =
-        shoup_mul(smem[e], f.n_inv, f.n_inv_s, f.q);
+  if (logA > kColRadix)  // read after the first barrier
+    for (int e = threadIdx.x; e < (1 << (logA - 1 + xnp)); e += kThreads)
+      stw[e] = Twiddle{__ldg(f.tw + e), __ldg(f.tws + e)};
+  radix::passes<kColRadix, kFwd>(
+      logA, ColPasses<kFwd>{ColGeo{logA, logC, xnp}, logB, logT, b0, smem, x + off, y + off,
+                            f, Lazy64{f.q, 2 * f.q}, GlobalTw{f.tw, f.tws}, SharedTw{stw}});
 }
 
 // K8's items: `nrows` rows of 2^logB words, each a whole B-point network;
@@ -199,20 +303,6 @@ struct RowGeo {
     const int i0 = w >> logT, rr = w & ((1 << logT) - 1);
     return RowItem{(j << logB) + (i0 << (logB - l0)) + rr, 1 << logT, (xnp << l0) + i0};
   }
-};
-
-// K8's twiddles: the plan's two tables in device memory (the first
-// pass), or the block's interleaved copy in shared memory.
-struct GlobalTw {
-  const uint64_t* tw;
-  const uint64_t* tws;
-  __device__ __forceinline__ Twiddle operator()(int i) const {
-    return Twiddle{__ldg(tw + i), __ldg(tws + i)};
-  }
-};
-struct SharedTw {
-  const Twiddle* t;
-  __device__ __forceinline__ Twiddle operator()(int i) const { return t[i]; }
 };
 
 // One radix-2^kR pass of K8 over the block's items, thread-strided.
@@ -278,51 +368,28 @@ __device__ __forceinline__ void row_pass(const RowGeo& geo, int l0, uint64_t* s,
   }
 }
 
-// A K8 pass whose radix (1 .. kRowRadix) is known only at run time.
-template <bool kFwd, bool kIn, bool kOut, class Tw>
-__device__ __forceinline__ void row_pass_r(int r, const RowGeo& geo, int l0, uint64_t* s,
-                                           const uint64_t* __restrict__ x,
-                                           uint64_t* __restrict__ y, const Ring& f,
-                                           const Lazy64& ar, const Tw& tw) {
-  switch (r) {
-    case 1: row_pass<1, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, tw); break;
-    case 2: row_pass<2, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, tw); break;
-    default: row_pass<3, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, tw); break;
-  }
-}
-
-// K8's log B stages over a block's rows: ceil(log B / 3) radix-8 passes,
-// the short one first forward and last inverse, a barrier between two.
-// The first pass reads x (reduced mod q) with the plan's tables, the
-// last writes y, the others read and write the tile with the block's
-// copy of the tables.  log B <= 9, so np <= 3: the passes are written
-// out, with no loop counter to hold.
+// K8's log B stages over a block's rows (radix::passes): ceil(log B / 3)
+// radix-8 passes.  The first pass reads x (reduced mod q) with the
+// plan's tables, the last writes y, the others read and write the tile
+// with the block's copy of the tables.
 template <bool kFwd>
-__device__ __forceinline__ void row_passes(const RowGeo& geo, uint64_t* s,
-                                           const uint64_t* __restrict__ x,
-                                           uint64_t* __restrict__ y, const Ring& f,
-                                           const Lazy64& ar, const GlobalTw& gtw,
-                                           const SharedTw& tw) {
-  const int np = (geo.logB + kRowRadix - 1) / kRowRadix;
-  const int short_r = geo.logB - (np - 1) * kRowRadix;
-  const auto first = [&](int n) {  // the first stage of pass n, in running order
-    const int idx = kFwd ? n : np - 1 - n;
-    return idx == 0 ? 0 : short_r + (idx - 1) * kRowRadix;
-  };
-  if (np == 1) {
-    row_pass_r<kFwd, true, true>(short_r, geo, 0, s, x, y, f, ar, gtw);
-    return;
+struct RowPasses {
+  RowGeo geo;
+  uint64_t* s;
+  const uint64_t* __restrict__ x;
+  uint64_t* __restrict__ y;
+  Ring f;
+  Lazy64 ar;
+  GlobalTw gtw;
+  SharedTw tw;
+  template <int kR, bool kIn, bool kOut>
+  __device__ __forceinline__ void run(int l0) const {
+    if constexpr (kIn)
+      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, gtw);
+    else
+      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, tw);
   }
-  row_pass_r<kFwd, true, false>(kFwd ? short_r : kRowRadix, geo, first(0), s, x, y, f, ar,
-                                gtw);
-  if (np == 3) {
-    __syncthreads();
-    row_pass<kRowRadix, kFwd, false, false>(geo, first(1), s, x, y, f, ar, tw);
-  }
-  __syncthreads();
-  row_pass_r<kFwd, false, true>(kFwd ? kRowRadix : short_r, geo, first(np - 1), s, x, y, f,
-                                ar, tw);
-}
+};
 
 // K8: whole B-point rows, 2^kLogRowTile / B of them per block; x -> y.
 // Forward: CT stages.  Inverse: GS stages, then n_inv (B^-1).  The
@@ -347,10 +414,9 @@ row_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long nrow
   if (logB > kRowRadix)  // read after the first barrier
     for (int e = threadIdx.x; e < (1 << (logB - 1 + xnp)); e += kThreads)
       stw[e] = Twiddle{__ldg(f.tw + e), __ldg(f.tws + e)};
-  const Lazy64 ar{f.q, 2 * f.q};
-  const GlobalTw gtw{f.tw, f.tws};
-  const SharedTw tw{stw};
-  row_passes<kFwd>(RowGeo{logB, rows, xnp}, s, x + off, y + off, f, ar, gtw, tw);
+  radix::passes<kRowRadix, kFwd>(
+      logB, RowPasses<kFwd>{RowGeo{logB, rows, xnp}, s, x + off, y + off, f,
+                            Lazy64{f.q, 2 * f.q}, GlobalTw{f.tw, f.tws}, SharedTw{stw}});
 }
 
 // log2 of K7's column count: the tile holds 2^kLogColTile words, or the
@@ -360,10 +426,11 @@ int col_log(int logA, int logB) {
   return c < logB ? c : logB;
 }
 
-// Shapes K7 covers: A = 2..512 columns of B >= 2 words, a power-of-two
-// tile T <= B, and a grid within 2^31 blocks.
+// Shapes K7 covers: A = 2..512 columns of B >= 2 words, rings of at most
+// 2^30 words (so that the twist's table offsets fit 32 bits), a
+// power-of-two tile T <= B, and a grid within 2^31 blocks.
 bool col_shape_ok(long long batch, int logA, int logB, int logT) {
-  return batch > 0 && logA >= 1 && logA <= 9 && logB >= 1 && logB <= 30 && logT >= 0 &&
+  return batch > 0 && logA >= 1 && logA <= 9 && logB >= 1 && logA + logB <= 30 && logT >= 0 &&
          logT <= logB && batch < (1LL << 31) &&
          (batch << (logB - col_log(logA, logB))) < (1LL << 31);
 }
@@ -388,6 +455,19 @@ int launch_status() {
   return e == cudaSuccess ? 0 : (int)e;
 }
 
+// K7's instance for A = 2^logA columns, C = 2^logC a block: the
+// route's A = 128, 256 and 512 at the full tile run one compiled for
+// their shape.
+template <bool kFwd, class F>
+auto col_kernel(int logA, int logC) {
+  if (logA + logC == kLogColTile) {
+    if (logA == 7) return col_mat<kFwd, F, 7>;
+    if (logA == 8) return col_mat<kFwd, F, 8>;
+    if (logA == 9) return col_mat<kFwd, F, 9>;
+  }
+  return col_mat<kFwd, F, 0>;
+}
+
 // K7 in either direction, on a checked shape.
 template <class F>
 int col(int device, bool fwd, const uint64_t* x, uint64_t* y, long long batch, int logA,
@@ -398,11 +478,13 @@ int col(int device, bool fwd, const uint64_t* x, uint64_t* y, long long batch, i
   const int logC = col_log(logA, logB), bytes = 8 << (logA + logC);
   const int grid = (int)(batch << (logB - logC));
   if (fwd) {
-    if (int rc = fit_smem(col_fwd<F>, bytes)) return rc;
-    col_fwd<F><<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
+    const auto k = col_kernel<true, F>(logA, logC);
+    if (int rc = fit_smem(k, bytes)) return rc;
+    k<<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
   } else {
-    if (int rc = fit_smem(col_inv<F>, bytes)) return rc;
-    col_inv<F><<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
+    const auto k = col_kernel<false, F>(logA, logC);
+    if (int rc = fit_smem(k, bytes)) return rc;
+    k<<<grid, kThreads, bytes, st>>>(x, y, logA, logB, logC, f, logT, xnp);
   }
   return launch_status();
 }

@@ -1,5 +1,6 @@
 // The merge network in registers: the pass that the row and column
-// kernels of merge_u32.cu and the row kernel of merge_u64_large.cu share.
+// kernels of merge_u32.cu, the kernels of merge_u64_large.cu and the
+// column kernels of fourstep.cu share, and the order of their passes.
 //
 // A pass runs kR consecutive stages l0 .. l0 + kR - 1 of a merge network
 // on work items of 2^kR words: the words that one butterfly group of
@@ -46,6 +47,42 @@ __device__ __forceinline__ void stages(W (&v)[1 << kR], int G, const Ar& ar, con
 template <int kR, bool kFwd, class W, class Ar, class Tw>
 __device__ __forceinline__ void network(W (&v)[1 << kR], int G, const Ar& ar, const Tw& tw) {
   stages<kR, kFwd ? 0 : kR - 1, kFwd>(v, G, ar, tw);
+}
+
+// A pass of 1 .. kR stages whose count r is known only at run time (a
+// constant r folds to one call): `p.template run<r, kIn, kOut>(l0)`.
+template <int kR, bool kIn, bool kOut, class P>
+__device__ __forceinline__ void run_r(int r, int l0, const P& p) {
+  if constexpr (kR > 1) {
+    if (r < kR) {
+      run_r<kR - 1, kIn, kOut>(r, l0, p);
+      return;
+    }
+  }
+  p.template run<kR, kIn, kOut>(l0);
+}
+
+// The logN <= 3 kR stages of a network as ceil(logN / kR) passes of at
+// most kR stages, the short one first forward and last inverse, a
+// __syncthreads between two.  `p.template run<r, kIn, kOut>(l0)` runs
+// the pass of stages l0 .. l0 + r - 1 over the block's items: the first
+// pass reads the kernel's input (kIn), the last writes its output
+// (kOut), the others read and write the block's tile.  At most three
+// passes, written out: no loop counter to hold.
+template <int kR, bool kFwd, class P>
+__device__ __forceinline__ void passes(int logN, const P& p) {
+  const int np = (logN + kR - 1) / kR, sr = logN - (np - 1) * kR;
+  if (np == 1) {
+    run_r<kR, true, true>(sr, 0, p);
+    return;
+  }
+  run_r<kR, true, false>(kFwd ? sr : kR, kFwd ? 0 : logN - kR, p);
+  if (np == 3) {
+    __syncthreads();
+    p.template run<kR, false, false>(sr);
+  }
+  __syncthreads();
+  run_r<kR, false, true>(kFwd ? kR : sr, kFwd ? logN - kR : 0, p);
 }
 
 // Word kk of an item whose word 0 is tile word p and whose words lie S

@@ -262,10 +262,13 @@ def _lib():
 
 
 def _col(stats: KernelStats, x, kp: FourStepKernelPlan, inverse: bool, is64: bool):
-    if kp.is64 != is64 or kp.n1 > COL_MAX:
+    # q < 2^62 (u64) or 2^30 (u32): the lazy butterflies hold values below
+    # 4q, which must fit the word
+    bits = 62 if is64 else 30
+    if kp.is64 != is64 or kp.n1 > COL_MAX or kp.q >= 1 << bits:
         raise NTTDispatchError(
-            f"{stats.name} takes {'u64' if is64 else 'u32'} plans with n1 <= {COL_MAX}, "
-            f"got is64={kp.is64} n1={kp.n1}")
+            f"{stats.name} takes {'u64' if is64 else 'u32'} plans with n1 <= {COL_MAX} and "
+            f"q < 2^{bits}, got is64={kp.is64} n1={kp.n1} q={kp.q}")
     _check(x, kp.n, kp.device)
     if x.device.type == "cpu":
         stats.plain_calls += 1

@@ -313,6 +313,10 @@ def rns_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor, plan: RNSMergePlan,
 
 
 def _col13(stats: KernelStats, entry: str, x, sp: RNSColumnPlan, midx, inverse: bool):
+    # every q < 2^62: K7's lazy butterflies hold values below 4q < 2^64
+    if not _narrow(sp.col):
+        raise NTTDispatchError(f"{stats.name} takes u64 plans with every q < 2^62, got "
+                               f"{list(sp.col.qs)}")
     lp = sp.first
     _check(x, lp.n, sp.device, midx, 0)
     if x.device.type == "cpu":
@@ -377,9 +381,11 @@ def rns_fourstep_u64_col(x: torch.Tensor, sp: RNSColumnPlan, midx: torch.Tensor,
     """K14 on a contiguous (batch, N) tensor in the (n2, n1) layout; the
     result in the (n1, n2) layout."""
     kp = sp.first
-    if not kp.is64 or kp.n1 > hf.COL_MAX:
+    # every q < 2^62: K9's lazy butterflies hold values below 4q < 2^64
+    if not kp.is64 or kp.n1 > hf.COL_MAX or not _narrow(sp.col):
         raise NTTDispatchError(f"{FOURSTEP_COL.name} takes u64 plans with n1 <= "
-                               f"{hf.COL_MAX}, got is64={kp.is64} n1={kp.n1}")
+                               f"{hf.COL_MAX} and every q < 2^62, got is64={kp.is64} "
+                               f"n1={kp.n1} q={list(sp.col.qs)}")
     _check(x, kp.n, sp.device, midx, 0)
     if x.device.type == "cpu":
         FOURSTEP_COL.plain_calls += 1

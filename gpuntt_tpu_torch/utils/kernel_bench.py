@@ -1,5 +1,6 @@
-"""Check and time the kernels of csrc/merge_u32.cu and csrc/merge_u64_large.cu's
-row kernel (K8) on one CUDA card.
+"""Check and time the kernels of csrc/merge_u32.cu, csrc/merge_u64_large.cu
+(K7, K7', K8, K13) and csrc/fourstep.cu (K9, K11-col, K14) on one CUDA
+card.
 
     python3 gpuntt_tpu_torch/utils/kernel_bench.py
 
@@ -8,13 +9,14 @@ file, so one copy of the script times two trees on one card, one after the other
 
     PYTHONPATH=<other tree> python3 gpuntt_tpu_torch/utils/kernel_bench.py
 
-It builds the two libraries (printing what `-Xptxas -v` says of each
+It builds the three libraries (printing what `-Xptxas -v` says of each
 kernel), holds every wrapper against its plain version on the card at
 the value edges (exact equality), then times each kernel at the cells of
 PERF.md section 6 with CUDA events (utils/timing.time_cuda: 3 warm-ups,
 the median of 10 windows of 10 calls) and the end-to-end entries at u32
-2^20 x 16 and u64 2^27 x 1.  The last line is one JSON object of
-{name: [ms, spread]}.  Exits 1 without a CUDA card.
+2^20 x 16, u64 2^24 x 1 and 2^27 x 1 and the 4-step u64 2^24 x 1.  The
+last line is one JSON object of {name: [ms, spread]}.  Exits 1 without a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 import gpuntt_tpu_torch as g
 from gpuntt_tpu_torch.arith.host import is_prime_u64
 from gpuntt_tpu_torch.ops import _build
+from gpuntt_tpu_torch.ops import hopper_fourstep as hf
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops import hopper_rns as hr
@@ -112,6 +115,76 @@ def check_k8(dev, rng) -> None:
                  f"K13-row logB {logb} inverse={inverse}")
 
 
+def _large(q: int, logn: int, poly, log_a: int, dev, tile: int | None = None):
+    om, psi = g.ntt_root_pair(q, logn)
+    root = psi if poly == PLUS else om
+    return hml.LargePlan.from_spec(q, logn, root, pow(root, q - 2, q), poly == PLUS,
+                                   pow(1 << logn, q - 2, q), a_col=1 << log_a, tile=tile,
+                                   device=dev)
+
+
+def _fourstep(q: int, logn: int, poly, log1: int, is64: bool, dev):
+    om, psi = g.ntt_root_pair(q, logn)
+    root = psi if poly == PLUS else om
+    return hf.FourStepKernelPlan.from_spec(q, logn, 1 << log1, 1 << (logn - log1), root,
+                                           pow(root, q - 2, q), pow(1 << logn, q - 2, q),
+                                           is64, device=dev)
+
+
+def check_cols(dev, rng) -> None:
+    """The column kernels at every logA / log n1 1-9, both directions,
+    both polynomials, at the largest NTT prime below the lazy bound (2^62
+    for u64, 2^30 for u32) and a smaller one: K7 (2^14-word rings, so
+    that A = 128-512 run their full-tile instances), K7' on both shards
+    of sp = 2, K13-col on a ladder of those two (rows of 512), K9 and
+    K11-col (2^14-word rings), K14 on the u64 ladder."""
+    q62, q61 = largest_ntt_prime(62, 18), largest_ntt_prime(61, 18)
+    q30, q29 = largest_ntt_prime(30, 14), largest_ntt_prime(29, 14)
+    for log_a in range(1, 10):
+        for poly in (MINUS, PLUS):
+            x = words(rng, (3, 1 << 14), 64, dev)
+            for q in (q62, q61):
+                lp = _large(q, 14, poly, log_a, dev, tile=1 << (13 - log_a))
+                what = f"logA {log_a} {poly.name} q={q}"
+                same(hml.merge_u64_large_colfwd(x, lp), hml.colfwd_plain(x, lp), f"K7 {what}")
+                same(hml.merge_u64_large_colinv(x, lp), hml.colinv_plain(x, lp),
+                     f"K7 inverse {what}")
+                x3 = x.view(3, lp.A, lp.B)
+                for shard in (0, 1):
+                    xs = x3[:, :, shard * lp.B // 2:(shard + 1) * lp.B // 2].contiguous()
+                    for inverse in (False, True):
+                        same(hml.col_phase_local(xs, lp, shard, 2, inverse),
+                             hml.col_phase_local_plain(xs, lp, shard, 2, inverse),
+                             f"K7' shard {shard} of 2 inverse={inverse} {what}")
+            sp = hr.RNSColumnPlan.from_members(
+                [_large(q, log_a + 9, poly, log_a, dev) for q in (q62, q61)])
+            midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+            x = words(rng, (3, 1 << (log_a + 9)), 64, dev)
+            same(hr.rns_u64_large_colfwd(x, sp, midx), hr.colfwd_plain(x, sp, midx),
+                 f"K13-col logA {log_a} {poly.name}")
+            same(hr.rns_u64_large_colinv(x, sp, midx), hr.colinv_plain(x, sp, midx),
+                 f"K13-col inverse logA {log_a} {poly.name}")
+    for log1 in range(1, 10):
+        for poly in (MINUS, PLUS):
+            for is64, qs in ((True, (q62, q61)), (False, (q30, q29))):
+                x = words(rng, (3, 1 << 14), 64 if is64 else 32, dev)
+                name, fn = ("K9", hf.fourstep_u64_col) if is64 else ("K11-col",
+                                                                      hf.fourstep_u32_col)
+                for q in qs:
+                    kp = _fourstep(q, 14, poly, log1, is64, dev)
+                    for inverse in (False, True):
+                        same(fn(x, kp, inverse), hf.col_plain(x, kp, inverse),
+                             f"{name} log n1 {log1} {poly.name} q={q} inverse={inverse}")
+            sp = hr.RNSColumnPlan.from_members([_fourstep(q, 14, poly, log1, True, dev)
+                                                for q in (q62, q61)])
+            midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+            x = words(rng, (3, 1 << 14), 64, dev)
+            for inverse in (False, True):
+                same(hr.rns_fourstep_u64_col(x, sp, midx, inverse),
+                     hr.col4_plain(x, sp, midx, inverse),
+                     f"K14 log n1 {log1} {poly.name} inverse={inverse}")
+
+
 def check_u32(dev, rng) -> None:
     """merge_u32.cu at every logn 7-25 (forward and inverse) and the fused
     RNS polymul inverse, at the largest NTT prime below 2^30 of each logn."""
@@ -150,6 +223,52 @@ def timings(dev, rng) -> dict:
         out[name] = (ms, spread)
         print(f"time {name}: {ms:.5f} ms (spread {spread:.3f})")
 
+    # the column kernels at their cells: K7 at u64 2^24 x 1 (A = 256) and
+    # 2^27 (A = 512, the ring's columns), K7' at the dist 4-step's 2^24 x 1
+    # (sp 1), K13-col at RNS 2^18 x 12 L3, K9 and K11-col at 4-step 2^24 x 1,
+    # K14 at RNS 4-step 2^20 x 8 L8; the u64 2^24 entries
+    from gpuntt_tpu_torch.parallel.fourstep_dist import DistFourStepPlan
+
+    plan24 = g.MergePlan.from_params(g.NTTParameters(24, PLUS, np.uint64), device=dev)
+    lp24 = hml.large_plan(plan24)
+    x24 = words(rng, (1, 1 << 24), 64, dev)
+    fx24 = g.ntt_lanes(x24, plan24)
+    t("K7 fwd u64 2^24x1 (A 256)", lambda: hml.merge_u64_large_colfwd(x24, lp24))
+    t("K7 inv u64 2^24x1 (A 256)", lambda: hml.merge_u64_large_colinv(fx24, lp24))
+    t("ntt_lanes u64 2^24x1", lambda: g.ntt_lanes(x24, plan24))
+    t("intt_lanes u64 2^24x1", lambda: g.intt_lanes(fx24, plan24))
+    p4 = g.NTTParameters4Step(24, MINUS, np.uint64)
+    colmat = DistFourStepPlan.from_params(p4, device=dev).colmat
+    xl = x24.view(1, colmat.A, colmat.B) % p4.modulus.value
+    t("K7' fwd dist 4-step u64 2^24x1 sp 1", lambda: hml.col_phase_local(xl, colmat, 0, 1, False))
+    t("K7' inv dist 4-step u64 2^24x1 sp 1", lambda: hml.col_phase_local(xl, colmat, 0, 1, True))
+    plan4 = g.FourStepPlan.from_params(p4, device=dev)
+    kp4 = hf.kernel_plan(plan4)
+    t("K9 fwd 4-step u64 2^24x1", lambda: hf.fourstep_u64_col(x24, kp4, False))
+    t("K9 inv 4-step u64 2^24x1", lambda: hf.fourstep_u64_col(x24, kp4, True))
+    t("fourstep_ntt_lanes u64 2^24x1", lambda: g.fourstep_ntt_lanes(xl.view(1, -1), plan4))
+    t("fourstep_intt_lanes u64 2^24x1", lambda: g.fourstep_intt_lanes(xl.view(1, -1), plan4))
+    del fx24, xl
+    p4 = g.NTTParameters4Step(24, MINUS, np.uint32)
+    kp4 = hf.kernel_plan(g.FourStepPlan.from_params(p4, device=dev))
+    x = x24 % p4.modulus.value
+    t("K11-col fwd 4-step u32 2^24x1", lambda: hf.fourstep_u32_col(x, kp4, False))
+    t("K11-col inv 4-step u32 2^24x1", lambda: hf.fourstep_u32_col(x, kp4, True))
+    del x, x24
+    l3 = ladder(18, 3, MINUS, np.uint64, 59, dev)
+    sp = hr.large_plan(l3)
+    m3 = torch.tensor(np.arange(12) % 3, dtype=torch.int32, device=dev)
+    x = words(rng, (12, 1 << 18), 64, dev)
+    t("K13-col fwd RNS u64 2^18x12 L3", lambda: hr.rns_u64_large_colfwd(x, sp, m3))
+    t("K13-col inv RNS u64 2^18x12 L3", lambda: hr.rns_u64_large_colinv(x, sp, m3))
+    ms = [g.NTTParameters4Step(20, MINUS, np.uint64, factors=g.NTTFactors(
+        g.Modulus64(q), *g.ntt_root_pair(q, 20))) for q in g.find_ntt_primes(59, 20, 8)]
+    sp = hr.fourstep_plan(g.RNSFourStepPlan.from_params(ms, device=dev))
+    m8 = torch.arange(8, dtype=torch.int32, device=dev)
+    x = words(rng, (8, 1 << 20), 64, dev)
+    t("K14 fwd RNS 4-step u64 2^20x8 L8", lambda: hr.rns_fourstep_u64_col(x, sp, m8, False))
+    t("K14 inv RNS 4-step u64 2^20x8 L8", lambda: hr.rns_fourstep_u64_col(x, sp, m8, True))
+    del x
     # K8 at 2^27 (512 x 512 rows of 512, the nested rows), K10, K13-row
     p27 = g.NTTParameters(27, PLUS, np.uint64)
     plan27 = g.MergePlan.from_params(p27, device=dev)
@@ -160,6 +279,10 @@ def timings(dev, rng) -> dict:
       lambda: hml.merge_u64_large_rowmat(r27, lp27.nested.rows, False))
     t("K8 inv u64 rows 262144x512 (2^27)",
       lambda: hml.merge_u64_large_rowmat(r27, lp27.nested.rows, True))
+    t("K7 fwd u64 2^27x1 (A 512, the ring's columns)",
+      lambda: hml.merge_u64_large_colfwd(x27, lp27))
+    t("K7 inv u64 2^27x1 (A 512, the ring's columns)",
+      lambda: hml.merge_u64_large_colinv(x27, lp27))
     t("ntt_lanes u64 2^27x1", lambda: g.ntt_lanes(x27, plan27))
     fx27 = g.ntt_lanes(x27, plan27)
     t("intt_lanes u64 2^27x1", lambda: g.intt_lanes(fx27, plan27))
@@ -208,13 +331,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip())
     t0 = time.perf_counter()
-    for name in ("merge_u32", "merge_u64_large"):
-        _build.library(name)
+    libs = ("merge_u32", "merge_u64_large", "fourstep")
+    _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s")
-    for name in ("merge_u32", "merge_u64_large"):
+    for name in libs:
         ptxas_lines(name)
     rng = np.random.default_rng(0)
     check_k8(dev, rng)
+    check_cols(dev, rng)
     check_u32(dev, rng)
     torch.cuda.synchronize()
     print(json.dumps(timings(dev, rng)))

@@ -36,6 +36,7 @@ from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, signed, to_numpy_u64
+from gpuntt_tpu_torch.utils import kernel_bench
 from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 from gpuntt_tpu_torch.utils.timing import time_cuda
 
@@ -227,6 +228,60 @@ def test_k8_value_edges_on_card(card, logb, poly, edge):
                            hml.rowmat_plain(x, plan, inverse))
         assert torch.equal(hr.rns_u64_large_rowmat(x, ladder, midx, shift, inverse),
                            hr.rowmat_plain(x, ladder, midx, shift, inverse))
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("loga", range(1, 10))
+def test_k7_value_edges_on_card(card, loga, poly):
+    """K7, K7' (both shards of sp = 2) and K13-col against their plain
+    versions at every column count (logA 1-9: one, two or three radix-8
+    passes; 2^14-word rings, the full tile, and for K13-col rows of 512,
+    which a stacked plan takes at every logA), both directions, on any u64
+    word, at the largest NTT prime below 2^62 and a 61-bit one."""
+    edge = (largest_ntt_prime(62, 18), largest_ntt_prime(61, 18))
+    x = from_numpy_u64(np.random.default_rng(loga).integers(
+        0, 1 << 64, size=(3, 1 << 14), dtype=np.uint64), card)
+    for q in edge:
+        lp = kernel_bench._large(q, 14, poly, loga, card, tile=1 << (13 - loga))
+        assert torch.equal(hml.merge_u64_large_colfwd(x, lp), hml.colfwd_plain(x, lp))
+        assert torch.equal(hml.merge_u64_large_colinv(x, lp), hml.colinv_plain(x, lp))
+        for shard in (0, 1):
+            xs = x.view(3, lp.A, 2, lp.B // 2)[:, :, shard].contiguous()
+            for inverse in (False, True):
+                assert torch.equal(hml.col_phase_local(xs, lp, shard, 2, inverse),
+                                   hml.col_phase_local_plain(xs, lp, shard, 2, inverse))
+    sp = hr.RNSColumnPlan.from_members([kernel_bench._large(q, loga + 9, poly, loga, card)
+                                        for q in edge])
+    midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    x = from_numpy_u64(np.random.default_rng(loga).integers(
+        0, 1 << 64, size=(3, 1 << (loga + 9)), dtype=np.uint64), card)
+    assert torch.equal(hr.rns_u64_large_colfwd(x, sp, midx), hr.colfwd_plain(x, sp, midx))
+    assert torch.equal(hr.rns_u64_large_colinv(x, sp, midx), hr.colinv_plain(x, sp, midx))
+
+
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("log1", range(1, 10))
+def test_k9_value_edges_on_card(card, log1, poly, dtype):
+    """K9 (with K14 on a ladder) and K11's column twin against their plain
+    versions at every n1 (log n1 1-9), both directions, on any input word,
+    at the largest NTT prime below 2^62 (u64) or 2^30 (u32) and a smaller
+    one."""
+    is64 = dtype == np.uint64
+    bits = 62 if is64 else 30
+    edge = (largest_ntt_prime(bits, 14), largest_ntt_prime(bits - 1, 14))
+    x = from_numpy_u64(np.random.default_rng(log1).integers(
+        0, 1 << (64 if is64 else 32), size=(3, 1 << 14), dtype=np.uint64), card)
+    col = hf.fourstep_u64_col if is64 else hf.fourstep_u32_col
+    kps = [kernel_bench._fourstep(q, 14, poly, log1, is64, card) for q in edge]
+    midx = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    for inverse in (False, True):
+        for kp in kps:
+            assert torch.equal(col(x, kp, inverse), hf.col_plain(x, kp, inverse))
+        if is64:
+            sp = hr.RNSColumnPlan.from_members(kps)
+            assert torch.equal(hr.rns_fourstep_u64_col(x, sp, midx, inverse),
+                               hr.col4_plain(x, sp, midx, inverse))
 
 
 @pytest.mark.parametrize("logn", range(8, 26))

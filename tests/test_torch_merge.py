@@ -41,6 +41,7 @@ from gpuntt_tpu.ops.merge_ntt import merge_intt_lanes as jintt
 from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.utils import kernel_bench
 from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import barrett as bo
@@ -442,6 +443,49 @@ def test_cuda_source_k8_emulated_every_pass_split(emulated_large, logb):
                                                                             inverse)
 
 
+@pytest.mark.parametrize("loga", range(1, 10))
+def test_cuda_source_k7_emulated_every_pass_split(emulated_large, emulated, loga):
+    """K7's register passes down the columns at every column count A =
+    2^logA: logA 1-3 one pass, 4-6 two, 7-9 three (radix 8, the short pass
+    first forward and last inverse), in 2^14-word rings whose tile is full
+    (the compiled shapes of A = 128-512, the generic kernel below), on any
+    u64 word, both directions, both polynomials, at the pool prime and at
+    the largest 62-bit NTT prime (4q just below 2^64), against the plain
+    versions."""
+    x = to_lanes(np.random.default_rng(loga).integers(0, 1 << 64, size=(2, 1 << 14),
+                                                       dtype=np.uint64), True)
+    steps = _emulated_steps(emulated_large, emulated)
+    for poly in (tg.ReductionPolynomial.X_N_minus, tg.ReductionPolynomial.X_N_plus):
+        for q in (tg.NTTParameters(14, poly, np.uint64).modulus.value,
+                  largest_ntt_prime(62, 14)):
+            lp = kernel_bench._large(q, 14, poly, loga, "cpu")
+            assert torch.equal(steps.colfwd(x, lp), hml.colfwd_plain(x, lp)), (poly, q)
+            assert torch.equal(steps.colinv(x, lp), hml.colinv_plain(x, lp)), (poly, q)
+
+
+@pytest.mark.parametrize("log1", range(1, 10))
+def test_cuda_source_k9_emulated_every_pass_split(emulated_fourstep, log1):
+    """fourstep.cu's register passes at every n1 = 2^log1 (K9 and K11's
+    column twin): log n1 1-3 one pass, 4-6 two, 7-9 three, in 2^14-word
+    rings of several tiles of rows (the compiled shapes of n1 = 128 and
+    256, the generic kernel elsewhere), on any input word, both directions,
+    both polynomials, at the pool prime and at the largest NTT prime below
+    2^62 (u64) or 2^30 (u32), against the plain version."""
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+
+    for dtype, edge in ((np.uint64, largest_ntt_prime(62, 14)),
+                        (np.uint32, largest_ntt_prime(30, 14))):
+        is64 = dtype == np.uint64
+        x = to_lanes(np.random.default_rng(log1).integers(
+            0, 1 << (64 if is64 else 32), size=(2, 1 << 14), dtype=np.uint64), True)
+        for poly in (tg.ReductionPolynomial.X_N_minus, tg.ReductionPolynomial.X_N_plus):
+            for q in (tg.NTTParameters(14, poly, dtype).modulus.value, edge):
+                kp = kernel_bench._fourstep(q, 14, poly, log1, is64, "cpu")
+                for inverse in (False, True):
+                    assert torch.equal(_fourstep_col(emulated_fourstep, x, kp, inverse),
+                                       hf.col_plain(x, kp, inverse)), (dtype, poly, q)
+
+
 @pytest.mark.parametrize("logn,poly,batch", [
     (7, tg.ReductionPolynomial.X_N_plus, 5),    # rows of 2^7: passes of 2 and 5 stages
     (9, tg.ReductionPolynomial.X_N_minus, 3),   # rows of 2^9: 4 and 5
@@ -476,6 +520,7 @@ def test_cuda_source_u32_emulated_lazy_edge(emulated32, logn, poly, batch):
     ("colfwd", dict(logA=0)),         # no column stage
     ("colinv", dict(logT=7)),         # a tile wider than the rows
     ("colinv", dict(batch=0)),
+    ("colfwd", dict(logA=9, logB=22)),  # a ring of 2^31 words: past 2^30
     ("rowmat", dict(logB=10)),        # K8 rows of 1024: past its 512
     ("rowmat", dict(batch=0)),
 ])
@@ -664,6 +709,7 @@ def test_cuda_source_fourstep_composition_emulated(emulated_fourstep, emulated_l
     ("u32", dict(logT=7)),                   # a tile of more rows than the ring has
     ("u64", dict(logTw=7)),                  # a W tile wider than the rows
     ("u32", dict(batch=0)),
+    ("u64", dict(log1=9, log2=22, logT=3)),  # a ring of 2^31 words: past 2^30
 ])
 def test_cuda_source_fourstep_emulated_refuses_bad_shapes(emulated_fourstep, word, args):
     x = torch.zeros(1 << 14, dtype=torch.int64)
