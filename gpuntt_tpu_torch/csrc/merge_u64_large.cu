@@ -72,7 +72,9 @@
 //     its index arithmetic and heap index done once: 2 barriers for 9
 //     stages.  The first pass reads x and the last writes y directly (at
 //     a stride of B / 8 the lanes of a warp read adjacent words; 8
-//     adjacent words of a thread go out as 16-byte stores).  Rows of 512
+//     adjacent words of a thread move as 16-byte accesses where x or y is
+//     16-byte aligned, checked once a block, and as 8-byte ones where a
+//     caller's view starts at an odd word).  Rows of 512
 //     words run a copy of the passes in which every stride and offset is
 //     a constant, which spares the address arithmetic of each word.
 //   - Twiddles: the B-entry table and its Shoup companion are copied to
@@ -138,6 +140,9 @@ using merge_u64::shoup_mul;
 using merge_u64::shoup_mul_lazy;
 using merge_u64::Lazy64;
 using merge_u64::Twiddle;
+using merge_u64::GlobalTw;
+using merge_u64::SharedTw;
+using merge_u64::aligned16;
 
 constexpr int kThreads = 256;
 constexpr int kLogColTile = 13;  // K7 tile: 2^13 words (64 KiB)
@@ -157,20 +162,6 @@ constexpr int kRowPad = 3;       // K8: one spare tile word after every 2^kRowPa
 // and so spills none
 template <bool kFwd>
 constexpr int row_blocks() { return kFwd ? 3 : 4; }
-
-// Twiddles of K7 and K8: the plan's two tables in device memory (the
-// first pass), or the block's interleaved copy in shared memory.
-struct GlobalTw {
-  const uint64_t* tw;
-  const uint64_t* tws;
-  __device__ __forceinline__ Twiddle operator()(int i) const {
-    return Twiddle{__ldg(tw + i), __ldg(tws + i)};
-  }
-};
-struct SharedTw {
-  const Twiddle* t;
-  __device__ __forceinline__ Twiddle operator()(int i) const { return t[i]; }
-};
 
 // K7's items: the C = 2^logC columns of an (A, C) tile, each the A-point
 // network down its column.  Item k of a pass of 2^kR words from stage
@@ -309,18 +300,19 @@ struct RowGeo {
 // kIn: the words come from x, reduced mod q; otherwise from the tile.
 // kOut: the words go to y as canonical residues (the inverse's times
 // n_inv); otherwise to the tile.  Adjacent words (S = 1) move 16 bytes
-// at a time.
+// at a time where x (wide_in) or y (wide_out) is 16-byte aligned.
 template <int kR, bool kFwd, bool kIn, bool kOut, class Tw>
 __device__ __forceinline__ void row_pass(const RowGeo& geo, int l0, uint64_t* s,
                                          const uint64_t* __restrict__ x,
-                                         uint64_t* __restrict__ y, const Ring& f,
-                                         const Lazy64& ar, const Tw& tw) {
+                                         uint64_t* __restrict__ y, bool wide_in,
+                                         bool wide_out, const Ring& f, const Lazy64& ar,
+                                         const Tw& tw) {
   constexpr int kN = 1 << kR;
   const int items = geo.items(kR);
   for (int k = threadIdx.x; k < items; k += kThreads) {
     const RowItem it = geo.item<kR>(k, l0);
     uint64_t v[kN];
-    if (kIn && it.S == 1 && kN >= 2) {
+    if (kIn && it.S == 1 && kN >= 2 && wide_in) {
       const ulonglong2* x2 = reinterpret_cast<const ulonglong2*>(x + it.p);
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) {
@@ -347,7 +339,7 @@ __device__ __forceinline__ void row_pass(const RowGeo& geo, int l0, uint64_t* s,
           v[kk] = shoup_mul(v[kk], f.n_inv, f.n_inv_s, f.q);
         }
       }
-      if (it.S == 1 && kN >= 2) {
+      if (it.S == 1 && kN >= 2 && wide_out) {
         ulonglong2* y2 = reinterpret_cast<ulonglong2*>(y + it.p);
 #pragma unroll
         for (int i = 0; i < kN / 2; ++i) {
@@ -378,6 +370,7 @@ struct RowPasses {
   uint64_t* s;
   const uint64_t* __restrict__ x;
   uint64_t* __restrict__ y;
+  bool wide_in, wide_out;
   Ring f;
   Lazy64 ar;
   GlobalTw gtw;
@@ -385,9 +378,9 @@ struct RowPasses {
   template <int kR, bool kIn, bool kOut>
   __device__ __forceinline__ void run(int l0) const {
     if constexpr (kIn)
-      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, gtw);
+      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, wide_in, wide_out, f, ar, gtw);
     else
-      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, f, ar, tw);
+      row_pass<kR, kFwd, kIn, kOut>(geo, l0, s, x, y, wide_in, wide_out, f, ar, tw);
   }
 };
 
@@ -415,8 +408,9 @@ row_mat(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long nrow
     for (int e = threadIdx.x; e < (1 << (logB - 1 + xnp)); e += kThreads)
       stw[e] = Twiddle{__ldg(f.tw + e), __ldg(f.tws + e)};
   radix::passes<kRowRadix, kFwd>(
-      logB, RowPasses<kFwd>{RowGeo{logB, rows, xnp}, s, x + off, y + off, f,
-                            Lazy64{f.q, 2 * f.q}, GlobalTw{f.tw, f.tws}, SharedTw{stw}});
+      logB, RowPasses<kFwd>{RowGeo{logB, rows, xnp}, s, x + off, y + off,
+                            aligned16(x + off), aligned16(y + off), f, Lazy64{f.q, 2 * f.q},
+                            GlobalTw{f.tw, f.tws}, SharedTw{stw}});
 }
 
 // log2 of K7's column count: the tile holds 2^kLogColTile words, or the

@@ -22,7 +22,9 @@ checked on the card.
 The kernels take logn 11-17.  Dispatch routes rings of 2^12..2^17 to
 them (`covers`, as the JAX package's "mxu" route starts at 2^12); logn
 11 serves the rows of a 2^18 ring, which hopper_merge_large.py splits
-128 x 2^11 as the JAX package does.
+128 x 2^11 as the JAX package does.  Their lazy butterflies hold values
+below 4q, so they take q < 2^62 only (LAZY_Q): `takes` and, on its own,
+every wrapper's refusal (`lazy_bound`) hold it.
 
 Every launch adds one to its kernel's `launches`, every plain-version
 call through a wrapper one to `plain_calls`; `reset_counts()` zeroes
@@ -42,6 +44,7 @@ from .limb import signed
 from .merge_ntt import MergePlan, ct_stages, gs_stages
 
 SOURCE = "gpuntt_tpu_torch/csrc/merge_u64.cu"
+LAZY_Q = 1 << 62  # the u64 register-pass kernels take q below it: values stay below 4q < 2^64
 
 
 @dataclass
@@ -76,13 +79,20 @@ def split(logn: int) -> int:
 
 def covers(plan: MergePlan) -> bool:
     """Plans whose transforms dispatch sends here: u64, q < 2^62, logn 12-17."""
-    return plan.is64 and plan.q < (1 << 62) and 12 <= plan.logn <= 17
+    return plan.is64 and plan.q < LAZY_Q and 12 <= plan.logn <= 17
 
 
 def takes(plan: MergePlan) -> bool:
     """Plans the kernels take: those `covers`, and the logn-11 rows of a
     2^18 ring."""
-    return plan.is64 and plan.q < (1 << 62) and 11 <= plan.logn <= 17
+    return plan.is64 and plan.q < LAZY_Q and 11 <= plan.logn <= 17
+
+
+def lazy_bound(name: str, q: int) -> None:
+    """Refuse a modulus past the lazy butterflies' bound (4q must fit 64
+    bits), whatever a route's `takes` lets through."""
+    if q >= LAZY_Q:
+        raise NTTDispatchError(f"{name} takes plans with q < 2^62, got q={q}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -131,7 +141,8 @@ def merge_u64_polymul_inv_plain(fa, fb, plan: MergePlan):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(plan: MergePlan, *xs: torch.Tensor) -> None:
+def _check(name: str, plan: MergePlan, *xs: torch.Tensor) -> None:
+    lazy_bound(name, plan.q)
     if not takes(plan):
         raise NTTDispatchError(
             f"merge_u64 kernels take u64 plans with q < 2^62 and logn 11-17, "
@@ -170,7 +181,7 @@ def _one_s(q: int) -> int:
 
 def merge_u64_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """Forward merged NTT of each row (bit-reversed output order)."""
-    _check(plan, x)
+    _check(FORWARD.name, plan, x)
     if x.device.type == "cpu":
         FORWARD.plain_calls += 1
         return merge_u64_fwd_plain(x, plan)
@@ -183,7 +194,7 @@ def merge_u64_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
 
 def merge_u64_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """Inverse merged NTT of each row, n^-1 scaling included."""
-    _check(plan, x)
+    _check(INVERSE.name, plan, x)
     if x.device.type == "cpu":
         INVERSE.plain_calls += 1
         return merge_u64_inv_plain(x, plan)
@@ -199,7 +210,7 @@ def merge_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor,
                           plan: MergePlan) -> torch.Tensor:
     """INTT(fa o fb) for canonical spectra fa, fb: the Barrett product
     is fused into the inverse's first load."""
-    _check(plan, fa, fb)
+    _check(POLYMUL_INVERSE.name, plan, fa, fb)
     if fa.device.type == "cpu":
         POLYMUL_INVERSE.plain_calls += 1
         return merge_u64_polymul_inv_plain(fa, fb, plan)

@@ -30,7 +30,7 @@ and K7's two kernels on one shard's B / sp columns replace col_phase_local
 K7 runs a block's C columns, and K8 its rows of B <= 512 words (4096
 words a block), as radix-8 passes in registers with lazy butterflies,
 whose values stay below 4q: their wrappers take plans with q < 2^62
-only (LAZY_Q), where 4q < 2^64 (see the notes in
+only (hopper_merge.LAZY_Q), where 4q < 2^64 (see the notes in
 csrc/merge_u64_large.cu).
 
 The rows of B = 2^11..2^17 run on hopper_merge.py's K1/K2/K3 through
@@ -85,7 +85,6 @@ SOURCE = "gpuntt_tpu_torch/csrc/merge_u64_large.cu"
 A_COL = 128          # the JAX package's default column count
 ROW_MAT_MAX = 512    # K8 takes rows of B <= 512 words
 MAX_ROW_LOGN = 17    # K1-K3 take rows of 2^11..2^17 words
-LAZY_Q = 1 << 62     # K7 and K8 take q below it: their values stay below 4q < 2^64
 
 COLFWD = KernelStats("merge_u64_large_colfwd", "gpuntt_tpu/ops/pallas_mxu_large.py:388",
                      source=SOURCE)
@@ -513,14 +512,8 @@ def _col_tables(lp: LargePlan, inverse: bool):
     return tuple(t.data_ptr() for t in tables), ()
 
 
-def _lazy_bound(stats: KernelStats, q: int) -> None:
-    """K7's lazy butterflies hold values below 4q, which must fit 64 bits."""
-    if q >= LAZY_Q:
-        raise NTTDispatchError(f"{stats.name} takes plans with q < 2^62, got q={q}")
-
-
 def _col(stats: KernelStats, entry: str, x, lp: LargePlan, inverse: bool):
-    _lazy_bound(stats, lp.q)
+    hm.lazy_bound(stats.name, lp.q)
     _check(x, lp.n, lp.device)
     if x.device.type == "cpu":
         stats.plain_calls += 1
@@ -540,7 +533,7 @@ def col_phase_local(x: torch.Tensor, lp: LargePlan, shard: int, sp: int,
     W o (Mcol @ X), inverse Ginv_col @ (W^-1 o X), with W at the global
     column indices.  The shard's width must hold whole W tiles."""
     stats = COLINV_LOCAL if inverse else COLFWD_LOCAL
-    _lazy_bound(stats, lp.q)
+    hm.lazy_bound(stats.name, lp.q)
     bl = lp.B // sp if sp > 0 else 0
     if (x.dtype != torch.int64 or x.dim() != 3 or x.shape[1:] != (lp.A, bl)
             or bl * sp != lp.B or bl % lp.tile or not 0 <= shard < sp
@@ -578,7 +571,7 @@ def rowmat(stats: KernelStats, x: torch.Tensor, plan: MergePlan,
     """merge_u64_large_rowmat with its launch counted under `stats` (the
     4-step's rows count under K10, hopper_fourstep.py)."""
     # q < 2^62: K8's lazy butterflies hold values below 4q, which must fit 64 bits
-    if not (plan.is64 and plan.q < LAZY_Q and 1 <= plan.logn <= 9):
+    if not (plan.is64 and plan.q < hm.LAZY_Q and 1 <= plan.logn <= 9):
         raise NTTDispatchError(
             f"merge_u64_large_rowmat takes u64 row plans with q < 2^62 and "
             f"logn 1-9, got q={plan.q} logn={plan.logn} is64={plan.is64}")

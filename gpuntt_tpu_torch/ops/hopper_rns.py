@@ -79,7 +79,7 @@ def reset_counts() -> None:
 
 
 def _narrow(plan) -> bool:
-    return plan.is64 and max(plan.qs) < 1 << 62
+    return plan.is64 and max(plan.qs) < hm.LAZY_Q
 
 
 def takes(plan: RNSMergePlan) -> bool:
@@ -273,6 +273,8 @@ def _lib(name: str):
 
 def _k12(stats: KernelStats, plain, entry: str, plan: RNSMergePlan, midx, shift, inverse,
          *xs):
+    # every q < 2^62: the lazy butterflies hold values below 4q < 2^64
+    hm.lazy_bound(stats.name, max(plan.qs))
     if not takes(plan):
         raise NTTDispatchError(
             f"rns_u64 kernels take u64 plans with every q < 2^62 and logn 11-17, got "

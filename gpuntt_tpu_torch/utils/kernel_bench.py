@@ -1,6 +1,6 @@
-"""Check and time the kernels of csrc/merge_u32.cu, csrc/merge_u64_large.cu
-(K7, K7', K8, K13) and csrc/fourstep.cu (K9, K11-col, K14) on one CUDA
-card.
+"""Check and time the kernels of csrc/merge_u64.cu (K1-K3, K12),
+csrc/merge_u32.cu, csrc/merge_u64_large.cu (K7, K7', K8, K13) and
+csrc/fourstep.cu (K9, K11-col, K14) on one CUDA card.
 
     python3 gpuntt_tpu_torch/utils/kernel_bench.py
 
@@ -9,14 +9,15 @@ file, so one copy of the script times two trees on one card, one after the other
 
     PYTHONPATH=<other tree> python3 gpuntt_tpu_torch/utils/kernel_bench.py
 
-It builds the three libraries (printing what `-Xptxas -v` says of each
+It builds the libraries (printing what `-Xptxas -v` says of each
 kernel), holds every wrapper against its plain version on the card at
 the value edges (exact equality), then times each kernel at the cells of
 PERF.md section 6 with CUDA events (utils/timing.time_cuda: 3 warm-ups,
 the median of 10 windows of 10 calls) and the end-to-end entries at u32
-2^20 x 16, u64 2^24 x 1 and 2^27 x 1 and the 4-step u64 2^24 x 1.  The
-last line is one JSON object of {name: [ms, spread]}.  Exits 1 without a
-CUDA card.
+2^20 x 16, u64 2^16 x 128, 2^24 x 1 and 2^27 x 1 and the 4-step u64 2^24
+x 1.  The fused inverses multiply two different spectra, so every b word
+is read from memory.  The last line is one JSON object of {name: [ms,
+spread]}.  Exits 1 without a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import gpuntt_tpu_torch as g
 from gpuntt_tpu_torch.arith.host import is_prime_u64
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops import hopper_rns as hr
@@ -89,6 +91,61 @@ def ptxas_lines(name: str) -> None:
             print(f"ptxas {name} {fn}: {line.split('info    :')[-1].strip()}")
 
 
+def odd_word(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x in a view that starts at an odd word (8 bytes past a
+    16-byte boundary), as flat[1:1 + x.numel()] of a fresh tensor does."""
+    flat = torch.zeros(x.numel() + 2, dtype=x.dtype, device=x.device)
+    start = 1 if flat.data_ptr() % 16 == 0 else 0
+    v = flat[start:start + x.numel()].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+def check_merge(dev, rng) -> None:
+    """K1-K3 (merge_u64_fwd / _inv / _polymul_inv) at logn 11-17, every
+    (log A, log B) split, both polynomials, at the 60-bit pool prime and
+    the largest NTT prime below 2^62 (4q just below 2^64), on any u64
+    word; K12 (rns_u64_*) on a ladder of that prime and a 61-bit one,
+    with a schedule entry a ring and one for two rings; and both on
+    odd-word views (F4: 8-byte accesses where 16-byte ones would be
+    misaligned)."""
+    for logn in range(11, 18):
+        q62, q61 = largest_ntt_prime(62, 17), largest_ntt_prime(61, 17)
+        for poly in (MINUS, PLUS):
+            x = words(rng, (3, 1 << logn), 64, dev)
+            for q in (None, q62):
+                plan = g.MergePlan.from_params(params(logn, poly, np.uint64, q), device=dev)
+                what = f"logn {logn} {poly.name} q={plan.q}"
+                fx = hm.merge_u64_fwd(x, plan)
+                same(fx, hm.merge_u64_fwd_plain(x, plan), f"K1 {what}")
+                same(hm.merge_u64_inv(x, plan), hm.merge_u64_inv_plain(x, plan), f"K2 {what}")
+                fb = fx.flip(0).contiguous()
+                same(hm.merge_u64_polymul_inv(fx, fb, plan),
+                     hm.merge_u64_polymul_inv_plain(fx, fb, plan), f"K3 {what}")
+                xo, fo = odd_word(x), odd_word(fb)
+                same(hm.merge_u64_fwd(xo, plan), fx, f"K1 odd-word view {what}")
+                same(hm.merge_u64_inv(xo, plan), hm.merge_u64_inv_plain(x, plan),
+                     f"K2 odd-word view {what}")
+                same(hm.merge_u64_polymul_inv(fx, fo, plan),
+                     hm.merge_u64_polymul_inv_plain(fx, fb, plan), f"K3 odd-word view {what}")
+            ladder = g.RNSMergePlan.from_params(
+                [params(logn, poly, np.uint64, q) for q in (q62, q61)], device=dev)
+            for midx, shift in (([1, 0, 1], 0), ([1, 0], 1)):
+                m = torch.tensor(midx, dtype=torch.int32, device=dev)
+                xr = words(rng, (len(midx) << shift, 1 << logn), 64, dev)
+                what = f"logn {logn} {poly.name} shift {shift}"
+                fx = hr.rns_u64_fwd(xr, ladder, m, shift)
+                same(fx, hr.rns_u64_fwd_plain(xr, ladder, m, shift), f"K12 forward {what}")
+                same(hr.rns_u64_inv(xr, ladder, m, shift), hr.rns_u64_inv_plain(xr, ladder, m, shift),
+                     f"K12 inverse {what}")
+                fb = hr.rns_u64_fwd_plain(xr.flip(0).contiguous(), ladder, m, shift)
+                same(hr.rns_u64_polymul_inv(fx, odd_word(fb), ladder, m, shift),
+                     hr.rns_u64_polymul_inv_plain(fx, fb, ladder, m, shift),
+                     f"K12 fused inverse (b an odd-word view) {what}")
+                same(hr.rns_u64_fwd(odd_word(xr), ladder, m, shift), fx,
+                     f"K12 forward odd-word view {what}")
+
+
 def check_k8(dev, rng) -> None:
     """K8 (merge_u64_large_rowmat) at logB 1-9, both directions, both
     polynomials, the 61-bit pool prime and the largest 62-bit NTT prime;
@@ -100,9 +157,12 @@ def check_k8(dev, rng) -> None:
                 plan = g.MergePlan.from_params(params(logb, poly, np.uint64, q), device=dev)
                 x = words(rng, (4099 << (9 - logb), 1 << logb), 64, dev)
                 for inverse in (False, True):
-                    same(hml.merge_u64_large_rowmat(x, plan, inverse),
-                         hml.rowmat_plain(x, plan, inverse),
+                    want = hml.rowmat_plain(x, plan, inverse)
+                    same(hml.merge_u64_large_rowmat(x, plan, inverse), want,
                          f"K8 logB {logb} {poly.name} q={plan.q} inverse={inverse}")
+                    same(hml.merge_u64_large_rowmat(odd_word(x), plan, inverse), want,
+                         f"K8 odd-word view logB {logb} {poly.name} q={plan.q} "
+                         f"inverse={inverse}")
     for logb in (3, 9):
         ms = [params(logb, MINUS, np.uint64, q) for q in (q62, largest_ntt_prime(61, 9))]
         plan = g.RNSMergePlan.from_params(ms, device=dev)
@@ -223,6 +283,29 @@ def timings(dev, rng) -> dict:
         out[name] = (ms, spread)
         print(f"time {name}: {ms:.5f} ms (spread {spread:.3f})")
 
+    # K1-K3 at u64 2^16 x 128 and on 2^24's rows (256 x 2^16), K12 at RNS
+    # 2^16 x 64 L8; the u64 2^16 x 128 entries
+    plan16 = g.MergePlan.from_params(g.NTTParameters(16, PLUS, np.uint64), device=dev)
+    for batch in (128, 256):
+        x = words(rng, (batch, 1 << 16), 64, dev)
+        fx = hm.merge_u64_fwd(x, plan16)
+        fb = fx.flip(0).contiguous()
+        cell = f"u64 2^16x{batch}"
+        t(f"K1 fwd {cell}", lambda: hm.merge_u64_fwd(x, plan16))
+        t(f"K2 inv {cell}", lambda: hm.merge_u64_inv(fx, plan16))
+        t(f"K3 fused inv {cell}", lambda: hm.merge_u64_polymul_inv(fx, fb, plan16))
+        if batch == 128:
+            t("ntt_lanes u64 2^16x128", lambda: g.ntt_lanes(x, plan16))
+            t("intt_lanes u64 2^16x128", lambda: g.intt_lanes(fx, plan16))
+    l8 = ladder(16, 8, MINUS, np.uint64, 59, dev)
+    m8 = torch.arange(8, dtype=torch.int32, device=dev).repeat(8)
+    x = words(rng, (64, 1 << 16), 64, dev) % min(l8.qs)
+    fx = hr.rns_u64_fwd(x, l8, m8)
+    fb = fx.flip(0).contiguous()
+    t("K12 fwd RNS u64 2^16x64 L8", lambda: hr.rns_u64_fwd(x, l8, m8))
+    t("K12 inv RNS u64 2^16x64 L8", lambda: hr.rns_u64_inv(fx, l8, m8))
+    t("K12 fused inv RNS u64 2^16x64 L8", lambda: hr.rns_u64_polymul_inv(fx, fb, l8, m8))
+    del x, fx, fb
     # the column kernels at their cells: K7 at u64 2^24 x 1 (A = 256) and
     # 2^27 (A = 512, the ring's columns), K7' at the dist 4-step's 2^24 x 1
     # (sp 1), K13-col at RNS 2^18 x 12 L3, K9 and K11-col at 4-step 2^24 x 1,
@@ -314,10 +397,11 @@ def timings(dev, rng) -> dict:
         midx = torch.arange(8, dtype=torch.int32, device=dev).repeat(batch // 8)
         x = words(rng, (batch, 1 << logn), 32, dev) % 469762049
         fx = hr32.rns_u32_fwd(x, plan, midx)
+        fb = fx.flip(0).contiguous()
         t(f"{k} fwd RNS u32 2^{logn}x{batch} L8", lambda: hr32.rns_u32_fwd(x, plan, midx))
         t(f"{k} inv RNS u32 2^{logn}x{batch} L8", lambda: hr32.rns_u32_inv(fx, plan, midx))
         t(f"{k} fused inv RNS u32 2^{logn}x{batch} L8",
-          lambda: hr32.rns_u32_polymul_inv(fx, fx, plan, midx))
+          lambda: hr32.rns_u32_polymul_inv(fx, fb, plan, midx))
     return out
 
 
@@ -330,13 +414,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip())
+    rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    libs = ("merge_u32", "merge_u64_large", "fourstep")
+    libs = ("merge_u64", "merge_u32", "merge_u64_large", "fourstep")
     _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s")
     for name in libs:
         ptxas_lines(name)
-    rng = np.random.default_rng(0)
+    check_merge(dev, rng)
     check_k8(dev, rng)
     check_cols(dev, rng)
     check_u32(dev, rng)

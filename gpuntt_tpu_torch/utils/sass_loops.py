@@ -9,8 +9,16 @@ contains PATTERN prints its instruction count and each loop (a backward
 branch and the instructions it spans) with its count of instructions,
 multiply-adds on the IMAD pipe, shared-memory loads and stores, global
 loads and stores and barriers.  A butterfly group's cost is a loop body
-divided by the butterflies it runs.  Needs nvcc and cuobjdump, so it
-runs where the kernels build.
+divided by the butterflies it runs.  An item loop of a register pass
+(one with at least 4 IMADs a word it stores; a copy loop has far fewer)
+stores each of its item's words once, so its body over the 64-bit words
+it stores is its cost a word; each kernel's line ends with those costs
+summed over its item loops: the instructions and IMADs its passes spend
+on a word.  Where a pass stores 16 or 8 bytes at a time by the
+operand's alignment, its loop holds both branches: its words are the
+larger of the two stores' counts, and its cost counts both branches'
+instructions.  Needs nvcc and cuobjdump, so it runs where the kernels
+build.
 """
 
 from __future__ import annotations
@@ -21,6 +29,23 @@ import subprocess
 import sys
 
 _KINDS = {k: re.compile(r"\b" + k) for k in ("IMAD", "LDS", "STS", "LDG", "STG", "BAR")}
+_STORE = re.compile(r"\bST[SG]?(\.\S+)?\s")
+
+
+def stored_words(body: list[str]) -> float:
+    """64-bit words a loop body stores: those of its 128-bit stores (2
+    each) or of its narrower ones (a 64-bit store 1, a 32-bit one 1/2),
+    whichever is more (the two are a pass's two branches)."""
+    wide = narrow = 0.0
+    for t in body:
+        m = _STORE.search(t + " ")
+        if m:
+            mods = m.group(1) or ""
+            if ".128" in mods:
+                wide += 2
+            else:
+                narrow += 1 if ".64" in mods else 0.5
+    return max(wide, narrow)
 
 
 def functions(sass: str) -> dict[str, list[tuple[int, str]]]:
@@ -65,11 +90,21 @@ def main(argv: list[str]) -> int:
     for fn, ins in functions(sass).items():
         if pattern not in fn:
             continue
-        print(f"{fn}: {len(ins)} instructions")
+        per_word = [0.0, 0.0]
+        lines = []
         for start, end, body in loops(ins):
-            counts = ", ".join(f"{k} {sum(1 for t in body if pat.search(t))}"
-                               for k, pat in _KINDS.items())
-            print(f"  loop {start:#x}-{end:#x}: {len(body)} instructions; {counts}")
+            counts = {k: sum(1 for t in body if pat.search(t)) for k, pat in _KINDS.items()}
+            words = stored_words(body)
+            text = ", ".join(f"{k} {n}" for k, n in counts.items())
+            if words and counts["IMAD"] >= 4 * words:
+                per_word[0] += len(body) / words
+                per_word[1] += counts["IMAD"] / words
+                text += (f"; item loop, {words:g} words: {len(body) / words:.1f} "
+                         f"instructions and {counts['IMAD'] / words:.1f} IMAD a word")
+            lines.append(f"  loop {start:#x}-{end:#x}: {len(body)} instructions; {text}")
+        print(f"{fn}: {len(ins)} instructions; item loops {per_word[0]:.1f} instructions "
+              f"and {per_word[1]:.1f} IMAD a word")
+        print("\n".join(lines))
     return 0
 
 

@@ -13,7 +13,9 @@ against the same entries on the CPU; the launch counters of the u32,
 big-ring and 4-step routes; the wrappers' refusals; CUDA-event timing;
 the distributed path: K7' on every shard of sp 1-8 at u64 2^20 and
 2^24, the merge's per-rank tail plans, and the dist entries and models
-at world size 1 on NCCL against the single-chip entries.
+at world size 1 on NCCL against the single-chip entries; the value
+edges of the register-pass kernels (the largest NTT prime below 2^62 or
+2^30) and operands that start at an odd word (K1-K3, K8, K12).
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -228,6 +230,79 @@ def test_k8_value_edges_on_card(card, logb, poly, edge):
                            hml.rowmat_plain(x, plan, inverse))
         assert torch.equal(hr.rns_u64_large_rowmat(x, ladder, midx, shift, inverse),
                            hr.rowmat_plain(x, ladder, midx, shift, inverse))
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(11, 18))
+def test_merge_value_edges_on_card(card, logn, poly, edge):
+    """K1-K3 against their plain versions at every logn 11-17 (every
+    (log A, log B) split of the route's register passes), on any u64 word,
+    at the 60-bit pool prime or the largest NTT prime below 2^62 (4q just
+    below 2^64, the edge of the lazy butterflies); then K12 on a ladder of
+    both, a schedule entry a ring and one for two rings."""
+    pool = tg.NTTParameters(logn, poly, np.uint64)
+    wide = _factored(logn, poly, np.uint64, largest_ntt_prime(62, 17))
+    plan = tg.MergePlan.from_params(wide if edge else pool, device=card)
+    rng = np.random.default_rng(logn)
+    x = from_numpy_u64(rng.integers(0, 1 << 64, size=(4, 1 << logn), dtype=np.uint64,
+                                    endpoint=False), card)
+    fx = hm.merge_u64_fwd(x, plan)
+    assert torch.equal(fx, hm.merge_u64_fwd_plain(x, plan))
+    assert torch.equal(hm.merge_u64_inv(x, plan), hm.merge_u64_inv_plain(x, plan))
+    fb = fx.flip(0).contiguous()
+    assert torch.equal(hm.merge_u64_polymul_inv(fx, fb, plan),
+                       hm.merge_u64_polymul_inv_plain(fx, fb, plan))
+    ladder = tg.RNSMergePlan.from_params([pool, wide] if edge else [wide, pool], device=card)
+    for midx, shift in (([1, 0, 1, 1], 0), ([1, 0], 1)):
+        m = torch.tensor(midx, dtype=torch.int32, device=card)
+        fx = hr.rns_u64_fwd(x, ladder, m, shift)
+        assert torch.equal(fx, hr.rns_u64_fwd_plain(x, ladder, m, shift))
+        assert torch.equal(hr.rns_u64_inv(x, ladder, m, shift),
+                           hr.rns_u64_inv_plain(x, ladder, m, shift))
+        fb = hr.rns_u64_fwd_plain(x.flip(0).contiguous(), ladder, m, shift)
+        assert torch.equal(hr.rns_u64_polymul_inv(fx, fb, ladder, m, shift),
+                           hr.rns_u64_polymul_inv_plain(fx, fb, ladder, m, shift))
+
+
+@pytest.mark.parametrize("logn", [11, 14, 16, 17])
+def test_odd_word_views_on_card(card, logn):
+    """F4: an operand that starts at an odd word, flat[1:1 + rows * B].view(rows, B),
+    through K8 (merge_u64_large_rowmat, rows of 2^(logn - 8)), K1-K3 and
+    K12: the kernels take 8-byte accesses where 16-byte ones would be
+    misaligned, and agree with their plain versions."""
+    p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = tg.MergePlan.from_params(p, device=card)
+    rows = 3
+    flat = from_numpy_u64(np.random.default_rng(logn).integers(
+        0, 1 << 64, size=(rows << logn) + 2, dtype=np.uint64), card)
+    x = flat[1:1 + (rows << logn)].view(rows, 1 << logn)
+    assert x.data_ptr() % 16 == 8 and x.is_contiguous()
+    xc = x.clone()
+    logb = logn - 8
+    rp = tg.MergePlan.from_params(tg.NTTParameters(logb, tg.ReductionPolynomial.X_N_minus,
+                                                   np.uint64), device=card)
+    for inverse in (False, True):
+        r = flat[1:1 + (rows << logn)].view(-1, 1 << logb)
+        assert torch.equal(hml.merge_u64_large_rowmat(r, rp, inverse),
+                           hml.rowmat_plain(xc.view(-1, 1 << logb), rp, inverse))
+    fx = hm.merge_u64_fwd(x, plan)
+    assert torch.equal(fx, hm.merge_u64_fwd_plain(xc, plan))
+    assert torch.equal(hm.merge_u64_inv(x, plan), hm.merge_u64_inv_plain(xc, plan))
+    fflat = torch.zeros_like(flat)
+    fo = fflat[1:1 + (rows << logn)].view(rows, 1 << logn)
+    fo.copy_(fx.flip(0))
+    assert torch.equal(hm.merge_u64_polymul_inv(fx, fo, plan),
+                       hm.merge_u64_polymul_inv_plain(fx, fo.clone(), plan))
+    ladder = tg.RNSMergePlan.from_params(_rns_members(logn, tg.ReductionPolynomial.X_N_plus),
+                                         device=card)
+    m = torch.tensor([2, 0, 1], dtype=torch.int32, device=card)
+    assert torch.equal(hr.rns_u64_fwd(x, ladder, m), hr.rns_u64_fwd_plain(xc, ladder, m))
+    assert torch.equal(hr.rns_u64_inv(x, ladder, m), hr.rns_u64_inv_plain(xc, ladder, m))
+    fr = hr.rns_u64_fwd_plain(xc, ladder, m)
+    fo.copy_(hr.rns_u64_fwd_plain(xc.flip(0).contiguous(), ladder, m))
+    assert torch.equal(hr.rns_u64_polymul_inv(fr, fo, ladder, m),
+                       hr.rns_u64_polymul_inv_plain(fr, fo.clone(), ladder, m))
 
 
 @pytest.mark.parametrize("poly", POLYS)

@@ -1,14 +1,16 @@
-"""The column wrappers refuse a modulus past their lazy butterflies' bound.
+"""The register-pass wrappers refuse a modulus past their lazy butterflies' bound.
 
-K7 (merge_u64_large_colfwd / _colinv), K7' (col_phase_local, the
-_local entries), K13-col (rns_u64_large_colfwd / _colinv), K9 and
-K11-col (fourstep_u64_col, fourstep_u32_col) and K14
+K1-K3 (merge_u64_fwd / _inv / _polymul_inv), K12 (rns_u64_fwd / _inv /
+_polymul_inv), K7 (merge_u64_large_colfwd / _colinv), K7'
+(col_phase_local, the _local entries), K13-col (rns_u64_large_colfwd /
+_colinv), K9 and K11-col (fourstep_u64_col, fourstep_u32_col) and K14
 (rns_fourstep_u64_col) keep values below 4q inside a launch, which fits
 the word only for q < 2^62 (u64) or q < 2^30 (u32).  No route hands them
 a wider q (each route's `covers`, LargePlan's constructors and the dist
 plan's colmat hold it); the wrappers refuse one before any launch, on
-any device, as K8's does.  The largest NTT prime below the bound still
-runs (the plain versions, on the CPU).
+any device, as K8's does, whatever `takes` would let through.  The
+largest NTT prime below the bound still runs (the plain versions, on
+the CPU).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
@@ -39,6 +42,22 @@ def params(q: int, logn: int = LOGN, dtype=np.uint64, four: bool = False):
 def words(n: int, batch: int = 2) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(n).integers(
         0, 1 << 62, size=(batch, n), dtype=np.int64))
+
+
+def k1(q, wrapper):
+    plan = tg.MergePlan.from_params(params(q), device="cpu")
+    x = words(plan.n) % q
+    return wrapper(x, x.flip(0), plan) if wrapper is hm.merge_u64_polymul_inv else wrapper(x, plan)
+
+
+def k12(q, wrapper):
+    plan = tg.RNSMergePlan.from_params([params(p) for p in (q, largest_ntt_prime(61, LOGN))],
+                                       device="cpu")
+    x = words(plan.n) % largest_ntt_prime(61, LOGN)  # canonical under both moduli
+    midx = torch.tensor([0, 1], dtype=torch.int32)
+    if wrapper is hr.rns_u64_polymul_inv:
+        return wrapper(x, x.flip(0), plan, midx)
+    return wrapper(x, plan, midx)
 
 
 def large(q: int):
@@ -90,6 +109,10 @@ def k14(q):
 
 # wrapper -> (call(q), log2 of its bound, logn of the primes it takes)
 CASES = {
+    **{f"merge_u64_{w}": ((lambda fn: lambda q: k1(q, fn))(getattr(hm, f"merge_u64_{w}")), 62,
+                          LOGN) for w in ("fwd", "inv", "polymul_inv")},
+    **{f"rns_u64_{w}": ((lambda fn: lambda q: k12(q, fn))(getattr(hr, f"rns_u64_{w}")), 62,
+                        LOGN) for w in ("fwd", "inv", "polymul_inv")},
     "merge_u64_large_colfwd": (lambda q: k7(q, False), 62, LOGN),
     "merge_u64_large_colinv": (lambda q: k7(q, True), 62, LOGN),
     "merge_u64_large_colfwd_local": (lambda q: k7_local(q, False), 62, LOGN),
@@ -103,13 +126,17 @@ CASES = {
 
 
 @pytest.mark.parametrize("wrapper", sorted(CASES))
-def test_column_wrapper_refuses_q_past_the_lazy_bound(wrapper):
+def test_column_wrapper_refuses_q_past_the_lazy_bound(wrapper, monkeypatch):
     """The largest NTT prime below twice the bound, which lies above it,
-    is refused; the largest below the bound runs."""
+    is refused, even with K1-K3's and K12's `takes` widened to every plan;
+    the largest below the bound runs."""
     call, bits, logn = CASES[wrapper]
     wide = largest_ntt_prime(bits + 1, logn)
     assert wide >= 1 << bits
-    with pytest.raises(tg.NTTDispatchError, match=f"2\\^{bits}"):
-        call(wide)
+    with monkeypatch.context() as mp:
+        mp.setattr(hm, "takes", lambda plan: True)
+        mp.setattr(hr, "takes", lambda plan: True)
+        with pytest.raises(tg.NTTDispatchError, match=f"2\\^{bits}"):
+            call(wide)
     y = call(largest_ntt_prime(bits, logn))
     assert y.dtype == torch.int64 and bool((y >= 0).all())

@@ -12,11 +12,15 @@
   merge_u32.cu, compiled by g++ through a host emulation of the few CUDA
   constructs they use (one thread per block, blocks in order, dynamic
   shared memory a host array), against the plain versions: u64 at logn
-  11-17, the big-ring column and row kernels at small splits (A = 4..512,
-  B = 8..2048, a nested plan), u32 at every tile shape of its split rule
-  (logn 8-23).  This checks the kernels' index arithmetic, twiddle
-  addressing and shape refusals without a card (`_emulate` also serves
-  the other files' sources: kmerge.cu in test_torch_kmerge.py).
+  11-17 (K1-K3 and K12 at every pass split, at the pool prime and the
+  largest NTT prime below 2^62), the big-ring column and row kernels at
+  small splits (A = 4..512, B = 8..2048, a nested plan), u32 at every
+  tile shape of its split rule (logn 8-23); and merge_u64.cu and
+  merge_u64_large.cu under UBSan's alignment check on operands that
+  start at an odd word.  This checks the kernels' index arithmetic,
+  twiddle addressing, lazy bounds, alignment fallbacks and shape
+  refusals without a card (`_emulate` also serves the other files'
+  sources: kmerge.cu in test_torch_kmerge.py).
 - Wrapper contract: CPU tensors take the plain version (counted), other
   devices launch or raise, bad operands raise, and the route table.
 """
@@ -49,6 +53,7 @@ from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.ops.merge_ntt import (from_lanes, merge_intt_lanes,
                                             merge_ntt_lanes, to_lanes)
 
@@ -223,7 +228,7 @@ template <class F> void emu_launch(long long grid, F f) {
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 4, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1,
+_LAUNCHES = {"merge_u64": 2, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1,
              "kmerge": 3}
 
 
@@ -252,7 +257,8 @@ def _emulated_source(name: str) -> str:
     return "".join(out) + src[i:]
 
 
-def _emulate(tmp_path_factory, name: str) -> ctypes.CDLL:
+def _emulate(tmp_path_factory, name: str, flags=()) -> ctypes.CDLL:
+    """The emulated csrc/<name>.cu, compiled by g++ with `flags` added."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the emulated kernels")
     d = tmp_path_factory.mktemp(f"emu_{name}")
@@ -262,7 +268,7 @@ def _emulate(tmp_path_factory, name: str) -> ctypes.CDLL:
         if header.endswith(".cuh"):
             shutil.copy(os.path.join(CSRC, header), d)
     so = d / "libemu.so"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{d}",
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", *flags, f"-I{d}",
                     "-o", str(so), str(d / f"{name}_emu.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
@@ -322,6 +328,142 @@ def test_cuda_source_emulated_refuses_bad_shapes(emulated):
                                     plan.fwd_table.data_ptr(), plan.fwd_shoup.data_ptr(),
                                     plan.q, 1, 1, None)
     assert rc == 1  # cudaErrorInvalidValue: logn 10 has no tile shape
+
+
+def _k1_emulated(lib, entry, plan, *xs, y=None):
+    """merge_u64.cu's one-modulus entry `entry` through the emulation, into
+    y (a fresh tensor by default)."""
+    inverse = entry != "merge_u64_forward"
+    table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
+                    else (plan.fwd_table, plan.fwd_shoup))
+    one_s = (1 << 64) // plan.q
+    consts = {"merge_u64_forward": (plan.q, one_s),
+              "merge_u64_inverse": (plan.q, one_s, plan.n_inv, plan.n_inv_shoup),
+              "merge_u64_polymul_inverse": (plan.q, plan.bit, plan.mu, plan.n_inv,
+                                            plan.n_inv_shoup)}[entry]
+    y = torch.empty_like(xs[0]) if y is None else y
+    assert getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
+                               plan.logn, hm.split(plan.logn), table.data_ptr(),
+                               shoup.data_ptr(), *consts, int(plan.xnp), None) == 0, entry
+    return y
+
+
+def _k12_emulated(lib, entry, plan, midx, *xs, y=None):
+    """merge_u64.cu's RNS entry `entry` (one schedule entry a ring) through
+    the emulation, into y (a fresh tensor by default)."""
+    inverse = entry != "rns_u64_forward"
+    table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
+                    else (plan.fwd_tables, plan.fwd_shoup))
+    y = torch.empty_like(xs[0]) if y is None else y
+    assert getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
+                               plan.logn, hm.split(plan.logn), midx.data_ptr(), midx.numel(),
+                               0, table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(),
+                               int(plan.xnp), None) == 0, entry
+    return y
+
+
+@pytest.mark.parametrize("logn", range(11, 18))
+def test_cuda_source_merge_u64_emulated_every_pass_split(emulated, logn):
+    """K1-K3 and K12's register passes at every logn 11-17, so at every
+    (log A, log B) split of the route: columns of 4-8 stages (two or three
+    radix-8 passes), rows of 7-9 (three), both polynomials, on any u64
+    word, at the pool prime and at the largest NTT prime below 2^62 (4q
+    just below 2^64, the lazy butterflies' edge); K12 on a ladder of the
+    two, a ring of each; every entry against its plain version."""
+    x = to_lanes(np.random.default_rng(logn).integers(0, 1 << 64, size=(2, 1 << logn),
+                                                       dtype=np.uint64), True)
+    midx = torch.tensor([1, 0], dtype=torch.int32)
+    for poly in (tg.ReductionPolynomial.X_N_minus, tg.ReductionPolynomial.X_N_plus):
+        ms = [tg.NTTParameters(logn, poly, np.uint64),
+              _factored(logn, poly, np.uint64, largest_ntt_prime(62, 17))]
+        for p in ms:
+            plan = tg.MergePlan.from_params(p, device="cpu")
+            fx = _k1_emulated(emulated, "merge_u64_forward", plan, x)
+            assert torch.equal(fx, hm.merge_u64_fwd_plain(x, plan)), (poly, plan.q)
+            assert torch.equal(_k1_emulated(emulated, "merge_u64_inverse", plan, x),
+                               hm.merge_u64_inv_plain(x, plan)), (poly, plan.q)
+            fb = fx.flip(0).contiguous()
+            assert torch.equal(_k1_emulated(emulated, "merge_u64_polymul_inverse", plan, fx, fb),
+                               hm.merge_u64_polymul_inv_plain(fx, fb, plan)), (poly, plan.q)
+        ladder = tg.RNSMergePlan.from_params(ms, device="cpu")
+        fx = _k12_emulated(emulated, "rns_u64_forward", ladder, midx, x)
+        assert torch.equal(fx, hr.rns_u64_fwd_plain(x, ladder, midx)), poly
+        assert torch.equal(_k12_emulated(emulated, "rns_u64_inverse", ladder, midx, x),
+                           hr.rns_u64_inv_plain(x, ladder, midx)), poly
+        fb = hr.rns_u64_fwd_plain(x.flip(0).contiguous(), ladder, midx)  # row i mod q_midx[i]
+        assert torch.equal(
+            _k12_emulated(emulated, "rns_u64_polymul_inverse", ladder, midx, fx, fb),
+            hr.rns_u64_polymul_inv_plain(fx, fb, ladder, midx)), poly
+
+
+@pytest.fixture(scope="module")
+def emulated_ubsan(tmp_path_factory):
+    """merge_u64.cu and merge_u64_large.cu emulated under UBSan's alignment
+    check: a 16-byte access at an address that is not 16-byte aligned
+    reports itself on stderr."""
+    return {name: _emulate(tmp_path_factory, name, ("-fsanitize=alignment",))
+            for name in ("merge_u64", "merge_u64_large")}
+
+
+def _odd_word(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x in a view that starts at an odd word, 8 bytes past a
+    16-byte boundary, as flat[1:1 + x.numel()] of a fresh tensor does."""
+    flat = torch.zeros(x.numel() + 2, dtype=torch.int64)
+    start = 1 if flat.data_ptr() % 16 == 0 else 0
+    v = flat[start:start + x.numel()].view(x.shape)
+    v.copy_(x)
+    assert v.data_ptr() % 16 == 8
+    return v
+
+
+@pytest.mark.parametrize("logn", [11, 14, 16])
+def test_cuda_source_emulated_odd_word_views(emulated_ubsan, capfd, logn):
+    """F4: K8 (merge_u64_large_rowmat, rows of 2^(logn - 7)), K1-K3 and K12
+    on inputs and outputs that start at an odd word take 8-byte accesses
+    where they would move 16 bytes (UBSan reports no misaligned access)
+    and agree with the plain versions; K3 with one operand aligned and the
+    other not."""
+    lib, large = emulated_ubsan["merge_u64"], emulated_ubsan["merge_u64_large"]
+    p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = tg.MergePlan.from_params(p, device="cpu")
+    x = to_lanes(np.random.default_rng(logn).integers(0, 1 << 64, size=(2, p.n),
+                                                       dtype=np.uint64), True)
+    xo = _odd_word(x)
+    fx = _k1_emulated(lib, "merge_u64_forward", plan, xo, y=_odd_word(x))
+    assert torch.equal(fx, hm.merge_u64_fwd_plain(x, plan))
+    assert torch.equal(_k1_emulated(lib, "merge_u64_inverse", plan, xo, y=_odd_word(x)),
+                       hm.merge_u64_inv_plain(x, plan))
+    fb = fx.flip(0).contiguous()
+    for a, b in ((fx, fb), (fx.clone(), _odd_word(fb))):
+        assert torch.equal(_k1_emulated(lib, "merge_u64_polymul_inverse", plan, a, b,
+                                        y=_odd_word(x)),
+                           hm.merge_u64_polymul_inv_plain(fx, fb, plan))
+    ladder = tg.RNSMergePlan.from_params(
+        [p, _factored(logn, tg.ReductionPolynomial.X_N_plus, np.uint64,
+                      largest_ntt_prime(62, 17))], device="cpu")
+    midx = torch.tensor([1, 0], dtype=torch.int32)
+    f12 = _k12_emulated(lib, "rns_u64_forward", ladder, midx, xo, y=_odd_word(x))
+    assert torch.equal(f12, hr.rns_u64_fwd_plain(x, ladder, midx))
+    assert torch.equal(_k12_emulated(lib, "rns_u64_inverse", ladder, midx, xo, y=_odd_word(x)),
+                       hr.rns_u64_inv_plain(x, ladder, midx))
+    assert torch.equal(_k12_emulated(lib, "rns_u64_polymul_inverse", ladder, midx, f12,
+                                     _odd_word(f12), y=_odd_word(x)),
+                       hr.rns_u64_polymul_inv_plain(f12, f12, ladder, midx))
+    logb = logn - 7
+    rp = tg.MergePlan.from_params(tg.NTTParameters(logb, tg.ReductionPolynomial.X_N_minus,
+                                                   np.uint64), device="cpu")
+    r = x.view(-1, 1 << logb)
+    for inverse in (False, True):
+        table, shoup = ((rp.inv_table, rp.inv_shoup) if inverse
+                        else (rp.fwd_table, rp.fwd_shoup))
+        ro, y = _odd_word(r), _odd_word(r)
+        assert large.merge_u64_large_rowmat(
+            0, ro.data_ptr(), y.data_ptr(), r.shape[0], logb, table.data_ptr(),
+            shoup.data_ptr(), rp.q, (1 << 64) // rp.q, rp.n_inv, rp.n_inv_shoup, int(inverse),
+            int(rp.xnp), None) == 0
+        assert torch.equal(y, hml.rowmat_plain(r, rp, inverse)), inverse
+    err = capfd.readouterr().err
+    assert "misaligned" not in err, err
 
 
 def _emulated_steps(lib, lib64):
