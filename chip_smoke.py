@@ -83,9 +83,9 @@ at once) and runs, on the card:
    one-block limit, 2^20 x 16 and 2^24 x 1 against the default route,
    signed input and PerCoefficient); K17's kmerge_u32 at u32 2^16 x 128
    and 2^20 x 16, q = 469762049, every row against the plain version and
-   ntt_lanes (K4, K6), and at logn 7, 8 X^N - 1, a 30-bit q at 14 and
-   2^25 x 1; the four entries' and their plain versions' times beside
-   K1/K2 and K4.
+   ntt_lanes (K4, K6), and at logn 7, 8 X^N - 1, a 30-bit q at 14, 15
+   X^N - 1 (both sides of the one-block limit) and 2^25 x 1; the four
+   entries' and their plain versions' times beside K1/K2 and K4.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -817,12 +817,14 @@ def kmerge_phase(dev, rng, reset, launches, err, times, bounds, sizes=KMERGE_FUL
           "K15 u64 2^12 PerCoefficient == the default route")
 
     # -- 28. K17 (kmerge_u32) at the JAX bench line's u32 widths, X^N + 1,
-    # q = 469762049, then its check cells
+    # q = 469762049, then its check cells (both sides of the one-block
+    # limit, 14 and 15, among them)
     k17 = {}
     (l16, b16), (l20, b20) = sizes["k17"]
     for logn, batch, poly, bits in ((l16, b16, PLUS, None), (l20, b20, PLUS, None),
                                     (7, 4, PLUS, None), (8, 4, MINUS, None),
-                                    (14, 4, PLUS, 30), (*sizes["k17_top"], PLUS, None)):
+                                    (14, 4, PLUS, 30), (15, 4, MINUS, None),
+                                    (*sizes["k17_top"], PLUS, None)):
         if bits is None:
             p32 = params(logn, poly, np.uint32)
         else:

@@ -80,10 +80,10 @@ _ENTRIES = {
            for d in ("fwd", "inv")},
     },
     "kmerge": {
-        **{f"kmerge_{w}_forward": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p, _p,
+        **{f"kmerge_{w}_forward": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p,
                                    word, word, _i32, _p]
            for w, word in (("u64", _u64), ("u32", _u32))},
-        **{f"kmerge_{w}_inverse": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p, _p,
+        **{f"kmerge_{w}_inverse": [_i32, _p, _p, _i64, _i32, _p, _p, _p, _p, _p,
                                    word, word, word, word, _i32, _p]
            for w, word in (("u64", _u64), ("u32", _u32))},
     },

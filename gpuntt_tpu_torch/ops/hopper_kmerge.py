@@ -16,8 +16,10 @@ W^-1, the column inverse, n^-1.
 pallas_merge.py:62-143) as int64 tensors on its device, each with its
 Shoup companion: the column prefix of the bit-reversed table (2A entries
 for X^N + 1, A for X^N - 1), the 64-entry row table, n^-1, and the
-(A, 128) W table of each direction, built at its first use (at u64
-logn 24 one W and its companion are 256 MiB).  `kernel_plan(merge_plan)`
+(A, 128) W table of each direction, built at its first use with its
+companion interleaved, as the kernels read it: an (A, 128, 2) tensor of
+(entry, companion) pairs for u64 (256 MiB at logn 24), one packed word
+entry | companion << 32 a position for u32.  `kernel_plan(merge_plan)`
 builds it once per MergePlan and caches it there, as the JAX package
 caches its plan on the parameters (gpuntt_tpu/ops/merge_ntt.py:246-256).
 
@@ -27,8 +29,9 @@ K17 (`pallas_merge_u32`, pallas_merge.py:313) has its counterpart here:
     kmerge_u32(x, plan, inverse=True)  <- _inv_kernel_u32 (pallas_merge.py:255)
 
 on a contiguous (batch, N) int64 tensor of u32 values, u32 plans with
-q < 2^30 and logn 7-25: the bit-reversed merge NTT in canonical
-residues, and its inverse with n^-1.  No dispatch route calls it, as in
+q < 2^30 (its lazy butterflies keep values below 4q < 2^32) and logn
+7-25: the bit-reversed merge NTT in canonical residues, and its inverse
+with n^-1.  No dispatch route calls it, as in
 the JAX package; its u64 twin K15 is hopper_kmerge64.py's.  Both run on
 csrc/kmerge.cu (see the note there).  On a CPU tensor a wrapper runs the
 kernel's plain version, and only there; on a CUDA tensor it launches the
@@ -114,7 +117,8 @@ class KernelMergePlan:
     device: torch.device
     root: int | None = None
     iroot: int | None = None
-    # direction (False forward, True inverse) -> (W, its companion), (A, 128)
+    # direction (False forward, True inverse) -> W with its companion in
+    # the kernels' layout (w_kernel)
     _w: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -171,7 +175,7 @@ class KernelMergePlan:
         plan = KernelMergePlan._build(q, logn, xnp, is64, n_inv, col_fwd, row_fwd, col_inv,
                                       row_inv, device)
         for inverse, w in ((False, w_fwd), (True, w_inv)):
-            plan._w[inverse] = plan._pair(np.asarray(w, dtype=np.uint64).reshape(plan.A, LANES))
+            plan._w[inverse] = plan._w_layout(np.asarray(w, dtype=np.uint64).reshape(plan.A, LANES))
         return plan
 
     @staticmethod
@@ -197,27 +201,45 @@ class KernelMergePlan:
         comp = bo.shoup_companion(table, self.q, self.word).astype(np.uint64)
         return from_numpy_u64(table, self.device), from_numpy_u64(comp, self.device)
 
-    def w(self, inverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
-        """The (A, 128) W table of a direction and its companion, built on
-        first call and kept."""
+    def _w_layout(self, table: np.ndarray) -> torch.Tensor:
+        """An (A, 128) W table with its Shoup companion in the kernels'
+        layout: u64 (A, 128, 2) (entry, companion) pairs, one 16-byte load
+        a word; u32 (A, 128) words entry | companion << 32, one 8-byte
+        load a word."""
+        comp = bo.shoup_companion(table, self.q, self.word).astype(np.uint64)
+        if self.is64:
+            return from_numpy_u64(np.stack((table, comp), -1), self.device)
+        return from_numpy_u64(table | (comp << np.uint64(32)), self.device)
+
+    def w_kernel(self, inverse: bool) -> torch.Tensor:
+        """W of a direction with its companion in the kernels' layout
+        (`_w_layout`), built on first call and kept."""
         if inverse not in self._w:
             root = self.iroot if inverse else self.root
-            self._w[inverse] = self._pair(_w_table(root, self.q, self.A, self.xnp))
+            self._w[inverse] = self._w_layout(_w_table(root, self.q, self.A, self.xnp))
         return self._w[inverse]
 
+    def w(self, inverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The (A, 128) W table of a direction and its companion: views
+        of `w_kernel` (u64), or unpacked from it (u32)."""
+        wk = self.w_kernel(inverse)
+        if self.is64:
+            return wk[..., 0], wk[..., 1]
+        return wk & 0xFFFFFFFF, (wk >> 32) & 0xFFFFFFFF  # >> is arithmetic on int64
+
     def tables(self, inverse: bool) -> tuple[torch.Tensor, ...]:
-        """(col, col_s, W, W_s, row, row_s) of a direction: the kernels'
-        argument order."""
-        w, ws = self.w(inverse)
+        """(col, col_s, W, row, row_s) of a direction, W in the kernels'
+        layout: the kernels' argument order."""
+        wk = self.w_kernel(inverse)
         if inverse:
-            return self.col_inv, self.col_inv_s, w, ws, self.row_inv, self.row_inv_s
-        return self.col_fwd, self.col_fwd_s, w, ws, self.row_fwd, self.row_fwd_s
+            return self.col_inv, self.col_inv_s, wk, self.row_inv, self.row_inv_s
+        return self.col_fwd, self.col_fwd_s, wk, self.row_fwd, self.row_fwd_s
 
     def device_bytes(self) -> int:
         """Bytes of the tables this plan holds now (W only once built)."""
         ts = [getattr(self, f.name) for f in dataclasses.fields(self)
               if isinstance(getattr(self, f.name), torch.Tensor)]
-        ts += [t for pair in self._w.values() for t in pair]
+        ts += list(self._w.values())
         return sum(t.numel() * t.element_size() for t in ts)
 
 
@@ -239,10 +261,13 @@ def kmerge_plain(x: torch.Tensor, plan: KernelMergePlan, inverse: bool = False):
     """What the factored kernels compute, in torch ops on any device: x
     mod q, then the column stages (the merge network's first log A stages,
     on the column prefix), W, the 128-point row NTT; or the mirror with
-    n^-1 last.  Every stage keeps canonical residues, as the kernels do."""
+    n^-1 last.  Every stage keeps canonical residues, as the kernels'
+    canonical u64 instance does; their lazy instances reach the same
+    residues at the end of each launch."""
     ops, b, A = butterfly_ops(plan.q, plan.is64), x.shape[0], plan.A
     x = (bo.reduce_forced64 if plan.is64 else bo.reduce_forced32)(x, plan.q)
-    col, col_s, w, ws, row, row_s = plan.tables(inverse)
+    col, col_s, _, row, row_s = plan.tables(inverse)
+    w, ws = plan.w(inverse)
     if not inverse:
         y = ct_stages(x, col, col_s, ops, plan.logn, plan.xnp, range(plan.logn - LOG_LANES))
         y = ops.mulc(y.reshape(b, A, LANES), w, ws)

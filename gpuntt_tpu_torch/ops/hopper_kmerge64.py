@@ -8,9 +8,12 @@ The counterpart of the JAX package's ops/pallas_merge64.py:
 on a contiguous (batch, N) int64 tensor of u64 bit patterns and a u64
 KernelMergePlan (hopper_kmerge.py) on the same device: the bit-reversed
 merge NTT in canonical residues, and its inverse with n^-1, any input
-word reduced mod q first.  It runs on csrc/kmerge.cu, whose one value
-policy (canonical residues after every butterfly) is exact for every
-q < 2^63, past the q < 2^62 of the u64 kernels of merge_u64.cu.
+word reduced mod q first.  It runs on csrc/kmerge.cu's register passes:
+lazy butterflies (values below 4q) for q < 2^62, and for q in [2^62,
+2^63), where 4q no longer fits 64 bits, a canonical instance of the
+same passes (every sum below 2q), which the C entry picks from q.  So
+it takes every q < 2^63, past the q < 2^62 of the u64 kernels of
+merge_u64.cu.
 
 The JAX package reaches K15 through ntt_lanes / intt_lanes with any
 `use_pallas` string that names no MXU path (such as "vpu") on a u64 plan

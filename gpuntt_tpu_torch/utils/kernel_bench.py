@@ -1,8 +1,11 @@
 """Check and time the kernels of csrc/merge_u64.cu (K1-K3, K12),
-csrc/merge_u32.cu, csrc/merge_u64_large.cu (K7, K7', K8, K13) and
-csrc/fourstep.cu (K9, K11-col, K14) on one CUDA card.
+csrc/merge_u32.cu, csrc/merge_u64_large.cu (K7, K7', K8, K13),
+csrc/fourstep.cu (K9, K11-col, K14) and csrc/kmerge.cu (K15, K17) on one
+CUDA card.
 
-    python3 gpuntt_tpu_torch/utils/kernel_bench.py
+    python3 gpuntt_tpu_torch/utils/kernel_bench.py            # all of them
+    python3 gpuntt_tpu_torch/utils/kernel_bench.py kmerge     # K15, K17 only
+    python3 gpuntt_tpu_torch/utils/kernel_bench.py variants   # kmerge.cu's variants
 
 Imports `gpuntt_tpu_torch` from the Python path, not relative to this
 file, so one copy of the script times two trees on one card, one after the other:
@@ -16,16 +19,24 @@ PERF.md section 6 with CUDA events (utils/timing.time_cuda: 3 warm-ups,
 the median of 10 windows of 10 calls) and the end-to-end entries at u32
 2^20 x 16, u64 2^16 x 128, 2^24 x 1 and 2^27 x 1 and the 4-step u64 2^24
 x 1.  The fused inverses multiply two different spectra, so every b word
-is read from memory.  The last line is one JSON object of {name: [ms,
-spread]}.  Exits 1 without a CUDA card.
+is read from memory.  `kmerge` builds, checks and times csrc/kmerge.cu
+alone (check_kmerge, kmerge_timings).  `variants` compiles copies of
+kmerge.cu with the design alternatives of KMERGE_VARIANTS substituted
+for the shipped constants (only the shipped ones are in the source),
+holds each to the plain versions and times them in two turns.  The last
+line is one JSON object of {name: [ms, spread]}.  Exits 1 without a
+CUDA card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,6 +46,8 @@ import gpuntt_tpu_torch as g
 from gpuntt_tpu_torch.arith.host import is_prime_u64
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
@@ -270,18 +283,208 @@ def check_u32(dev, rng) -> None:
                  f"u32 RNS logn {logn} fused polymul inverse")
 
 
+def check_kmerge(dev, rng) -> None:
+    """K15 (kmerge_u64) and K17 (kmerge_u32) at every logn 7-17 (the
+    one-block form, one and two column runs), both polynomials, forward
+    and inverse, on any input word and on an odd-word view of it: u64 at
+    the 60-bit pool prime and the largest NTT prime below 2^62 (the lazy
+    instance, 4q just below 2^64) and the largest below 2^63 (the
+    canonical instance), u32 at the pool prime and the largest below
+    2^30."""
+    for logn in range(7, 18):
+        for poly in (MINUS, PLUS):
+            for dtype, fn, qs in (
+                    (np.uint64, hk64.kmerge_u64,
+                     (None, largest_ntt_prime(62, logn), largest_ntt_prime(63, logn))),
+                    (np.uint32, hk.kmerge_u32, (None, largest_ntt_prime(30, logn)))):
+                x = words(rng, (3, 1 << logn), 64 if dtype == np.uint64 else 32, dev)
+                for q in qs:
+                    kp = hk.KernelMergePlan.from_params(params(logn, poly, dtype, q), device=dev)
+                    for inverse in (False, True):
+                        what = (f"{fn.__name__} logn {logn} {poly.name} q={kp.q} "
+                                f"inverse={inverse}")
+                        want = hk.kmerge_plain(x, kp, inverse)
+                        same(fn(x, kp, inverse), want, what)
+                        same(fn(odd_word(x), kp, inverse), want, f"{what} odd-word view")
+
+
+# kmerge_timings' cells: (word, logn, batch, bits), bits None for the pool
+# prime, else the largest NTT prime below 2^bits: the headline cells
+# (2^16 x 128), both sides of the one-block limit, 2^20 x 16, and K15's
+# canonical instance at a 63-bit prime
+KMERGE_CELLS = [(64, 16, 128, None), (64, 16, 128, 63), (64, 13, 128, None),
+                (64, 14, 128, None), (64, 20, 16, None), (32, 16, 128, None),
+                (32, 14, 128, None), (32, 15, 128, None), (32, 20, 16, None)]
+
+
+def _kmerge_cell(dev, rng, word: int, logn: int, batch: int, bits):
+    """(plan, canonical input, name) of a KMERGE_CELLS cell, X^N + 1."""
+    q = largest_ntt_prime(bits, logn) if bits else None
+    kp = hk.KernelMergePlan.from_params(
+        params(logn, PLUS, np.uint64 if word == 64 else np.uint32, q), device=dev)
+    x = words(rng, (batch, 1 << logn), word, dev) % kp.q
+    policy = "canonical" if kp.q >= 1 << 62 else "lazy"
+    return kp, x, f"u{word} 2^{logn}x{batch}" + (f" q={kp.q} ({policy})" if bits else "")
+
+
+def kmerge_timings(dev, rng, t) -> None:
+    """K15 and K17, both directions, at KMERGE_CELLS."""
+    for word, logn, batch, bits in KMERGE_CELLS:
+        kp, x, cell = _kmerge_cell(dev, rng, word, logn, batch, bits)
+        fn, k = (hk64.kmerge_u64, "K15") if word == 64 else (hk.kmerge_u32, "K17")
+        t(f"{k} fwd {cell}", lambda: fn(x, kp))
+        t(f"{k} inv {cell}", lambda: fn(x, kp, True))
+
+
+# kmerge.cu's design variants (PERF.md section 6): (shipped text, variant
+# text, times it occurs) substitutions into the source, and the W layout
+# the variant's entries take: "kernel", the plan's interleaved W (one
+# pointer); "pair", W and its companion as two tables (two pointers)
+_PAIR = [
+    ("  const uint64_t* w;\n  const uint64_t* row;",
+     "  const uint64_t* w;\n  const uint64_t* ws;\n  const uint64_t* row;", 1),
+    ("P::wtw(t.w, ", "P::tw(t.w, t.ws, ", 4),
+    ("const uint64_t* cols, const uint64_t* w,", "const uint64_t* cols, const uint64_t* w, "
+     "const uint64_t* ws,", 4),
+    ("{col, cols, w, row, rows}", "{col, cols, w, ws, row, rows}", 4),
+]
+KMERGE_VARIANTS = {
+    "shipped": ([], "kernel"),
+    "W as two tables": (_PAIR, "pair"),
+    "cols C=16 at every run": (
+        [("  return kLogColTile - L < kLogRow ? kLogColTile - L : kLogRow;", "  return 4;", 1)],
+        "kernel"),
+    "cols tile 2^12 (u64 4 blocks)": (
+        [("constexpr int kLogColTile = 13;", "constexpr int kLogColTile = 12;", 1),
+         ("constexpr int kColBlocks = sizeof(T) == 8 ? 3 : 4;", "constexpr int kColBlocks = 4;",
+          1)], "kernel"),
+    "rows R=16": ([("constexpr int kLogRows = 5;", "constexpr int kLogRows = 4;", 1)], "kernel"),
+    "rows R=64 (3 blocks)": (
+        [("constexpr int kLogRows = 5;", "constexpr int kLogRows = 6;", 1),
+         ("constexpr int kRowBlocks = 4;", "constexpr int kRowBlocks = 3;", 1)], "kernel"),
+    "one block up to 2^13": ([("constexpr int kLogTile = 14;", "constexpr int kLogTile = 13;",
+                               1)], "kernel"),
+    "one block up to 2^15 u32": (
+        [("constexpr int kLogTile = 14;", "constexpr int kLogTile = 15;", 1),
+         ("  if (logn <= kLogTile) return run_whole<P, true>",
+          "  if (logn <= kLogTile - (sizeof(typename P::T) == 8)) return run_whole<P, true>", 1),
+         ("  if (logn <= kLogTile) return run_whole<P, false>",
+          "  if (logn <= kLogTile - (sizeof(typename P::T) == 8)) return run_whole<P, false>",
+          1)], "kernel"),
+}
+
+
+def _variant_libs(names) -> dict:
+    """Each variant of `names` compiled from csrc/kmerge.cu (nvcc, all at
+    once, with _build's flags) and loaded: {name: (CDLL, ptxas log)}."""
+    root = tempfile.mkdtemp(prefix="kmerge_variants_")
+    with open(os.path.join(_build._CSRC, "kmerge.cu")) as f:
+        shipped = f.read()
+    jobs = {}
+    for i, name in enumerate(names):
+        src = shipped
+        for old, new, count in KMERGE_VARIANTS[name][0]:
+            if src.count(old) != count:
+                raise ValueError(f"variant {name!r}: {old!r} is not in kmerge.cu {count} times")
+            src = src.replace(old, new)
+        d = os.path.join(root, str(i))
+        os.makedirs(d)
+        for h in os.listdir(_build._CSRC):
+            if h.endswith(".cuh"):
+                with open(os.path.join(_build._CSRC, h)) as f, open(os.path.join(d, h), "w") as o:
+                    o.write(f.read())
+        with open(os.path.join(d, "kmerge.cu"), "w") as o:
+            o.write(src)
+        so = os.path.join(d, "libkmerge.so")
+        jobs[name] = (so, subprocess.Popen([_build._nvcc(), *_build._FLAGS, "-o", so,
+                                            os.path.join(d, "kmerge.cu")],
+                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"variant {name!r}: nvcc failed:\n{err}")
+        lib = ctypes.CDLL(so)
+        for entry, argtypes in _build._ENTRIES["kmerge"].items():
+            if KMERGE_VARIANTS[name][1] == "pair":  # the companion's pointer after W's
+                argtypes = argtypes[:8] + [ctypes.c_void_p] + argtypes[8:]
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = (lib, out + err)
+    return libs
+
+
+def _variant_call(lib, w_mode: str, x, kp, inverse: bool, pairs: dict):
+    """One call of a variant's entry, as hopper_kmerge.launch makes it;
+    `pairs` caches the "pair" layout's contiguous tables."""
+    col, cols, wk, row, rows = kp.tables(inverse)
+    ws = []
+    if w_mode == "pair":
+        key = (id(kp), inverse)
+        if key not in pairs:
+            pairs[key] = (kp, *(t.contiguous() for t in kp.w(inverse)))
+        wk, ws = pairs[key][1], [pairs[key][2]]
+    y = torch.empty_like(x)
+    consts = [kp.q, (1 << kp.word) // kp.q] + ([kp.n_inv, kp.n_inv_s] if inverse else [])
+    entry = getattr(lib, f"kmerge_u{kp.word}_{'inverse' if inverse else 'forward'}")
+    rc = entry(x.device.index, x.data_ptr(), y.data_ptr(), x.shape[0], kp.logn,
+               *(v.data_ptr() for v in (col, cols, wk, *ws, row, rows)), *consts, int(kp.xnp),
+               torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"kmerge variant launch failed: cudaError {rc}")
+    return y
+
+
+def variants(dev, rng, t) -> None:
+    """Every KMERGE_VARIANTS entry: built, held to the plain versions at
+    logn 12-17 (u64 at the pool prime and a 63-bit one, u32), then timed
+    at KMERGE_CELLS in two turns (the variants in order, then reversed)."""
+    t0 = time.perf_counter()
+    libs = _variant_libs(list(KMERGE_VARIANTS))
+    print(f"variant builds {time.perf_counter() - t0:.1f} s")
+    pairs: dict = {}
+    for name, (lib, log) in libs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.split('info    :')[-1].strip()}")
+        w_mode = KMERGE_VARIANTS[name][1]
+        for logn in range(12, 18):
+            for dtype, q in ((np.uint64, None), (np.uint64, largest_ntt_prime(63, logn)),
+                             (np.uint32, None)):
+                kp = hk.KernelMergePlan.from_params(params(logn, PLUS, dtype, q), device=dev)
+                x = words(rng, (3, 1 << logn), 64 if dtype == np.uint64 else 32, dev)
+                for inverse in (False, True):
+                    same(_variant_call(lib, w_mode, x, kp, inverse, pairs),
+                         hk.kmerge_plain(x, kp, inverse),
+                         f"variant {name} u{kp.word} logn {logn} q={kp.q} inverse={inverse}")
+    cells = [_kmerge_cell(dev, rng, *c) for c in KMERGE_CELLS]
+    for turn, order in enumerate((list(libs), list(libs)[::-1])):
+        for name in order:
+            lib, w_mode = libs[name][0], KMERGE_VARIANTS[name][1]
+            for kp, x, cell in cells:
+                for inverse in (False, True):
+                    t(f"{name} | {'inv' if inverse else 'fwd'} {cell} | turn {turn}",
+                      lambda: _variant_call(lib, w_mode, x, kp, inverse, pairs))
+
+
 def ladder(logn: int, count: int, poly, dtype, bits: int, dev):
     ms = [params(logn, poly, dtype, q) for q in g.find_ntt_primes(bits, logn, count)]
     return g.RNSMergePlan.from_params(ms, device=dev)
 
 
-def timings(dev, rng) -> dict:
-    out = {}
-
+def timer(out: dict):
+    """t(name, fn): time fn on the card into out[name], and print it."""
     def t(name, fn):
         ms, spread = time_cuda(fn)
         out[name] = (ms, spread)
         print(f"time {name}: {ms:.5f} ms (spread {spread:.3f})")
+    return t
+
+
+def timings(dev, rng) -> dict:
+    out = {}
+    t = timer(out)
 
     # K1-K3 at u64 2^16 x 128 and on 2^24's rows (256 x 2^16), K12 at RNS
     # 2^16 x 64 L8; the u64 2^16 x 128 entries
@@ -402,6 +605,7 @@ def timings(dev, rng) -> dict:
         t(f"{k} inv RNS u32 2^{logn}x{batch} L8", lambda: hr32.rns_u32_inv(fx, plan, midx))
         t(f"{k} fused inv RNS u32 2^{logn}x{batch} L8",
           lambda: hr32.rns_u32_polymul_inv(fx, fb, plan, midx))
+    kmerge_timings(dev, rng, t)
     return out
 
 
@@ -415,18 +619,33 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip())
     rng = np.random.default_rng(0)
+    mode = sys.argv[1] if len(sys.argv) > 1 else "all"
+    out: dict = {}
+    if mode == "variants":
+        variants(dev, rng, timer(out))
+        print(json.dumps(out))
+        return 0
     t0 = time.perf_counter()
-    libs = ("merge_u64", "merge_u32", "merge_u64_large", "fourstep")
-    _build.build_all()
+    libs = ("kmerge",) if mode == "kmerge" else tuple(_build._ENTRIES)
+    if mode == "kmerge":
+        _build.library("kmerge")
+    else:
+        _build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s")
     for name in libs:
         ptxas_lines(name)
-    check_merge(dev, rng)
-    check_k8(dev, rng)
-    check_cols(dev, rng)
-    check_u32(dev, rng)
+    if mode != "kmerge":
+        check_merge(dev, rng)
+        check_k8(dev, rng)
+        check_cols(dev, rng)
+        check_u32(dev, rng)
+    check_kmerge(dev, rng)
     torch.cuda.synchronize()
-    print(json.dumps(timings(dev, rng)))
+    if mode == "kmerge":
+        kmerge_timings(dev, rng, timer(out))
+    else:
+        out = timings(dev, rng)
+    print(json.dumps(out))
     return 0
 
 

@@ -11,8 +11,9 @@ multiply-adds on the IMAD pipe, shared-memory loads and stores, global
 loads and stores and barriers.  A butterfly group's cost is a loop body
 divided by the butterflies it runs.  An item loop of a register pass
 (one with at least 4 IMADs a word it stores; a copy loop has far fewer)
-stores each of its item's words once, so its body over the 64-bit words
-it stores is its cost a word; each kernel's line ends with those costs
+stores each of its item's words once, so its body over the words it
+stores (64-bit words, or 32-bit ones for the u32 kernels) is its cost a
+word; each kernel's line ends with those costs
 summed over its item loops: the instructions and IMADs its passes spend
 on a word.  Where a pass stores 16 or 8 bytes at a time by the
 operand's alignment, its loop holds both branches: its words are the
@@ -33,9 +34,10 @@ _STORE = re.compile(r"\bST[SG]?(\.\S+)?\s")
 
 
 def stored_words(body: list[str]) -> float:
-    """64-bit words a loop body stores: those of its 128-bit stores (2
-    each) or of its narrower ones (a 64-bit store 1, a 32-bit one 1/2),
-    whichever is more (the two are a pass's two branches)."""
+    """Words a loop body stores: those of its 128-bit stores (2 each) or
+    of its narrower ones (a 64-bit or 32-bit store 1: a u32 kernel's tile
+    holds 32-bit words), whichever is more (the two are a pass's two
+    branches)."""
     wide = narrow = 0.0
     for t in body:
         m = _STORE.search(t + " ")
@@ -44,7 +46,7 @@ def stored_words(body: list[str]) -> float:
             if ".128" in mods:
                 wide += 2
             else:
-                narrow += 1 if ".64" in mods else 0.5
+                narrow += 1
     return max(wide, narrow)
 
 

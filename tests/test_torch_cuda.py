@@ -1059,6 +1059,50 @@ def test_kmerge_u64_matches_plain_on_card(card, logn, poly, bits):
     assert hk64.FORWARD.launches == 2 and hk64.INVERSE.launches == 2
 
 
+# (q, psi of order 2^13): the largest NTT prime below 2^62 of order 2^14
+# (WIDE62) and a q just past 2^62 (OVER62)
+_WIDE62 = (4611684918915809281, 4166544109213919754)
+_OVER62 = (4611686018427494401, 795177494079348431)
+
+
+def _kmerge_policy_params(case, logn, poly):
+    """WIDE62 or OVER62 (logn <= 12), or the largest NTT prime below 2^62
+    ("edge62") or 2^63 ("q63") of the ring."""
+    if case in ("wide62", "over62"):
+        q, psi = _WIDE62 if case == "wide62" else _OVER62
+        psi = pow(psi, 1 << (12 - logn), q)
+        return tg.NTTParameters(logn, poly, np.uint64, factors=tg.NTTFactors(
+            tg.Modulus64(q), psi * psi % q, psi))
+    return _factored(logn, poly, np.uint64,
+                     largest_ntt_prime(62 if case == "edge62" else 63, logn))
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("case,logn", [("wide62", 12), ("over62", 12), ("q63", 12),
+                                       ("edge62", 16), ("q63", 16), ("edge62", 17),
+                                       ("q63", 17), ("q63", 24)])
+def test_kmerge_u64_value_policy_on_card(card, case, logn, poly):
+    """K15's counterpart on both sides of 2^62, where kmerge.cu switches
+    from its lazy instance to its canonical one: the lazy instance at its
+    edge (WIDE62, the largest NTT prime below 2^62), the canonical one
+    past it (OVER62, the largest 63-bit NTT prime), in the one-block form
+    (12), one and two column runs (16, 17) and at logn 24, on any u64
+    word, against the plain version."""
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
+
+    p = _kmerge_policy_params(case, logn, poly)
+    assert (p.modulus.value < 1 << 62) == (case in ("wide62", "edge62"))
+    kp = hk.KernelMergePlan.from_params(p, device=card)
+    x = from_numpy_u64(np.random.default_rng(logn + 1).integers(
+        0, 1 << 64, size=(1 if logn > 20 else 3, p.n), dtype=np.uint64, endpoint=False), card)
+    fx, ix = hk64.kmerge_u64(x, kp), hk64.kmerge_u64(x, kp, inverse=True)
+    assert torch.equal(fx, hk.kmerge_plain(x, kp))
+    assert torch.equal(ix, hk.kmerge_plain(x, kp, inverse=True))
+    assert torch.equal(hk64.kmerge_u64(fx, kp, inverse=True),
+                       bo.reduce_forced64(x, p.modulus.value))
+
+
 @pytest.mark.parametrize("widest", [False, True])
 @pytest.mark.parametrize("poly", POLYS)
 @pytest.mark.parametrize("logn", range(7, 26))

@@ -20,9 +20,12 @@ gpuntt_tpu (CPU, exact equality: integer arithmetic, tolerance 0).
   the PerCoefficient layout; the limits raise.
 - kmerge_u32 against the JAX package's NTTCPU at logn 7, 13 and 17.
 - csrc/kmerge.cu compiled by g++ through the host emulation of
-  test_torch_merge.py against the plain version, in its one-block form
-  and its column + row launches (one and two runs of column stages),
-  u64 and u32.
+  test_torch_merge.py against the plain version at every logn 7-17, both
+  polynomials, u64 and u32: its one-block form and its column + row
+  launches (one and two runs of column stages, every pass split), and
+  both u64 value policies on either side of 2^62 (the lazy instance at
+  the largest NTT primes below 2^62, the canonical one at a q past 2^62
+  and at 63-bit primes), on any input word.
 - The wrappers' contract: CPU tensors take the plain version (counted),
   other devices raise, the plan is cached and builds W per direction.
 """
@@ -49,6 +52,7 @@ from gpuntt_tpu_torch.ops import hopper_kmerge as hk
 from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops.merge_ntt import from_lanes, to_lanes
+from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 
 from test_torch_merge import _emulate  # the host emulation of csrc/
 
@@ -352,22 +356,57 @@ def _emulated_call(lib, x, kp, inverse):
     return y
 
 
-# u64: one block per ring up to logn 14, then column launches (one run of
-# stages up to logn 16, two at 17) and the row launch; u32 the same from
-# logn 16 on
-@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
-@pytest.mark.parametrize("poly", POLYS)
-@pytest.mark.parametrize("logn", [7, 14, 15, 16, 17])
-def test_cuda_source_emulated_matches_plain(emulated, logn, poly, dtype):
-    p = params(tg, logn, poly, dtype)
+def _emulated_matches_plain(lib, p, seed):
     kp = hk.KernelMergePlan.from_params(p, device="cpu")
-    x = torch.from_numpy(np.random.default_rng(logn).integers(
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
         0, 1 << 64, size=(2, p.n), dtype=np.uint64, endpoint=False).view(np.int64))
-    if dtype == np.uint32:
+    if p.dtype == np.uint32:
         x = x & 0xFFFFFFFF
     for inverse in (False, True):
-        assert torch.equal(_emulated_call(emulated, x, kp, inverse),
+        assert torch.equal(_emulated_call(lib, x, kp, inverse),
                            hk.kmerge_plain(x, kp, inverse)), inverse
+
+
+# one block per ring up to logn 14 (no column stage at 7, column passes
+# of 1-3 stages up to 10, two passes up to 13, three at 14), then column
+# launches (one run of 8 or 9 stages at 15-16, two of 5 at 17) and the row
+# launch; u64 and u32 alike
+@pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(7, 18))
+def test_cuda_source_emulated_matches_plain(emulated, logn, poly, dtype):
+    _emulated_matches_plain(emulated, params(tg, logn, poly, dtype), logn)
+
+
+def _prime_params(q, logn, poly):
+    om, psi = tg.ntt_root_pair(q, logn)
+    return tg.NTTParameters(logn, poly, np.uint64,
+                            factors=tg.NTTFactors(tg.Modulus64(q), om, psi))
+
+
+# (modulus, logn): the lazy instance at its edge (WIDE62, the largest NTT
+# prime below 2^62 of order 2^14; at logn 17 the largest of order 2^18),
+# the canonical one past it (OVER62, and the largest 63-bit NTT primes),
+# in the one-block form (12) and the column + row launches (17)
+POLICY_CASES = {
+    "wide62-12": lambda poly: params(tg, 12, poly, wide=WIDE62),
+    "over62-12": lambda poly: params(tg, 12, poly, wide=OVER62),
+    "q63-12": lambda poly: _prime_params(largest_ntt_prime(63, 12), 12, poly),
+    "edge62-17": lambda poly: _prime_params(largest_ntt_prime(62, 17), 17, poly),
+    "q63-17": lambda poly: _prime_params(largest_ntt_prime(63, 17), 17, poly),
+}
+
+
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("case", sorted(POLICY_CASES))
+def test_cuda_source_emulated_value_policy(emulated, case, poly):
+    """kmerge_u64_* pick their value policy from q: below 2^62 the lazy
+    butterflies (values below 4q), from 2^62 the canonical ones, whose
+    sums stay below 2q < 2^64.  Both sides of 2^62 match the plain
+    version on any u64 word."""
+    p = POLICY_CASES[case](poly)
+    assert (p.modulus.value < 1 << 62) == case.startswith(("wide62", "edge62"))
+    _emulated_matches_plain(emulated, p, p.logn + 1)
 
 
 def test_cuda_source_emulated_refuses_bad_shapes(emulated):

@@ -5,7 +5,10 @@ _polymul_inv), K7 (merge_u64_large_colfwd / _colinv), K7'
 (col_phase_local, the _local entries), K13-col (rns_u64_large_colfwd /
 _colinv), K9 and K11-col (fourstep_u64_col, fourstep_u32_col) and K14
 (rns_fourstep_u64_col) keep values below 4q inside a launch, which fits
-the word only for q < 2^62 (u64) or q < 2^30 (u32).  No route hands them
+the word only for q < 2^62 (u64) or q < 2^30 (u32); so does K17
+(kmerge_u32).  K15 (kmerge_u64) runs a canonical instance of its passes
+for q in [2^62, 2^63) and refuses only q >= 2^63, where no u64 plan can
+be built (its case replaces the plan's q).  No route hands them
 a wider q (each route's `covers`, LargePlan's constructors and the dist
 plan's colmat hold it); the wrappers refuse one before any launch, on
 any device, as K8's does, whatever `takes` would let through.  The
@@ -23,6 +26,8 @@ import torch
 
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops import hopper_rns as hr
@@ -107,6 +112,17 @@ def k14(q):
                                    False)
 
 
+def kmerge(q, bits):
+    """kmerge_u32 (bits 30) or kmerge_u64 (bits 63) on a KernelMergePlan of
+    the largest NTT prime below 2^bits, its q replaced by any other."""
+    dtype = np.uint64 if bits == 63 else np.uint32
+    edge = largest_ntt_prime(bits, LOGN)
+    kp = hk.KernelMergePlan.from_params(params(edge, dtype=dtype), device="cpu")
+    kp = kp if q == edge else dataclasses.replace(kp, q=q)
+    x = words(kp.n) % (1 << 32 if dtype == np.uint32 else 1 << 62)
+    return hk64.kmerge_u64(x, kp) if bits == 63 else hk.kmerge_u32(x, kp)
+
+
 # wrapper -> (call(q), log2 of its bound, logn of the primes it takes)
 CASES = {
     **{f"merge_u64_{w}": ((lambda fn: lambda q: k1(q, fn))(getattr(hm, f"merge_u64_{w}")), 62,
@@ -122,6 +138,8 @@ CASES = {
     "fourstep_u64_col": (k9, 62, LOGN),
     "fourstep_u32_col": (lambda q: k9(q, np.uint32), 30, LOGN),
     "rns_fourstep_u64_col": (k14, 62, 14),
+    "kmerge_u32": (lambda q: kmerge(q, 30), 30, LOGN),
+    "kmerge_u64": (lambda q: kmerge(q, 63), 63, LOGN),
 }
 
 
@@ -140,3 +158,18 @@ def test_column_wrapper_refuses_q_past_the_lazy_bound(wrapper, monkeypatch):
             call(wide)
     y = call(largest_ntt_prime(bits, logn))
     assert y.dtype == torch.int64 and bool((y >= 0).all())
+
+
+def test_kmerge_u64_takes_q_past_2_62():
+    """K15's counterpart refuses nothing below 2^63: the "vpu" route and
+    kmerge_u64 take OVER62 (a q just past 2^62, psi of order 2^13), which
+    its canonical instance runs."""
+    q, psi = 4611686018427494401, 795177494079348431
+    psi = pow(psi, 1 << (12 - LOGN), q)
+    p = tg.NTTParameters(LOGN, MINUS, np.uint64,
+                         factors=tg.NTTFactors(tg.Modulus64(q), psi * psi % q, psi))
+    plan = tg.MergePlan.from_params(p, device="cpu")
+    assert hk64.route(plan) == "hopper-kmerge64"
+    x = words(plan.n)
+    y = tg.ntt_lanes(x, plan, use_pallas="vpu")
+    assert torch.equal(tg.intt_lanes(y, plan, use_pallas="vpu"), x % q)

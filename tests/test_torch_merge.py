@@ -202,7 +202,7 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
 static EmuDim3 threadIdx = {0}, blockIdx = {0};
 alignas(16) static uint32_t emu_smem[1 << 16];  // the largest dynamic tiles, u32 ...
-alignas(16) static uint64_t emu_smem64[1 << 14];  // ... and u64
+alignas(16) static uint64_t emu_smem64[1 << 15];  // ... and u64
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 #define __global__
