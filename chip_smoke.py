@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's merge, 4-step, RNS, distributed and factored-merge paths on one CUDA card.
+"""Drive the port's merge, 4-step, RNS, distributed and factored-merge paths, its
+examples, its entry and its modmul-peak probe on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
 
@@ -85,7 +86,20 @@ at once) and runs, on the card:
    and 2^20 x 16, q = 469762049, every row against the plain version and
    ntt_lanes (K4, K6), and at logn 7, 8 X^N - 1, a 30-bit q at 14, 15
    X^N - 1 (both sides of the one-block limit) and 2^25 x 1; the four
-   entries' and their plain versions' times beside K1/K2 and K4.
+   entries' and their plain versions' times beside K1/K2 and K4;
+30. the examples (`examples_phase`): each device example's main in this
+   process at its cell of PERF.md §4 (merge ntt / intt and 4-step ntt /
+   intt u64 2^16 x 128, RNS ntt 2^16 x 64, RNS polymul 2^12 ladder 3,
+   the dist polymul 2^16 x 4 at world size 1), then the two host
+   examples: each prints `All Correct.`, with its route's launch counts
+   (K1, K2, K9 + K10, K12, K12 fused, K7');
+31. the entry (`entry_phase`): the CUDA-graph capture of entry()'s step
+   (u64 2^12 x 4) and of polymul_lanes at u64 2^16 x 128, replay ==
+   eager == NTTCPU, and the CUDA-event times of eager and replayed calls;
+32. the modmul-peak probe (`probe_phase`, csrc/probe.cu, which replaces
+   no TPU kernel and so is not in the kernel table): its chain against
+   its plain version, then measure_modmul_peak's u64 and u32 rates on a
+   line of their own beside the card's name and power limit.
 
 Every comparison is exact equality (integer arithmetic: tolerance 0).
 Any failure raises, and the script exits non-zero without a result line;
@@ -1117,6 +1131,190 @@ def dist_phase(dev, rng, reset, launches, err, times, bounds, sizes=DIST_FULL) -
     dist.destroy_process_group()
 
 
+# the examples phase's cells (LOGN, BATCH) for each device example: PERF.md §4's
+# cells; a CPU device rehearses the phase at small ones
+EXAMPLES_FULL = dict(example_merge_ntt=(16, 128), example_merge_intt=(16, 128),
+                     example_4step_ntt=(16, 128), example_4step_intt=(16, 128),
+                     example_rns_ntt=(16, 64), example_rns_polymul=(12, 3),
+                     example_distributed_polymul=(16, 4))
+
+
+def launch_counter(cuda: bool):
+    """(reset, ran): zero every counter; {kernel name: launches} since the
+    reset (on a CPU rehearsal, plain-version calls), raising if a plain
+    version ran on the card.  Every kernel wrapper's counters, the
+    probe's included."""
+    import torch
+
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+    from gpuntt_tpu_torch.ops import hopper_kmerge as hk
+    from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
+    from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+    from gpuntt_tpu_torch.utils import profiling as pr
+
+    stats = [*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
+             *hr.KERNELS, *hr32.KERNELS, *hk64.KERNELS, *hk.KERNELS, *pr.KERNELS]
+
+    def reset() -> None:
+        for k in stats:
+            k.launches = k.plain_calls = 0
+
+    def ran() -> dict:
+        if cuda:
+            torch.cuda.synchronize()
+            if any(k.plain_calls for k in stats):
+                raise AssertionError(
+                    f"plain versions ran: {[(k.name, k.plain_calls) for k in stats]}")
+        return {k.name: n for k in stats if (n := k.launches if cuda else k.plain_calls)}
+
+    return reset, ran
+
+
+def examples_phase(dev, cells=EXAMPLES_FULL) -> None:
+    """30. every device example's main in this process at its cell, then the
+    two host examples at their defaults: each must print `All Correct.` and
+    return 0, and launch the kernels its route names (K1, K2, K9 + K10,
+    K12, K12 fused; the dist example's route is printed and must include
+    K7').  A CPU device rehearses the phase at small cells (the dist
+    example's gloo ranks then count in their own processes)."""
+    import contextlib
+    import importlib
+    import io
+
+    from gpuntt_tpu_torch.ops import hopper_fourstep as hf
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops import hopper_merge_large as hml
+    from gpuntt_tpu_torch.ops import hopper_rns as hr
+
+    cuda = dev.type == "cuda"
+    reset, ran = launch_counter(cuda)
+    K7L = {hml.COLFWD_LOCAL.name, hml.COLINV_LOCAL.name}
+    want = dict(example_merge_ntt={hm.FORWARD.name: 3},
+                example_merge_intt={hm.INVERSE.name: 3},
+                example_4step_ntt={hf.COL64.name: 1, hf.ROW64.name: 1},
+                example_4step_intt={hf.COL64.name: 1, hf.ROW64.name: 1},
+                example_rns_ntt={hr.FORWARD.name: 2, hr.INVERSE.name: 2},
+                example_rns_polymul={hr.FORWARD.name: 2, hr.POLYMUL_INVERSE.name: 1})
+    t_phase = time.perf_counter()
+    runs = [(name, [str(logn), str(batch), f"--device={dev}"]) for name, (logn, batch)
+            in cells.items()]
+    runs += [("example_cpu_merge_ntt", []), ("example_cpu_4step_ntt", [])]
+    for name, argv in runs:
+        mod = importlib.import_module(f"gpuntt_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        secs = time.perf_counter() - t0
+        run = ran()
+        out = buf.getvalue()
+        cell = f"{name} {' '.join(argv)}".strip()
+        check(rc == 0 and "All Correct." in out.splitlines(),
+              f"{cell}: rc {rc}, {out.strip().splitlines()[-1]!r} ({secs:.2f} s)")
+        if name in want and (cuda or name != "example_distributed_polymul"):
+            check(run == want[name], f"{cell} launched {run}")
+        elif name == "example_distributed_polymul" and cuda:
+            check(K7L <= set(run), f"{cell} launched {run} (K7' among them)")
+        if name == "example_rns_polymul":
+            qs, a_int, b_int = mod.operands(*cells[name])
+            t0 = time.perf_counter()
+            mod.schoolbook(a_int, b_int, int(np.prod(np.array(qs, dtype=object))))
+            print(f"{name}: its golden big-integer schoolbook alone "
+                  f"{time.perf_counter() - t0:.2f} s of the {secs:.2f} s")
+    print(f"examples phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def entry_phase(dev, big=(16, 128)) -> None:
+    """31. the CUDA-graph capture of the entry's step (u64 2^12 x 4, X^N + 1:
+    K1 twice, K3) and of polymul_lanes at the headline u64 2^16 x 128 (the
+    same kernels): replay == eager == NTTCPU, every row; then CUDA-event
+    times of eager and replayed calls (3 warm-ups, the median of 10 windows
+    of 10): eager minus replay is the host's share of one call."""
+    import torch
+
+    import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch import entry as E
+    from gpuntt_tpu_torch.ops import hopper_merge as hm
+    from gpuntt_tpu_torch.ops.limb import from_numpy_u64, to_numpy_u64
+    from gpuntt_tpu_torch.utils.timing import time_cuda
+
+    reset, ran = launch_counter(True)
+    t_phase = time.perf_counter()
+    fn, args = E.entry(dev)
+    p = g.NTTParameters(big[0], g.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = g.MergePlan.from_params(p, device=dev)
+    rng = np.random.default_rng(SEED)
+    a_np, b_np = (rng.integers(0, p.modulus.value, size=(big[1], p.n), dtype=np.uint64)
+                  for _ in range(2))
+    gen = g.NTTCPU(p)
+    cells = ((f"entry() step u64 2^{E.LOGN}x{E.BATCH}", fn, args, E.golden()),
+             (f"polymul_lanes u64 2^{big[0]}x{big[1]}", lambda u, v: g.polymul_lanes(u, v, plan),
+              (from_numpy_u64(a_np, dev), from_numpy_u64(b_np, dev)),
+              gen.intt(gen.mult(gen.ntt(a_np), gen.ntt(b_np)))))
+    for cell, f, fargs, golden in cells:
+        reset()
+        eager, replay, graph = E.graph_check(f, fargs)
+        run = ran()  # the eager call, the side-stream warm-up, the captured call
+        check(run == {hm.FORWARD.name: 6, hm.POLYMUL_INVERSE.name: 3},
+              f"{cell}: eager, warm-up and capture launched {run}")
+        check(torch.equal(replay, eager), f"{cell}: CUDA-graph replay == eager output")
+        check(np.array_equal(to_numpy_u64(replay), golden), f"{cell}: replay == NTTCPU, all rows")
+        e_ms, e_sp = time_cuda(lambda: f(*fargs))
+        r_ms, r_sp = time_cuda(graph.replay)
+        print(f"time {cell}: eager {e_ms:.5f} ms (spread {e_sp:.3f}), graph replay "
+              f"{r_ms:.5f} ms (spread {r_sp:.3f}), eager - replay {e_ms - r_ms:.5f} ms")
+        del graph, replay
+    print(f"entry phase {time.perf_counter() - t_phase:.1f} s")
+
+
+PROBE_DEPTH = 5
+
+
+def probe_phase(dev) -> None:
+    """32. the modmul-peak probe (csrc/probe.cu, which replaces no TPU kernel):
+    shoup_chain against its plain version on the card, both words, at the
+    pool prime and the largest NTT prime below 2^62 / 2^30, edge words
+    included; then measure_modmul_peak of each word at its defaults, on a
+    line of its own beside the card's name and power limit."""
+    import torch
+
+    from gpuntt_tpu_torch.ops.limb import from_numpy_u64
+    from gpuntt_tpu_torch.utils import profiling as pr
+    from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    pools = {True: 576460756061519873, False: 469762049}
+    for is64 in (True, False):
+        for q in (pools[is64], largest_ntt_prime(62 if is64 else 30, 17)):
+            x_np = np.concatenate([np.array([0, 1, 2, q - 2, q - 1], dtype=np.uint64),
+                                   rng.integers(0, q, size=(1 << 20) + 3, dtype=np.uint64)])
+            x = from_numpy_u64(x_np, dev)
+            for w in (1, q - 1, int(rng.integers(2, q - 1))):
+                pr.reset_counts()
+                got = pr.shoup_chain(x, w, q, PROBE_DEPTH, is64)
+                want = pr.shoup_chain_plain(x, w, q, PROBE_DEPTH, is64)
+                stats = pr.CHAIN64 if is64 else pr.CHAIN32
+                e = int((got - want).abs().max().item())
+                check(torch.equal(got, want) and (stats.launches == 1) == cuda,
+                      f"{stats.name} q={q} w={w} depth {PROBE_DEPTH} on {x.numel()} words "
+                      f"== plain version (max |diff| {e}), launches {stats.launches}")
+    if cuda:
+        rates = {}
+        for is64 in (True, False):
+            rates[is64] = pr.measure_modmul_peak(pools[is64], is64, device=dev)
+        print(f"probe measure_modmul_peak (depth {pr._DEPTH[True]} / {pr._DEPTH[False]} on "
+              f"{pr._ELEMS['cuda']} words): u64 {rates[True]:.6e} products/s, u32 "
+              f"{rates[False]:.6e} products/s, on {card_line()}")
+    print(f"probe phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1740,6 +1938,9 @@ def main() -> int:
     rns32_phase(dev, rng, reset, launches, err, times, bounds)
     kmerge_phase(dev, rng, reset, launches, err, times, bounds)
     dist_phase(dev, rng, reset, launches, err, times, bounds)
+    examples_phase(dev)
+    entry_phase(dev)
+    probe_phase(dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

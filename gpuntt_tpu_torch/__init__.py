@@ -1,8 +1,8 @@
 """gpuntt_tpu_torch — the gpuntt_tpu NTT framework on PyTorch and CUDA.
 
 A port of the JAX package `gpuntt_tpu` to PyTorch, with hand-written
-kernels for NVIDIA Hopper (sm_90a).  It covers the merge and 4-step NTT
-paths of both word sizes so far:
+kernels for NVIDIA Hopper (sm_90a).  It covers what the JAX package
+does:
 
 - the host layers (moduli, prime and root pools, twiddle tables, golden
   models) copied from gpuntt_tpu;
@@ -31,7 +31,11 @@ paths of both word sizes so far:
 - the distributed path on torch.distributed (parallel: mesh,
   fourstep_dist with K7' in ops.hopper_merge_large, merge_dist,
   fourstep_rns_dist, dryrun) and the Dist models of models.polymul;
-  as in gpuntt_tpu, the top level exports none of their names.
+  as in gpuntt_tpu, the top level exports none of their names;
+- the examples (examples/, `python -m gpuntt_tpu_torch.examples.<name>`),
+  the entry point (entry.py: the flagship step and its CUDA-graph
+  check), and utils (`ntt_cost`, `trace`, `measure_modmul_peak` on the
+  probe kernel of csrc/probe.cu, `time_cuda`).
 
 Entry points run on the first CUDA card unless the caller passes
 device="cpu"; without a card, a plan made for the default device raises

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
 Each source in csrc/ (merge_u64.cu, merge_u64_large.cu, merge_u32.cu,
-fourstep.cu, kmerge.cu) is compiled by its own nvcc call into a shared library with
+fourstep.cu, kmerge.cu, and probe.cu, the modmul-peak probe of
+utils/profiling.py) is compiled by its own nvcc call into a shared library with
 a plain C interface and loaded with ctypes: `library(name)` builds and loads one,
 `build_all()` starts every missing build at once and waits for them
 together.  Builds land in the gitignored csrc/build/ directory under
@@ -87,6 +88,8 @@ _ENTRIES = {
                                    word, word, word, word, _i32, _p]
            for w, word in (("u64", _u64), ("u32", _u32))},
     },
+    "probe": {f"shoup_chain_{w}": [_i32, _p, _p, _i64, _i32, word, word, word, _p]
+              for w, word in (("u64", _u64), ("u32", _u32))},
 }
 
 _lock = threading.Lock()

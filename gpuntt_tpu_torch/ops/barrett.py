@@ -1,7 +1,6 @@
 """Vectorized exact modular arithmetic on torch lanes.
 
-The port of the JAX package's ops/barrett.py, reduced to what the merge
-engine and the main-path kernels' plain versions use.  64-bit data are
+The port of the JAX package's ops/barrett.py.  64-bit data are
 int64 tensors holding u64 bit patterns (see limb.py); 32-bit data are
 int64 tensors holding values in [0, 2^32), and every 32-bit result is
 masked back to the word, so wrap-around matches the JAX uint32 lanes.
@@ -11,7 +10,13 @@ Each function mirrors its JAX namesake bit for bit, on any operands the
 namesake accepts (edge operands near 2^64 - 1 included):
 
 - `barrett_mul32/64` the reference's Barrett with the exact `bit-2` /
-  `bit+3` shift schedule (modular_arith.cuh:312-339);
+  `bit+3` shift schedule (modular_arith.cuh:312-339), each the wide
+  reduction of its operands' product;
+- `barrett_reduce32/64` the same schedule on one word
+  (modular_arith.cuh:346-355), and `barrett_reduce_wide32/64` on a
+  product-sized z < q^2: one int64 word for the 32-bit class, the
+  (hi, lo) words of a 128-bit z for the 64-bit class
+  (modular_arith.cuh:420-451);
 - `shoup_mul32/64` a product by a constant w with its companion
   w' = floor(w * 2^word / q);
 - `shoup_mul64_lazy` the same without the final subtract, from the
@@ -47,13 +52,24 @@ def modsub32(a, b, q: int):
     return torch.where(d >= q, d - q, d)
 
 
-def barrett_mul32(a, b, q: int, bit: int, mu: int):
-    """Exact (a*b) mod q, reference schedule (modular_arith.cuh:316-326)."""
-    z = a * b
+def barrett_reduce_wide32(z, q: int, bit: int, mu: int):
+    """z mod q for a 64-bit z < q^2 and a 32-bit-class q, the reference
+    schedule (modular_arith.cuh:420-436, the T1* overload)."""
     w = srl(z, bit - 2) & M32
     w2 = srl(w * mu, bit + 3) & M32
     res = (z - w2 * q) & M32
     return torch.where(res >= q, res - q, res)
+
+
+def barrett_mul32(a, b, q: int, bit: int, mu: int):
+    """Exact (a*b) mod q, reference schedule (modular_arith.cuh:316-326)."""
+    return barrett_reduce_wide32(a * b, q, bit, mu)
+
+
+def barrett_reduce32(x, q: int, bit: int, mu: int):
+    """x mod q for a u32 word x (the low 32 bits of the lane),
+    reference schedule (modular_arith.cuh:346-355)."""
+    return barrett_reduce_wide32(x & M32, q, bit, mu)
 
 
 def shoup_mul32(x, w, w_shoup, q: int):
@@ -107,14 +123,25 @@ def modsub64(a, b, q: int):
     return torch.where(uge(d, q), d - q, d)
 
 
-def barrett_mul64(a, b, q: int, bit: int, mu: int):
-    """Exact (a*b) mod q, reference schedule (modular_arith.cuh:328-338)."""
+def barrett_reduce_wide64(z_hi, z_lo, q: int, bit: int, mu: int):
+    """z mod q for the 128-bit z = (z_hi, z_lo) < q^2 and a 62-bit-class
+    q, the reference schedule (modular_arith.cuh:438-451)."""
     mu = signed(mu)
-    z_lo, z_hi = a * b, mulhi(a, b)
     w = shr128_lo64(z_hi, z_lo, bit - 2)
     w2 = shr128_lo64(mulhi(w, mu), w * mu, bit + 3)
     res = z_lo - w2 * q
     return torch.where(uge(res, q), res - q, res)
+
+
+def barrett_mul64(a, b, q: int, bit: int, mu: int):
+    """Exact (a*b) mod q, reference schedule (modular_arith.cuh:328-338)."""
+    return barrett_reduce_wide64(mulhi(a, b), a * b, q, bit, mu)
+
+
+def barrett_reduce64(x, q: int, bit: int, mu: int):
+    """The reference schedule on one u64 word x (a 128-bit z with a zero
+    high word)."""
+    return barrett_reduce_wide64(0, x, q, bit, mu)
 
 
 def shoup_mul64(x, w, w_shoup, q: int):

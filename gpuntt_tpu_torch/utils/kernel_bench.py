@@ -6,6 +6,7 @@ CUDA card.
     python3 gpuntt_tpu_torch/utils/kernel_bench.py            # all of them
     python3 gpuntt_tpu_torch/utils/kernel_bench.py kmerge     # K15, K17 only
     python3 gpuntt_tpu_torch/utils/kernel_bench.py variants   # kmerge.cu's variants
+    python3 gpuntt_tpu_torch/utils/kernel_bench.py probe      # the modmul-peak probe
 
 Imports `gpuntt_tpu_torch` from the Python path, not relative to this
 file, so one copy of the script times two trees on one card, one after the other:
@@ -23,9 +24,12 @@ is read from memory.  `kmerge` builds, checks and times csrc/kmerge.cu
 alone (check_kmerge, kmerge_timings).  `variants` compiles copies of
 kmerge.cu with the design alternatives of KMERGE_VARIANTS substituted
 for the shipped constants (only the shipped ones are in the source),
-holds each to the plain versions and times them in two turns.  The last
-line is one JSON object of {name: [ms, spread]}.  Exits 1 without a
-CUDA card.
+holds each to the plain versions and times them in two turns.  `probe`
+builds csrc/probe.cu, holds its chain to the plain version at the edges,
+then reads measure_modmul_peak ten times a word size while a thread
+samples the card's SM clock and power draw (`probe_rates`).  The last
+line is one JSON object of {name: [ms, spread]} ({name: [min, max]
+products a second] for `probe`).  Exits 1 without a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -468,6 +473,53 @@ def variants(dev, rng, t) -> None:
                       lambda: _variant_call(lib, w_mode, x, kp, inverse, pairs))
 
 
+PROBE_QS = {True: 576460756061519873, False: 469762049}  # the pool primes
+
+
+def probe_rates(dev, rng, repeats: int = 10) -> dict:
+    """The probe's chain (utils/profiling.shoup_chain) against its plain
+    version at both words, at the pool prime and the largest NTT prime
+    below 2^62 / 2^30, w = 1, q - 1 and a random w; then `repeats`
+    readings of measure_modmul_peak at each word's defaults, with the SM
+    clock and power draw that nvidia-smi reads every 0.25 s meanwhile."""
+    from gpuntt_tpu_torch.utils import profiling as pr
+
+    for is64 in (True, False):
+        for q in (PROBE_QS[is64], largest_ntt_prime(62 if is64 else 30, 17)):
+            x = from_numpy_u64(np.concatenate([np.array([0, 1, q - 1], dtype=np.uint64),
+                                               rng.integers(0, q, 100003, dtype=np.uint64)]),
+                               dev)
+            for w in (1, q - 1, int(rng.integers(2, q - 1))):
+                same(pr.shoup_chain(x, w, q, 7, is64), pr.shoup_chain_plain(x, w, q, 7, is64),
+                     f"shoup_chain_u{64 if is64 else 32} q={q} w={w} depth 7")
+    out = {}
+    for is64 in (True, False):
+        samples, stop = [], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                samples.append(subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+                    capture_output=True, text=True, timeout=60).stdout.strip())
+                stop.wait(0.25)
+
+        pr.measure_modmul_peak(PROBE_QS[is64], is64, device=dev)  # warm
+        th = threading.Thread(target=sample)
+        th.start()
+        try:
+            rates = [pr.measure_modmul_peak(PROBE_QS[is64], is64, device=dev)
+                     for _ in range(repeats)]
+        finally:
+            stop.set()
+            th.join()
+        name = f"probe u{64 if is64 else 32}"
+        out[name] = (min(rates), max(rates))
+        print(f"{name}: {repeats} readings at depth {pr._DEPTH[is64]} on "
+              f"{pr._ELEMS['cuda']} words, {min(rates):.6e}-{max(rates):.6e} products/s; "
+              f"clocks.sm, power.draw meanwhile: {samples}")
+    return out
+
+
 def ladder(logn: int, count: int, poly, dtype, bits: int, dev):
     ms = [params(logn, poly, dtype, q) for q in g.find_ntt_primes(bits, logn, count)]
     return g.RNSMergePlan.from_params(ms, device=dev)
@@ -624,6 +676,11 @@ def main() -> int:
     if mode == "variants":
         variants(dev, rng, timer(out))
         print(json.dumps(out))
+        return 0
+    if mode == "probe":
+        _build.library("probe")
+        ptxas_lines("probe")
+        print(json.dumps(probe_rates(dev, rng)))
         return 0
     t0 = time.perf_counter()
     libs = ("kmerge",) if mode == "kmerge" else tuple(_build._ENTRIES)

@@ -7,7 +7,8 @@ Builds LIBRARY (a csrc/ source name, e.g. merge_u64_large) of the
 toolkit's `cuobjdump -sass`, and for every kernel whose mangled name
 contains PATTERN prints its instruction count and each loop (a backward
 branch and the instructions it spans) with its count of instructions,
-multiply-adds on the IMAD pipe, shared-memory loads and stores, global
+multiply-adds on the IMAD pipe (and among them the 64-bit-result
+IMAD.WIDE and the high-word IMAD.HI), shared-memory loads and stores, global
 loads and stores and barriers.  A butterfly group's cost is a loop body
 divided by the butterflies it runs.  An item loop of a register pass
 (one with at least 4 IMADs a word it stores; a copy loop has far fewer)
@@ -29,7 +30,8 @@ import re
 import subprocess
 import sys
 
-_KINDS = {k: re.compile(r"\b" + k) for k in ("IMAD", "LDS", "STS", "LDG", "STG", "BAR")}
+_KINDS = {k: re.compile(r"\b" + re.escape(k)) for k in
+          ("IMAD", "IMAD.WIDE", "IMAD.HI", "LDS", "STS", "LDG", "STG", "BAR")}
 _STORE = re.compile(r"\bST[SG]?(\.\S+)?\s")
 
 

@@ -172,3 +172,49 @@ def test_limb_primitives_against_python_ints():
         assert [int(g) for g in got] == want
     assert limb.signed(M64) == -1 and limb.signed(1 << 63) == -(1 << 63)
     assert limb.signed(5) == 5
+
+
+@pytest.mark.parametrize("q", Q32)
+def test_barrett_reduce32(q):
+    """barrett_reduce32 on every u32 word (edges 0, q - 1, q, 2^32 - 1)
+    and barrett_reduce_wide32 on z < q^2 (edge q^2 - 1), bit for bit
+    against the JAX package's, and against % q."""
+    import jax.numpy as jnp
+
+    m = Modulus(q, bits=32)
+    x = _words32(q, 12)
+    got = tb.barrett_reduce32(torch.from_numpy(x.astype(np.int64)), q, m.bit, m.mu)
+    _eq32(got, jb.barrett_reduce32(jnp.asarray(x), q, m.bit, m.mu))
+    np.testing.assert_array_equal(got.numpy(), x.astype(np.int64) % q)
+    rng = np.random.default_rng(13)
+    z = np.concatenate([np.array([0, 1, q - 1, q, q + 1, q * q - 1], dtype=np.uint64),
+                        rng.integers(0, q * q, size=250, dtype=np.uint64)])
+    got = tb.barrett_reduce_wide32(_t64(z), q, m.bit, m.mu)
+    _eq32(got, jb.barrett_reduce_wide32(_j64(z), q, m.bit, m.mu))
+    np.testing.assert_array_equal(got.numpy(), (z % np.uint64(q)).astype(np.int64))
+
+
+@pytest.mark.parametrize("q", Q64)
+def test_barrett_reduce64(q):
+    """barrett_reduce64 on any u64 word (edges 0, q - 1, q, 2^64 - 1)
+    and barrett_reduce_wide64 on 128-bit z < q^2 (edge q^2 - 1), bit
+    for bit against the JAX package's; the wide form also against % q."""
+    from gpuntt_tpu.ops.limb import U128
+
+    m = Modulus(q, bits=64)
+    x = _words64(q, 14)
+    _eq64(tb.barrett_reduce64(_t64(x), q, m.bit, m.mu),
+          jb.barrett_reduce64(_j64(x), q, m.bit, m.mu))
+    rnd = np.random.default_rng(15)
+    zs = [0, 1, q - 1, q, q + 1, (1 << 64) - 1, 1 << 64, q * q - 1]
+    zs += [int.from_bytes(rnd.bytes(16), "little") % (q * q) for _ in range(250)]
+    hi = np.array([z >> 64 for z in zs], dtype=np.uint64)
+    lo = np.array([z & M64 for z in zs], dtype=np.uint64)
+    got = tb.barrett_reduce_wide64(_t64(hi), _t64(lo), q, m.bit, m.mu)
+    limbs = [np.array([(z >> s) & 0xFFFFFFFF for z in zs], dtype=np.uint64).astype(np.uint32)
+             for s in (96, 64, 32, 0)]
+    import jax.numpy as jnp
+
+    _eq64(got, jb.barrett_reduce_wide64(U128(*map(jnp.asarray, limbs)), q, m.bit, m.mu))
+    np.testing.assert_array_equal(limb.to_numpy_u64(got),
+                                  np.array([z % q for z in zs], dtype=np.uint64))

@@ -1138,3 +1138,85 @@ def test_kmerge_refuses_on_card(card):
             hk64.kmerge_u64(bad, kp)
     with pytest.raises(tg.NTTDispatchError):
         hk.kmerge_u32(x, kp)
+
+
+# ------------------------------------------- the probe, the entry, the examples
+
+
+@pytest.mark.parametrize("is64", [True, False])
+def test_probe_kernel_matches_plain(card, is64):
+    """csrc/probe.cu's chain against its plain version on the card, at the
+    pool prime and the largest NTT prime below 2^62 / 2^30, edge words
+    and a ragged count included, depths 0, 1 and 7; then a short
+    measure_modmul_peak."""
+    from gpuntt_tpu_torch.utils import profiling as pr
+
+    rng = np.random.default_rng(0)
+    pool = 576460756061519873 if is64 else 469762049
+    for q in (pool, largest_ntt_prime(62 if is64 else 30, 17)):
+        x = from_numpy_u64(np.concatenate([np.array([0, 1, q - 1], dtype=np.uint64),
+                                           rng.integers(0, q, 100003, dtype=np.uint64)]), card)
+        for w in (1, q - 1, int(rng.integers(2, q - 1))):
+            for depth in (0, 1, 7):
+                pr.reset_counts()
+                got = pr.shoup_chain(x, w, q, depth, is64)
+                torch.cuda.synchronize()
+                stats = pr.CHAIN64 if is64 else pr.CHAIN32
+                assert (stats.launches, stats.plain_calls) == (1, 0)
+                assert torch.equal(got, pr.shoup_chain_plain(x, w, q, depth, is64))
+    rate = pr.measure_modmul_peak(pool, is64, depth=16, elems=1 << 20, device=card)
+    assert np.isfinite(rate) and rate > 0
+
+
+def test_entry_graph_capture(card):
+    """The entry's step (u64 2^12 x 4) captured in a CUDA graph: the
+    replay equals the eager call and NTTCPU."""
+    from gpuntt_tpu_torch import entry as E
+
+    fn, args = E.entry(card)
+    eager, replay, graph = E.graph_check(fn, args)
+    assert torch.equal(replay, eager)
+    assert np.array_equal(to_numpy_u64(replay), E.golden())
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replay, eager)
+
+
+def test_headline_polymul_graph_capture(card):
+    """polymul_lanes at the headline u64 2^16 x 128 (K1 twice, K3) captured
+    in a CUDA graph: replay == eager == NTTCPU on every row."""
+    from gpuntt_tpu_torch import entry as E
+
+    p = tg.NTTParameters(16, POLYS[1], np.uint64)
+    plan = tg.MergePlan.from_params(p, device=card)
+    rng = np.random.default_rng(1)
+    a_np, b_np = (rng.integers(0, p.modulus.value, (128, p.n), dtype=np.uint64)
+                  for _ in range(2))
+    hm.reset_counts()
+    eager, replay, _ = E.graph_check(lambda u, v: tg.polymul_lanes(u, v, plan),
+                                     (from_numpy_u64(a_np, card), from_numpy_u64(b_np, card)))
+    assert [k.launches for k in hm.KERNELS] == [6, 0, 3]
+    assert torch.equal(replay, eager)
+    gen = tg.NTTCPU(p)
+    assert np.array_equal(to_numpy_u64(replay), gen.intt(gen.mult(gen.ntt(a_np),
+                                                                  gen.ntt(b_np))))
+
+
+@pytest.mark.parametrize("name,args,want", [
+    ("example_merge_ntt", ("16", "128"), {"merge_u64_forward": 3}),
+    ("example_rns_ntt", ("16", "64"), {"rns_u64_forward": 2, "rns_u64_inverse": 2}),
+])
+def test_example_on_card(card, capsys, name, args, want):
+    """The example at its PERF.md §4 cell on the card: `All Correct.`,
+    rc 0, and its route's launches."""
+    import importlib
+
+    mod = importlib.import_module(f"gpuntt_tpu_torch.examples.{name}")
+    hm.reset_counts()
+    hr.reset_counts()
+    assert mod.main([*args, f"--device={card}"]) == 0
+    assert "All Correct." in capsys.readouterr().out.splitlines()
+    torch.cuda.synchronize()
+    ran = {k.name: k.launches for k in (*hm.KERNELS, *hr.KERNELS) if k.launches}
+    assert ran == want
+    assert not any(k.plain_calls for k in (*hm.KERNELS, *hr.KERNELS))

@@ -229,7 +229,7 @@ template <class F> void emu_launch(long long grid, F f) {
 
 # library -> launch sites in its source
 _LAUNCHES = {"merge_u64": 2, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1,
-             "kmerge": 3}
+             "kmerge": 3, "probe": 1}
 
 
 def _emulated_source(name: str) -> str:
