@@ -1146,6 +1146,7 @@ def launch_counter(cuda: bool):
     probe's included."""
     import torch
 
+    from gpuntt_tpu_torch.common import tracing
     from gpuntt_tpu_torch.ops import hopper_fourstep as hf
     from gpuntt_tpu_torch.ops import hopper_kmerge as hk
     from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
@@ -1159,10 +1160,6 @@ def launch_counter(cuda: bool):
     stats = [*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
              *hr.KERNELS, *hr32.KERNELS, *hk64.KERNELS, *hk.KERNELS, *pr.KERNELS]
 
-    def reset() -> None:
-        for k in stats:
-            k.launches = k.plain_calls = 0
-
     def ran() -> dict:
         if cuda:
             torch.cuda.synchronize()
@@ -1171,7 +1168,7 @@ def launch_counter(cuda: bool):
                     f"plain versions ran: {[(k.name, k.plain_calls) for k in stats]}")
         return {k.name: n for k in stats if (n := k.launches if cuda else k.plain_calls)}
 
-    return reset, ran
+    return tracing.reset, ran
 
 
 def examples_phase(dev, cells=EXAMPLES_FULL) -> None:
@@ -1283,6 +1280,7 @@ def probe_phase(dev) -> None:
     line of its own beside the card's name and power limit."""
     import torch
 
+    from gpuntt_tpu_torch.common import tracing
     from gpuntt_tpu_torch.ops.limb import from_numpy_u64
     from gpuntt_tpu_torch.utils import profiling as pr
     from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
@@ -1297,7 +1295,7 @@ def probe_phase(dev) -> None:
                                    rng.integers(0, q, size=(1 << 20) + 3, dtype=np.uint64)])
             x = from_numpy_u64(x_np, dev)
             for w in (1, q - 1, int(rng.integers(2, q - 1))):
-                pr.reset_counts()
+                tracing.reset()
                 got = pr.shoup_chain(x, w, q, PROBE_DEPTH, is64)
                 want = pr.shoup_chain_plain(x, w, q, PROBE_DEPTH, is64)
                 stats = pr.CHAIN64 if is64 else pr.CHAIN32
@@ -1323,6 +1321,7 @@ def main() -> int:
         return 1
 
     import gpuntt_tpu_torch as g
+    from gpuntt_tpu_torch.common import tracing
     from gpuntt_tpu_torch.ops import _build
     from gpuntt_tpu_torch.ops import barrett as bo
     from gpuntt_tpu_torch.ops import hopper_fourstep as hf
@@ -1341,15 +1340,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     t_start = time.perf_counter()
 
-    def reset():
-        hm.reset_counts()
-        hm32.reset_counts()
-        hml.reset_counts()
-        hf.reset_counts()
-        hr.reset_counts()
-        hr32.reset_counts()
-        hk64.reset_counts()
-        hk.reset_counts()
+    reset = tracing.reset
 
     def counted() -> dict:
         """{kernel: launches} of the u64 kernels that ran since reset();

@@ -69,6 +69,11 @@ all have a genuine root:
 
 A schedule of one entry serves every row; any other length that is not
 the batch raises NTTScheduleError.
+
+Spans (common/tracing.py, recorded only under torch.profiler): each
+`*_lanes` entry of both families is an ntt.entry span and holds one
+ntt.route span (`_route`, `_polymul_route`, `_rns_route`) around the
+plan's move, the schedule's check and copy and the route decision.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common import tracing
 from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
 from . import hopper_kmerge64 as hk64
@@ -173,32 +179,49 @@ def _as_batch(x):
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
+def _route(plan: MergePlan, x2: torch.Tensor, use_pallas):
+    """The ntt.route span of ntt_lanes and intt_lanes: the plan on the
+    device of the (batch, N) tensor x2, and x2's route."""
+    span = tracing.begin(tracing.ROUTE)
+    try:
+        plan = plan.to(x2.device)
+        path = _chosen_path(plan, x2.shape, use_pallas)
+        if span:
+            span.attrs["path"] = path
+    finally:
+        if span:
+            span.end()
+    return plan, path
+
+
+@tracing.entry
 def ntt_lanes(x: torch.Tensor, plan: MergePlan,
               layout: NTTLayout = NTTLayout.PerPolynomial,
               signed_input: bool = False, use_pallas: bool | str = "auto") -> torch.Tensor:
     """Forward NTT on lane tensors (bit-reversed output order), on the
     route `use_pallas` picks (`_chosen_path`)."""
-    plan = plan.to(x.device)
     if signed_input:
         x = (bo.reduce_signed64(x, plan.q) if plan.is64
              else bo.reduce_signed32(x, plan.q))
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    y = _TRANSFORMS[_chosen_path(plan, x2.shape, use_pallas)][0](x2, plan)
+    plan, path = _route(plan, x2, use_pallas)
+    y = _TRANSFORMS[path][0](x2, plan)
     return _apply_layout_out(y.reshape(shape), layout)
 
 
+@tracing.entry
 def intt_lanes(x: torch.Tensor, plan: MergePlan,
                layout: NTTLayout = NTTLayout.PerPolynomial,
                signed_output: bool = False, use_pallas: bool | str = "auto") -> torch.Tensor:
     """Inverse NTT on lane tensors, n^-1 scaling included; `use_pallas`
     as in ntt_lanes."""
-    plan = plan.to(x.device)
     x = _apply_layout_in(x, layout)
     shape = x.shape
     x2 = _as_batch(x)
-    y = _TRANSFORMS[_chosen_path(plan, x2.shape, use_pallas)][1](x2, plan)
+    plan, path = _route(plan, x2, use_pallas)
+    y = _TRANSFORMS[path][1](x2, plan)
     y = _apply_layout_out(y.reshape(shape), layout)
     if signed_output:
         return bo.centered64(y, plan.q) if plan.is64 else bo.centered32(y, plan.q)
@@ -213,6 +236,27 @@ def pointwise_mult_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan):
     return bo.barrett_mul32(a, b, plan.q, plan.bit, plan.mu)
 
 
+def _polymul_route(plan: MergePlan, a: torch.Tensor, use_pallas):
+    """The ntt.route span of polymul_lanes: the plan on a's device, and the
+    kernel route that fuses the product into the inverse ("hopper-merge",
+    "hopper-merge-large"), or None where the product runs unfused."""
+    span = tracing.begin(tracing.ROUTE)
+    try:
+        plan = plan.to(a.device)
+        # the spectra are (batch, N): the route of any 2-D shape
+        path = (_kernel_path(plan, (1, plan.n), NTTLayout.PerPolynomial)
+                if use_pallas == "auto" else None)
+        if path == "hopper-merge-large" and not hml.large_plan(plan).fuses_product:
+            path = None
+        if span:
+            span.attrs["path"] = path or "unfused"
+    finally:
+        if span:
+            span.end()
+    return plan, path
+
+
+@tracing.entry
 def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan,
                   use_pallas: bool | str = "auto") -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)): cyclic for X_N_minus, negacyclic for
@@ -221,15 +265,13 @@ def polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: MergePlan,
     where its rows run on K3, logn 18-25); elsewhere, and for every other
     `use_pallas` (as in the JAX package), it runs between the forward and
     inverse transforms.  Outputs are bit-identical on every route."""
-    plan = plan.to(a.device)
+    plan, path = _polymul_route(plan, a, use_pallas)
     fa = _as_batch(ntt_lanes(a, plan, use_pallas=use_pallas))
     fb = _as_batch(ntt_lanes(b, plan, use_pallas=use_pallas))
-    path = (_kernel_path(plan, fa.shape, NTTLayout.PerPolynomial)
-            if use_pallas == "auto" else None)
     if path == "hopper-merge":
         out = hm.merge_u64_polymul_inv(fa, fb, plan)
-    elif path == "hopper-merge-large" and (lp := hml.large_plan(plan)).fuses_product:
-        out = hml.merge_u64_large_polymul_inv(fa, fb, lp)
+    elif path == "hopper-merge-large":
+        out = hml.merge_u64_large_polymul_inv(fa, fb, hml.large_plan(plan))
     else:
         out = intt_lanes(pointwise_mult_lanes(fa, fb, plan), plan, use_pallas=use_pallas)
     return out.reshape(a.shape)
@@ -377,19 +419,35 @@ _RNS_KERNELS = {
 }
 
 
+def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
+    """The ntt.route span of the RNS entries: the plan on x's device, the
+    checked schedule, the route of x and, on a kernel route, the
+    schedule's cached copy on the device (else None)."""
+    span = tracing.begin(tracing.ROUTE)
+    try:
+        plan = plan.to(x.device)
+        mod_idx = checked_schedule(mod_idx, plan.mod_count, x.shape[0])
+        path = _rns_kernel_path(plan, x.shape)
+        midx = None if path == "engine" else hr.schedule(plan, mod_idx, x.device)
+        if span:
+            span.attrs["path"] = path
+    finally:
+        if span:
+            span.end()
+    return plan, mod_idx, path, midx
+
+
 def _rns_transform(x: torch.Tensor, plan: RNSMergePlan, mod_idx, inverse: bool):
-    plan = plan.to(x.device)
-    mod_idx = checked_schedule(mod_idx, plan.mod_count, x.shape[0])
-    path = _rns_kernel_path(plan, x.shape)
+    plan, mod_idx, path, midx = _rns_route(plan, x, mod_idx)
     if path == "engine":
         return (rns_intt_lanes if inverse else rns_ntt_lanes)(x, plan, mod_idx)
     x = x.contiguous()
-    midx = hr.schedule(plan, mod_idx, x.device)
     if path == "hopper-rns-large":
         return hr.rns_u64_large(x, hr.large_plan(plan), midx, inverse)
     return _RNS_KERNELS[path][1 if inverse else 0](x, plan, midx)
 
 
+@tracing.entry
 def ntt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
     """The RNS forward transform of a (batch, N) lane tensor on its route,
     row b under modulus mod_idx[b], read as jnp indexing reads it (one
@@ -399,6 +457,7 @@ def ntt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
     return _rns_transform(x, plan, mod_idx, False)
 
 
+@tracing.entry
 def intt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:
     """The RNS inverse of ntt_rns_lanes, each row's n^-1 last."""
     return _rns_transform(x, plan, mod_idx, True)
@@ -406,7 +465,8 @@ def intt_rns_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor
 
 def _rns_numpy(x, plan: RNSMergePlan, mod_idx, inverse: bool) -> np.ndarray:
     lanes = to_lanes(np.asarray(x), plan.is64, plan.device)
-    return from_lanes(_rns_transform(lanes, plan, mod_idx, inverse), plan.is64)
+    return from_lanes((intt_rns_lanes if inverse else ntt_rns_lanes)(lanes, plan, mod_idx),
+                      plan.is64)
 
 
 def ntt_rns(x, plan: RNSMergePlan, cfg: NTTConfig | None = None) -> np.ndarray:
@@ -504,6 +564,7 @@ def rns_pointwise_mult(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
     return from_lanes(rns_pointwise_mult_lanes(xl, yl, plan, mod_idx), plan.is64)
 
 
+@tracing.entry
 def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
                       mod_idx) -> torch.Tensor:
     """INTT(NTT(a) o NTT(b)) of (batch, N) lane tensors, row r modulo
@@ -513,15 +574,12 @@ def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
     its u32 twin, on the rows of a big ring for K13); on the engine:
     forward, rns_pointwise_mult_lanes, inverse.  Outputs are bit-identical
     either way."""
-    plan = plan.to(a.device)
-    mod_idx = checked_schedule(mod_idx, plan.mod_count, a.shape[0])
-    path = _rns_kernel_path(plan, a.shape)
+    plan, mod_idx, path, midx = _rns_route(plan, a, mod_idx)
     if path == "engine":
         prod = rns_pointwise_mult_lanes(rns_ntt_lanes(a, plan, mod_idx),
                                         rns_ntt_lanes(b, plan, mod_idx), plan, mod_idx)
         return rns_intt_lanes(prod, plan, mod_idx)
     a, b = a.contiguous(), b.contiguous()
-    midx = hr.schedule(plan, mod_idx, a.device)
     if path == "hopper-rns-large":
         sp = hr.large_plan(plan)
         return hr.rns_u64_large_polymul_inv(hr.rns_u64_large(a, sp, midx),

@@ -17,8 +17,9 @@ folds n^-1 into its last step); `fourstep_ntt_full` /
 relayouts outside any kernel, as they are XLA relayouts in the JAX
 package.  Any leading shape is one batch of (batch, N).
 
-Route (`_kernel_route`, the counterpart of the JAX `_mxu_route`): a plan
-that hopper_fourstep.covers (genuine root, u64 q < 2^62 or u32 q < 2^30,
+Route (`_route`, the counterpart of the JAX `_mxu_route`, and the
+entries' ntt.route span, common/tracing.py): a plan that
+hopper_fourstep.covers (genuine root, u64 q < 2^62 or u32 q < 2^30,
 logn 12-24, n1 <= 512, rows with a kernel) runs the hand-written
 kernels — the column phase (K9, K11) and the rows (K10, K11's row twin,
 or the merge kernels for rows above 512 words) — through
@@ -42,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..common import tracing
 from ..params.bitrev import bitrev_permute, bitreverse, bitreverse_indices
 from ..params.fourstep import NTTParameters4Step
 from ..params.merge import ReductionPolynomial
@@ -176,21 +178,26 @@ class FourStepPlan:
 
     def to(self, device) -> "FourStepPlan":
         """This plan with its tables on `device` (copies are cached; built
-        W tables and kernel plans move with it)."""
+        W tables and kernel plans move with it).  Counted under
+        tracing's plan_to.hit / plan_to.move."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device == self.device:
+            tracing.outcome("plan_to.hit", "plan", "hit")
             return self
-        if device not in self._moved:
-            lazy = {}
-            if "w" in self._lazy:
-                lazy["w"] = tuple(t.to(device) for t in self._lazy["w"])
-            if "kernel" in self._lazy:
-                lazy["kernel"] = self._lazy["kernel"].to(device)
-            self._moved[device] = dataclasses.replace(
-                self, _moved={}, _lazy=lazy, device=device,
-                **{f: getattr(self, f).to(device) for f in _TABLES})
+        if device in self._moved:
+            tracing.outcome("plan_to.hit", "plan", "hit")
+            return self._moved[device]
+        tracing.outcome("plan_to.move", "plan", "move")
+        lazy = {}
+        if "w" in self._lazy:
+            lazy["w"] = tuple(t.to(device) for t in self._lazy["w"])
+        if "kernel" in self._lazy:
+            lazy["kernel"] = self._lazy["kernel"].to(device)
+        self._moved[device] = dataclasses.replace(
+            self, _moved={}, _lazy=lazy, device=device,
+            **{f: getattr(self, f).to(device) for f in _TABLES})
         return self._moved[device]
 
     def ops(self) -> ButterflyOps:
@@ -204,12 +211,26 @@ def transpose_lanes(x: torch.Tensor, row: int, col: int) -> torch.Tensor:
     return x.reshape(lead + (row, col)).transpose(-1, -2).reshape(lead + (row * col,))
 
 
-def _kernel_route(x: torch.Tensor, plan: FourStepPlan, inverse: bool):
+def _route(x: torch.Tensor, plan: FourStepPlan, kernels: bool):
+    """The ntt.route span of the entries: the plan on x's device and, where
+    `kernels` and hopper_fourstep covers the plan, the kernels' plan (None
+    takes the engine)."""
+    span = tracing.begin(tracing.ROUTE)
+    try:
+        plan = plan.to(x.device)
+        kp = hf.kernel_plan(plan) if kernels and hf.covers(plan) else None
+        if span:
+            span.attrs["path"] = "engine" if kp is None else "hopper-fourstep"
+    finally:
+        if span:
+            span.end()
+    return plan, kp
+
+
+def _kernel_route(x: torch.Tensor, plan: FourStepPlan, kp, inverse: bool):
     """The transform through hopper_fourstep's kernels (their plain
-    versions on a CPU tensor), or None where they do not take the plan."""
-    if not hf.covers(plan):
-        return None
-    y = hf.fourstep(x.reshape(-1, plan.n).contiguous(), hf.kernel_plan(plan), inverse)
+    versions on a CPU tensor) on the kernels' plan `kp`."""
+    y = hf.fourstep(x.reshape(-1, plan.n).contiguous(), kp, inverse)
     return y.reshape(x.shape)
 
 
@@ -232,15 +253,16 @@ def _engine(x: torch.Tensor, plan: FourStepPlan, inverse: bool, scale: bool):
     return y.reshape(lead + (plan.n,))
 
 
+@tracing.entry
 def fourstep_ntt_lanes(x: torch.Tensor, plan: FourStepPlan) -> torch.Tensor:
     """GPU_4STEP_NTT(FORWARD) parity: input pre-transposed (n2, n1)
     flattened, output (n1, n2) flattened before the final transpose
     (ntt_4step.cu:2303-2533)."""
-    plan = plan.to(x.device)
-    routed = _kernel_route(x, plan, inverse=False)
-    return routed if routed is not None else _engine(x, plan, False, True)
+    plan, kp = _route(x, plan, True)
+    return _engine(x, plan, False, True) if kp is None else _kernel_route(x, plan, kp, False)
 
 
+@tracing.entry
 def fourstep_intt_lanes(x: torch.Tensor, plan: FourStepPlan,
                         scale: bool = True) -> torch.Tensor:
     """GPU_4STEP_NTT(INVERSE) parity: input pre-permuted by
@@ -248,9 +270,8 @@ def fourstep_intt_lanes(x: torch.Tensor, plan: FourStepPlan,
     flattened before the final transpose; n^-1 last
     (FourStepPartialInverseCore, ntt_4step.cu:1875-2015), or not at all
     with scale=False, which takes the engine."""
-    plan = plan.to(x.device)
-    routed = _kernel_route(x, plan, inverse=True) if scale else None
-    return routed if routed is not None else _engine(x, plan, True, scale)
+    plan, kp = _route(x, plan, scale)
+    return _engine(x, plan, True, scale) if kp is None else _kernel_route(x, plan, kp, True)
 
 
 def fourstep_ntt_full(x: torch.Tensor, plan: FourStepPlan) -> torch.Tensor:

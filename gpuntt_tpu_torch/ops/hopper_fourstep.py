@@ -37,7 +37,7 @@ Each wrapper takes a contiguous int64 tensor and a plan on the same
 device.  On a CPU tensor it runs the kernel's plain version, and only
 there; on a CUDA tensor it launches the kernel or raises.  Every launch
 adds one to its kernel's `launches`, every plain-version call through a
-wrapper one to `plain_calls`; `reset_counts()` zeroes both.
+wrapper one to `plain_calls`; `tracing.reset()` zeroes both.
 `fourstep_plain` composes the plain versions alone, on any device, which
 is how the kernels are checked on the card.
 """
@@ -75,11 +75,6 @@ COL32 = KernelStats("fourstep_u32_col", "gpuntt_tpu/ops/pallas_mxu_4step.py:483"
 ROW32 = KernelStats("fourstep_u32_row", "gpuntt_tpu/ops/pallas_mxu_4step.py:492",
                     source=hm32.SOURCE)
 KERNELS = (COL64, ROW64, COL32, ROW32)
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def rows_have_kernel(n2: int, is64: bool) -> bool:

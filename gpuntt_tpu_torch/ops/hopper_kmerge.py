@@ -37,7 +37,7 @@ csrc/kmerge.cu (see the note there).  On a CPU tensor a wrapper runs the
 kernel's plain version, and only there; on a CUDA tensor it launches the
 kernel or raises.  Every launch adds one to its kernel's `launches`,
 every plain-version call through a wrapper one to `plain_calls`;
-`reset_counts()` zeroes them.
+`tracing.reset()` zeroes them.
 """
 
 from __future__ import annotations
@@ -66,11 +66,6 @@ FORWARD = KernelStats("kmerge_u32_forward", "gpuntt_tpu/ops/pallas_merge.py:218"
 INVERSE = KernelStats("kmerge_u32_inverse", "gpuntt_tpu/ops/pallas_merge.py:255",
                       source=SOURCE)
 KERNELS = (FORWARD, INVERSE)
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 # ---------------------------------------------------------------- tables
@@ -241,7 +236,6 @@ class KernelMergePlan:
               if isinstance(getattr(self, f.name), torch.Tensor)]
         ts += list(self._w.values())
         return sum(t.numel() * t.element_size() for t in ts)
-
 
 
 def kernel_plan(plan: MergePlan) -> KernelMergePlan:

@@ -30,7 +30,7 @@ from the root pair alone.
 On a CPU tensor the wrapper runs the kernel's plain version, and only
 there; on a CUDA tensor it launches the kernel or raises.  Every launch
 adds one to its kernel's `launches`, every plain-version call one to
-`plain_calls`; `reset_counts()` zeroes them.
+`plain_calls`; `tracing.reset()` zeroes them.
 """
 
 from __future__ import annotations
@@ -48,11 +48,6 @@ INVERSE = KernelStats("kmerge_u64_inverse", "gpuntt_tpu/ops/pallas_merge64.py:10
                       source=SOURCE)
 KERNELS = (FORWARD, INVERSE)
 MAX_LOGN = 24
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def route(plan: MergePlan) -> str:

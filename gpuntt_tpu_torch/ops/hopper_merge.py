@@ -27,18 +27,20 @@ below 4q, so they take q < 2^62 only (LAZY_Q): `takes` and, on its own,
 every wrapper's refusal (`lazy_bound`) hold it.
 
 Every launch adds one to its kernel's `launches`, every plain-version
-call through a wrapper one to `plain_calls`; `reset_counts()` zeroes
-both.
+call through a wrapper one to `plain_calls`; `common.tracing.reset()`
+zeroes both.  Every C entry of the port is called through `_launch`,
+the ntt.launch span site (common/tracing.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
+from ..common import tracing
 from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.tracing import KernelStats  # the kernel modules import it from here
 from . import barrett as bo
 from .limb import signed
 from .merge_ntt import MergePlan, ct_stages, gs_stages
@@ -47,28 +49,11 @@ SOURCE = "gpuntt_tpu_torch/csrc/merge_u64.cu"
 LAZY_Q = 1 << 62  # the u64 register-pass kernels take q below it: values stay below 4q < 2^64
 
 
-@dataclass
-class KernelStats:
-    """What a kernel replaces, and how often it ran since the last reset."""
-
-    name: str
-    replaces: str
-    route: str = "cuda"
-    source: str = SOURCE
-    launches: int = 0
-    plain_calls: int = 0
-
-
-FORWARD = KernelStats("merge_u64_forward", "gpuntt_tpu/ops/pallas_mxu.py:621")
-INVERSE = KernelStats("merge_u64_inverse", "gpuntt_tpu/ops/pallas_mxu.py:632")
+FORWARD = KernelStats("merge_u64_forward", "gpuntt_tpu/ops/pallas_mxu.py:621", source=SOURCE)
+INVERSE = KernelStats("merge_u64_inverse", "gpuntt_tpu/ops/pallas_mxu.py:632", source=SOURCE)
 POLYMUL_INVERSE = KernelStats("merge_u64_polymul_inverse",
-                              "gpuntt_tpu/ops/pallas_mxu.py:643")
+                              "gpuntt_tpu/ops/pallas_mxu.py:643", source=SOURCE)
 KERNELS = (FORWARD, INVERSE, POLYMUL_INVERSE)
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def split(logn: int) -> int:
@@ -162,10 +147,15 @@ def _check(name: str, plan: MergePlan, *xs: torch.Tensor) -> None:
 
 
 def _launch(stats: KernelStats, fn, x: torch.Tensor, *args) -> None:
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.device.index, *args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise NTTDeviceError(f"{stats.name} launch failed: cudaError_t {rc}")
+    span = tracing.begin(tracing.LAUNCH, "kernel", stats.name)
+    try:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.device.index, *args, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise NTTDeviceError(f"{stats.name} launch failed: cudaError_t {rc}")
+    finally:
+        if span:
+            span.end()
     stats.launches += 1
 
 

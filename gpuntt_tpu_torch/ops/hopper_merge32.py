@@ -28,7 +28,7 @@ any device, which is how the kernels are checked on the card.
 The counts are kept per TPU kernel replaced, by the logn range that
 served the call: every launch adds one to that kernel's `launches`,
 every plain-version call through a wrapper one to its `plain_calls`;
-`reset_counts()` zeroes them.  `forward`/`inverse` count under the
+`tracing.reset()` zeroes them.  `forward`/`inverse` count under the
 stats they are given: the 4-step's rows of 128-512 words (logn 7-9,
 which `takes` admits and dispatch's `covers` does not) count under
 K11's row kernel (hopper_fourstep.py).
@@ -61,11 +61,6 @@ INVERSE = {
     "K6": _stats("inverse", "K6", "gpuntt_tpu/ops/pallas_mxu32.py:383 (rows: :178)"),
 }
 KERNELS = tuple(d[k] for k in ("K4", "K5", "K6") for d in (FORWARD, INVERSE))
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def tpu_kernel(logn: int) -> str:

@@ -57,7 +57,7 @@ plan on the same device.  On a CPU tensor it runs the kernel's plain
 version, and only there; on a CUDA tensor it launches the kernel or
 raises.  Every launch adds one to its kernel's `launches`, every
 plain-version call through a wrapper one to `plain_calls`;
-`reset_counts()` zeroes both.  `merge_u64_large_plain` composes the
+`tracing.reset()` zeroes both.  `merge_u64_large_plain` composes the
 plain versions alone, on any device, which is how the kernels are
 checked on the card.
 """
@@ -99,11 +99,6 @@ COLFWD_LOCAL = KernelStats("merge_u64_large_colfwd_local",
 COLINV_LOCAL = KernelStats("merge_u64_large_colinv_local",
                            "gpuntt_tpu/ops/pallas_mxu_large.py:452", source=SOURCE)
 LOCAL_KERNELS = (COLFWD_LOCAL, COLINV_LOCAL)
-
-
-def reset_counts() -> None:
-    for k in (*KERNELS, *LOCAL_KERNELS):
-        k.launches = k.plain_calls = 0
 
 
 def covers(plan: MergePlan) -> bool:

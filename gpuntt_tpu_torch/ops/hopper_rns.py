@@ -37,7 +37,7 @@ plain version — each modulus's rows through the single-modulus kernel's
 plain version with that member's plan — and only there; on a CUDA tensor
 it launches the kernel or raises.  Every launch adds one to its kernel's
 `launches`, every plain-version call through a wrapper one to
-`plain_calls`; `reset_counts()` zeroes both.  The `*_plain`
+`plain_calls`; `tracing.reset()` zeroes both.  The `*_plain`
 compositions run the plain versions alone, on any device, which is how
 the kernels are checked on the card.
 """
@@ -51,6 +51,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..common import tracing
 from ..common.errors import NTTDeviceError, NTTDispatchError
 from . import hopper_fourstep as hf
 from . import hopper_merge as hm
@@ -71,11 +72,6 @@ KERNELS = (FORWARD, INVERSE, POLYMUL_INVERSE, LARGE_COLFWD, LARGE_COLINV, LARGE_
            FOURSTEP_COL)
 
 ROW_TILE_LOG = 12  # K13's row kernel holds 2^12 words per block
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def _narrow(plan) -> bool:
@@ -103,13 +99,17 @@ def schedule(owner, mod_idx: np.ndarray, device: torch.device) -> torch.Tensor:
     """`mod_idx` (normalised, int64) as an int32 tensor on `device`,
     copied once per schedule and cached on `owner` (an RNS plan): a
     host-to-device copy from pageable memory waits for the stream, which
-    would hold the host back on every call."""
+    would hold the host back on every call.  Counted under tracing's
+    schedule.hit / schedule.miss."""
     cache = owner._lazy.setdefault("schedules", {})
     key = (str(device), np.asarray(mod_idx, dtype=np.int64).tobytes())
-    if key not in cache:
-        if len(cache) >= 64:
-            cache.clear()
-        cache[key] = torch.from_numpy(np.asarray(mod_idx, dtype=np.int32)).to(device)
+    if key in cache:
+        tracing.outcome("schedule.hit", "schedule", "hit")
+        return cache[key]
+    tracing.outcome("schedule.miss", "schedule", "miss")
+    if len(cache) >= 64:
+        cache.clear()
+    cache[key] = torch.from_numpy(np.asarray(mod_idx, dtype=np.int32)).to(device)
     return cache[key]
 
 

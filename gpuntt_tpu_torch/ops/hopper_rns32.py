@@ -33,7 +33,7 @@ modulus's rows through hopper_merge32's plain versions with that
 member's plan — and only there; on a CUDA tensor it launches the kernel
 or raises.  Every launch adds one to its kernel's `launches`, every
 plain-version call through a wrapper one to `plain_calls`;
-`reset_counts()` zeroes both.  The `*_plain` functions run the plain
+`tracing.reset()` zeroes both.  The `*_plain` functions run the plain
 versions alone, on any device, which is how the kernels are checked on
 the card.
 """
@@ -69,11 +69,6 @@ POLYMUL_INVERSE = {
     "K6": _stats("polymul_inverse", "K6", _K6 + "383 (per modulus; rows: :178)"),
 }
 KERNELS = tuple(d[k] for k in ("K16", "K6") for d in (FORWARD, INVERSE, POLYMUL_INVERSE))
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 def tpu_kernel(logn: int) -> str:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..arith.modulus import Modulus
+from ..common import tracing
 from ..params.bitrev import bitrev_permute, bitreverse_indices
 from ..params.merge import NTTParameters, ReductionPolynomial, _power_table
 from . import barrett as bo
@@ -207,19 +208,24 @@ class MergePlan:
 
     def to(self, device) -> "MergePlan":
         """This plan with its tables on `device` (copies are cached).  A
-        plan without tables moves its big-ring plan, if it has one."""
+        plan without tables moves its big-ring plan, if it has one.
+        Counted under tracing's plan_to.hit / plan_to.move."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device == self.device:
+            tracing.outcome("plan_to.hit", "plan", "hit")
             return self
-        if device not in self._moved:
-            tables = {f: (getattr(self, f) if getattr(self, f) is None
-                          else getattr(self, f).to(device))
-                      for f in ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")}
-            lazy = {"large": self._lazy["large"].to(device)} if "large" in self._lazy else {}
-            self._moved[device] = dataclasses.replace(
-                self, _moved={}, _lazy=lazy, device=device, **tables)
+        if device in self._moved:
+            tracing.outcome("plan_to.hit", "plan", "hit")
+            return self._moved[device]
+        tracing.outcome("plan_to.move", "plan", "move")
+        tables = {f: (getattr(self, f) if getattr(self, f) is None
+                      else getattr(self, f).to(device))
+                  for f in ("fwd_table", "fwd_shoup", "inv_table", "inv_shoup")}
+        lazy = {"large": self._lazy["large"].to(device)} if "large" in self._lazy else {}
+        self._moved[device] = dataclasses.replace(
+            self, _moved={}, _lazy=lazy, device=device, **tables)
         return self._moved[device]
 
     def ops(self) -> ButterflyOps:

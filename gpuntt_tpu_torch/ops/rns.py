@@ -35,6 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..common import tracing
 from ..common.errors import NTTError
 from ..params.merge import NTTParameters, ReductionPolynomial
 from .limb import signed
@@ -177,23 +178,28 @@ class RNSMergePlan:
 
     def to(self, device) -> "RNSMergePlan":
         """This plan with every table on `device` (copies are cached; a
-        built K13 plan moves with it)."""
+        built K13 plan moves with it).  Counted under tracing's
+        plan_to.hit / plan_to.move."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device == self.device:
+            tracing.outcome("plan_to.hit", "plan", "hit")
             return self
-        if device not in self._moved:
-            stacks = {s: None if getattr(self, s) is None else getattr(self, s).to(device)
-                      for s in _STACKS}
-            members = self.members
-            if stacks["fwd_tables"] is None:
-                members = [m.to(device) for m in members]
-            moved = RNSMergePlan._build(self.logn, self.reduction_poly, self.is64, members,
-                                        stacks, self.consts.to(device), device, self.params)
-            if "large" in self._lazy:
-                moved._lazy["large"] = self._lazy["large"].to(device)
-            self._moved[device] = moved
+        if device in self._moved:
+            tracing.outcome("plan_to.hit", "plan", "hit")
+            return self._moved[device]
+        tracing.outcome("plan_to.move", "plan", "move")
+        stacks = {s: None if getattr(self, s) is None else getattr(self, s).to(device)
+                  for s in _STACKS}
+        members = self.members
+        if stacks["fwd_tables"] is None:
+            members = [m.to(device) for m in members]
+        moved = RNSMergePlan._build(self.logn, self.reduction_poly, self.is64, members,
+                                    stacks, self.consts.to(device), device, self.params)
+        if "large" in self._lazy:
+            moved._lazy["large"] = self._lazy["large"].to(device)
+        self._moved[device] = moved
         return self._moved[device]
 
     def device_bytes(self) -> int:

@@ -31,9 +31,14 @@ collective layer.  It prints for each entry:
 - the window's time per call on the events, and the device's busy and
   idle share of it (the sum of the kernels' device time over the
   window);
+- the host time a call of the port's entries (the ntt.entry spans of
+  common/tracing.py, recorded under the profiler) spends in the
+  entries' own code, in their ntt.route spans and in their ntt.launch
+  spans, in milliseconds, from tracing.snapshot() after a
+  tracing.reset() before the entry (none for the kernel wrappers and
+  the distributed entries, which are no such entry);
 - for each kernel launched, the launches per call and the device
-  microseconds per launch, with the rate that would be if the launch
-  read and wrote its (batch, N) int64 operand once each.
+  microseconds per launch.
 
 The first line is the card's name and power limit as nvidia-smi gives
 them.
@@ -47,6 +52,7 @@ import sys
 import numpy as np
 import torch
 
+from ..common import tracing
 
 _OURS = ("merge_u", "fourstep", "kmerge")  # the namespaces of csrc/
 
@@ -73,9 +79,10 @@ def _short(name: str) -> str:
     return "torch: " + name.split("<")[0].split("::")[-1]
 
 
-def profile(fn, iters: int, operand_bytes: int) -> None:
+def profile(fn, iters: int) -> None:
     fn()
     torch.cuda.synchronize()
+    tracing.reset()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -88,7 +95,9 @@ def profile(fn, iters: int, operand_bytes: int) -> None:
     window_us = start.elapsed_time(end) * 1e3
     rows: dict[str, list[float]] = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the profiler lays the ntt.* spans on the device's timeline too
+        # (the kernels they launched): they are no device work of their own
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("ntt."):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -100,11 +109,12 @@ def profile(fn, iters: int, operand_bytes: int) -> None:
     busy = sum(t for _, t in rows.values())
     print(f"  {window_us / iters:.3f} us per call on events; device busy "
           f"{busy / window_us:.1%}, idle {1 - busy / window_us:.1%}")
+    split = tracing.split_ms(tracing.snapshot()["spans"])
+    if split["calls"]:
+        print(f"  host ms per call: entry self {split['entry_self']:.4f}, route "
+              f"{split['route']:.4f}, launch {split['launch']:.4f} ({split['calls']} calls)")
     for name, (count, t) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
-        per = t / count
-        rate = (f", {2 * operand_bytes / per / 1e6:.3f} TB/s at one read + one write"
-                if name.startswith(_OURS) else "")
-        print(f"    {name}: {count / iters:g} per call, {per:.3f} us per launch{rate}")
+        print(f"    {name}: {count / iters:g} per call, {t / count:.3f} us per launch")
 
 
 def main(iters: int = 20) -> int:
@@ -131,7 +141,7 @@ def main(iters: int = 20) -> int:
                           ("intt_lanes", lambda: g.intt_lanes(fa, plan)),
                           ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan))):
             print(f"u{bits} 2^{logn}x{batch} {entry}:")
-            profile(fn, iters, a.numel() * 8)
+            profile(fn, iters)
         if (logn, batch) != (16, 128):
             continue
         if dtype == np.uint64:
@@ -140,14 +150,14 @@ def main(iters: int = 20) -> int:
                     ("intt_lanes", lambda: g.intt_lanes(fa, plan, use_pallas="vpu")),
                     ("polymul_lanes", lambda: g.polymul_lanes(a, b, plan, use_pallas="vpu"))):
                 print(f"u64 2^16x128 {entry} use_pallas=vpu (K15):")
-                profile(fn, iters, a.numel() * 8)
+                profile(fn, iters)
             continue
         from gpuntt_tpu_torch.ops import hopper_kmerge as hk
 
         kp = hk.kernel_plan(plan)
         for inverse in (False, True):
             print(f"u32 2^16x128 kmerge_u32 inverse={inverse} (K17):")
-            profile(lambda: hk.kmerge_u32(a, kp, inverse=inverse), iters, a.numel() * 8)
+            profile(lambda: hk.kmerge_u32(a, kp, inverse=inverse), iters)
     # K8's cell: the 2^27 ring's nested rows of 512 (1 GiB an operand; no polymul)
     p = g.NTTParameters(27, g.ReductionPolynomial.X_N_plus, np.uint64)
     plan = g.MergePlan.from_params(p, device=dev)
@@ -157,7 +167,7 @@ def main(iters: int = 20) -> int:
     for entry, fn in (("ntt_lanes", lambda: g.ntt_lanes(a, plan)),
                       ("intt_lanes", lambda: g.intt_lanes(fa, plan))):
         print(f"u64 2^27x1 {entry}:")
-        profile(fn, iters, a.numel() * 8)
+        profile(fn, iters)
     del a, fa, plan
     for dtype, logn, batch in ((np.uint64, 24, 1), (np.uint64, 16, 128), (np.uint32, 24, 1),
                                (np.uint32, 16, 128)):
@@ -169,7 +179,7 @@ def main(iters: int = 20) -> int:
         for entry, fn in (("fourstep_ntt_lanes", lambda: g.fourstep_ntt_lanes(a, plan)),
                           ("fourstep_intt_lanes", lambda: g.fourstep_intt_lanes(a, plan))):
             print(f"4-step u{bits} 2^{logn}x{batch} {entry}:")
-            profile(fn, iters, a.numel() * 8)
+            profile(fn, iters)
     from gpuntt_tpu_torch.ops import dispatch as td
 
     for u32, logn, batch, count in ((False, 16, 64, 8), (False, 18, 12, 3), (True, 16, 128, 8),
@@ -188,7 +198,7 @@ def main(iters: int = 20) -> int:
                                      td.ntt_rns_lanes(a, plan, mod_idx))))
         for entry, fn in entries:
             print(f"RNS u{32 if u32 else 64} 2^{logn}x{batch} ladder {count} {entry}:")
-            profile(fn, iters, a.numel() * 8)
+            profile(fn, iters)
     for logn, batch in ((16, 64), (20, 8)):
         plan = g.RNSFourStepPlan.from_params(_ladder(g, logn, 8, four=True), device=dev)
         mod_idx = np.arange(batch) % 8
@@ -199,7 +209,7 @@ def main(iters: int = 20) -> int:
                           ("rns_fourstep_intt_lanes",
                            lambda: g.rns_fourstep_intt_lanes(a, plan, mod_idx))):
             print(f"RNS 4-step u64 2^{logn}x{batch} ladder 8 {entry}:")
-            profile(fn, iters, a.numel() * 8)
+            profile(fn, iters)
     import torch.distributed as dist
 
     from gpuntt_tpu_torch.parallel import mesh as M
@@ -216,7 +226,7 @@ def main(iters: int = 20) -> int:
     for entry, fn in (("dist_fourstep_ntt", lambda: dist_fourstep_ntt(x, dplan, mesh)),
                       ("dist_fourstep_intt", lambda: dist_fourstep_intt(spec, dplan, mesh))):
         print(f"dist 4-step u64 2^24x1 world size 1 {entry}:")
-        profile(fn, iters, x.numel() * 8)
+        profile(fn, iters)
     dist.destroy_process_group()
     return 0
 

@@ -12,7 +12,7 @@
 `shoup_chain` launches the probe on a CUDA tensor and runs its plain
 version, the same chain of ops/barrett.py Shoup products, on a CPU
 tensor; every launch adds one to its kernel's `launches`, every plain
-call one to `plain_calls` (`reset_counts()` zeroes both).  The probe
+call one to `plain_calls` (`tracing.reset()` zeroes both).  The probe
 replaces no TPU kernel.
 """
 
@@ -37,11 +37,6 @@ _REPLACES = "none: the peak probe (gpuntt_tpu/utils/profiling.py:61, plain jnp)"
 CHAIN64 = KernelStats("shoup_chain_u64", _REPLACES, source=SOURCE)
 CHAIN32 = KernelStats("shoup_chain_u32", _REPLACES, source=SOURCE)
 KERNELS = (CHAIN64, CHAIN32)
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = k.plain_calls = 0
 
 
 @contextlib.contextmanager

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
@@ -66,7 +67,7 @@ def test_kernels_match_plain_on_card(card, logn, poly):
                                     endpoint=False), card)
     b = from_numpy_u64(rng.integers(0, p.modulus.value, size=(3, p.n),
                                     dtype=np.uint64), card)
-    hm.reset_counts()
+    tracing.reset()
     fx = hm.merge_u64_fwd(x, plan)
     ix = hm.merge_u64_inv(x, plan)
     px = hm.merge_u64_polymul_inv(fx, b, plan)
@@ -114,15 +115,14 @@ def test_large_kernels_match_plain_on_card(card, logn, batch, poly):
     lp = hml.large_plan(plan)
     x = from_numpy_u64(np.random.default_rng(logn).integers(
         0, 1 << 64, size=(batch, p.n), dtype=np.uint64, endpoint=False), card)
-    hm.reset_counts()
-    hml.reset_counts()
+    tracing.reset()
     cf, ci = hml.merge_u64_large_colfwd(x, lp), hml.merge_u64_large_colinv(x, lp)
     torch.cuda.synchronize()
     assert _large_counts() == {hml.COLFWD.name: (1, 0), hml.COLINV.name: (1, 0)}
     assert torch.equal(cf, hml.colfwd_plain(x, lp))
     assert torch.equal(ci, hml.colinv_plain(x, lp))
     del cf, ci
-    hml.reset_counts()
+    tracing.reset()
     fx = tg.ntt_lanes(x, plan)
     torch.cuda.synchronize()
     leaf = lp.nested or lp
@@ -145,7 +145,7 @@ def test_large_route_against_native_on_card(card, poly):
     rng = np.random.default_rng(24)
     x = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
     y = rng.integers(0, p.modulus.value, size=(2, p.n), dtype=np.uint64)
-    hm.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.ntt(x, plan), gen.ntt(x))
     np.testing.assert_array_equal(tg.intt(x, plan), gen.intt(x))
     np.testing.assert_array_equal(tg.polymul(x, y, plan),
@@ -187,8 +187,7 @@ def test_polynomial_multiplier_reaches_large_route_on_card(card, logn):
     rng = np.random.default_rng(logn)
     a, b = (from_numpy_u64(rng.integers(0, p.modulus.value, size=(1, p.n),
                                         dtype=np.uint64), card) for _ in range(2))
-    hm.reset_counts()
-    hml.reset_counts()
+    tracing.reset()
     out = model(a, b)
     torch.cuda.synchronize()
     lp = hml.large_plan(model.plan)
@@ -403,7 +402,7 @@ def test_u32_kernels_match_plain_on_card(card, logn, poly):
     batch = 1 if logn == 25 else 2
     x = torch.from_numpy(np.random.default_rng(logn).integers(
         0, 1 << 32, size=(batch, p.n), dtype=np.int64)).to(card)
-    hm32.reset_counts()
+    tracing.reset()
     fx = hm32.merge_u32_fwd(x, plan)
     ix = hm32.merge_u32_inv(x, plan)
     torch.cuda.synchronize()
@@ -427,7 +426,7 @@ def test_u32_moduli_against_golden_on_card(card, bits, poly):
     for batch in (1, 128):
         x = rng.integers(0, q, size=(batch, p.n), dtype=np.uint64).astype(np.uint32)
         y = rng.integers(0, q, size=(batch, p.n), dtype=np.uint64).astype(np.uint32)
-        hm32.reset_counts()
+        tracing.reset()
         np.testing.assert_array_equal(tg.ntt(x, plan), gen.ntt(x))
         np.testing.assert_array_equal(tg.intt(x, plan), gen.intt(x))
         np.testing.assert_array_equal(tg.polymul(x, y, plan),
@@ -439,7 +438,7 @@ def test_u32_moduli_against_golden_on_card(card, bits, poly):
 def test_u32_route_runs_k4_k5_k6_on_card(card):
     """ntt_lanes / intt_lanes at 2^16, 2^17 and 2^20 launch the
     counterparts of K4, K5 and K6 once each, and no plain version."""
-    hm32.reset_counts()
+    tracing.reset()
     for logn in (16, 17, 20):
         p, plan = _u32_plan(logn, tg.ReductionPolynomial.X_N_plus, card)
         x = torch.from_numpy(np.random.default_rng(logn).integers(
@@ -492,11 +491,6 @@ def _fourstep_counts():
             for k in (*hf.KERNELS, *hm.KERNELS, *hm32.KERNELS) if k.launches or k.plain_calls}
 
 
-def _fourstep_reset():
-    for mod in (hf, hm, hm32):
-        mod.reset_counts()
-
-
 @pytest.mark.parametrize("dtype", [np.uint64, np.uint32])
 @pytest.mark.parametrize("poly", POLYS)
 @pytest.mark.parametrize("logn", range(12, 25))
@@ -510,7 +504,7 @@ def test_fourstep_kernels_match_plain_on_card(card, logn, poly, dtype):
     is64 = dtype == np.uint64
     col = hf.fourstep_u64_col if is64 else hf.fourstep_u32_col
     x = _words((1, p.n), is64, logn, card)
-    _fourstep_reset()
+    tracing.reset()
     for inverse in (False, True):
         y = col(x, kp, inverse)
         assert torch.equal(y, hf.col_plain(x, kp, inverse)), inverse
@@ -538,7 +532,7 @@ def test_fourstep_entries_against_golden_on_card(card, poly):
                                               dtype=np.uint64)
     x = from_numpy_u64(x_np, card)
     gen = tg.NTT4StepCPU(p)
-    _fourstep_reset()
+    tracing.reset()
     fx = tg.fourstep_ntt_full(x, plan)
     ix = tg.fourstep_intt_full(x, plan)
     torch.cuda.synchronize()
@@ -562,7 +556,7 @@ def test_fourstep_he_width_on_card(card, dtype):
     x = torch.from_numpy(np.random.default_rng(16).integers(
         0, p.modulus.value, size=(128, p.n), dtype=np.int64)).to(card)
     kp = hf.kernel_plan(plan)
-    _fourstep_reset()
+    tracing.reset()
     fx = tg.fourstep_ntt_lanes(x, plan)
     ix = tg.fourstep_intt_lanes(fx, plan)
     torch.cuda.synchronize()
@@ -625,7 +619,7 @@ def test_rns_k12_matches_plain_on_card(card, logn, poly, schedule):
     midx = torch.tensor(SCHEDULES[schedule], dtype=torch.int32, device=card)
     for shift in (0, 1):
         x = _words((4 << shift, plan.n), True, logn + shift, card)
-        hr.reset_counts()
+        tracing.reset()
         fx = hr.rns_u64_fwd(x, plan, midx, shift)
         fb = hr.rns_u64_fwd(x.flip(0), plan, midx, shift)
         ix = hr.rns_u64_inv(x, plan, midx, shift)
@@ -650,7 +644,7 @@ def test_rns_k13_matches_plain_on_card(card, logn, poly, schedule):
     order = SCHEDULES[schedule]
     midx = torch.tensor(order, dtype=torch.int32, device=card)
     x = _words((4, plan.n), True, logn, card)
-    hr.reset_counts()
+    tracing.reset()
     assert torch.equal(hr.rns_u64_large_colfwd(x, sp, midx), hr.colfwd_plain(x, sp, midx))
     assert torch.equal(hr.rns_u64_large_colinv(x, sp, midx), hr.colinv_plain(x, sp, midx))
     fx = td.ntt_rns_lanes(x, plan, order)
@@ -678,7 +672,7 @@ def test_rns_k14_matches_plain_on_card(card, logn, poly, schedule):
     order = SCHEDULES[schedule]
     midx = torch.tensor(order, dtype=torch.int32, device=card)
     x = _words((4, plan.n), True, logn, card)
-    hr.reset_counts()
+    tracing.reset()
     for inverse in (False, True):
         assert torch.equal(hr.rns_fourstep_u64_col(x, sp, midx, inverse),
                            hr.col4_plain(x, sp, midx, inverse))
@@ -704,7 +698,7 @@ def test_rns_schedules_on_card(card):
             cpu = tg.RNSMergePlan.from_params(members, device="cpu")
             x = np.random.default_rng(logn).integers(0, min(plan.qs), size=(4, plan.n),
                                                      dtype=np.uint64)
-            hr.reset_counts()
+            tracing.reset()
             for order in ([2, 0, 1], [5, -1, 0]):
                 for name in ("ntt_modulus_ordered", "intt_modulus_ordered"):
                     fn = getattr(tg, name)
@@ -733,7 +727,7 @@ def test_rns_model_on_card(card):
         rng = np.random.default_rng(logn)
         a, b = (torch.from_numpy(rng.integers(0, min(model.qs), size=(2, 3, 1 << logn),
                                               dtype=np.int64)).to(card) for _ in range(2))
-        hr.reset_counts()
+        tracing.reset()
         out = model(a, b)
         torch.cuda.synchronize()
         assert hr.POLYMUL_INVERSE.launches == 1 and hr.FORWARD.launches == 2
@@ -798,7 +792,7 @@ def test_rns32_kernels_match_plain_on_card(card, logn, poly, schedule):
                       hr32.POLYMUL_INVERSE[k].name)
     for shift in (0, 1):
         x = _words((4 << shift, plan.n), False, logn + shift, card)
-        hr32.reset_counts()
+        tracing.reset()
         fx = hr32.rns_u32_fwd(x, plan, midx, shift)
         fb = hr32.rns_u32_fwd(x.flip(0), plan, midx, shift)
         ix = hr32.rns_u32_inv(x, plan, midx, shift)
@@ -809,7 +803,7 @@ def test_rns32_kernels_match_plain_on_card(card, logn, poly, schedule):
         assert torch.equal(ix, hr32.rns_u32_inv_plain(x, plan, midx, shift))
         assert torch.equal(px, hr32.rns_u32_polymul_inv_plain(fx, fb, plan, midx, shift))
     x = x[:4] % min(plan.qs)
-    hr32.reset_counts()
+    tracing.reset()
     fx = td.ntt_rns_lanes(x, plan, order)
     assert torch.equal(td.intt_rns_lanes(fx, plan, order), x)
     px = td.rns_polymul_lanes(x, x.flip(0), plan, order)
@@ -829,7 +823,7 @@ def test_rns32_model_and_schedules_on_card(card):
         rng = np.random.default_rng(logn)
         a, b = (torch.from_numpy(rng.integers(0, min(model.qs), size=(2, 3, 1 << logn),
                                               dtype=np.int64)).to(card) for _ in range(2))
-        hr32.reset_counts()
+        tracing.reset()
         out = model(a, b)
         torch.cuda.synchronize()
         k = hr32.tpu_kernel(logn)
@@ -884,7 +878,7 @@ def test_k7_local_matches_plain_on_card(card, logn, sp):
         whole = hml.col_phase_local(x, lp, 0, 1, inverse)
         for sh in range(sp):
             xs = x[:, :, sh * bl:(sh + 1) * bl].contiguous()
-            hml.reset_counts()
+            tracing.reset()
             got = hml.col_phase_local(xs, lp, sh, sp, inverse)
             torch.cuda.synchronize()
             k = hml.COLINV_LOCAL if inverse else hml.COLFWD_LOCAL
@@ -919,8 +913,7 @@ def test_merge_dist_tails_on_card(card, logn, sp, poly):
     for r in range(sp):
         tail = merge_dist_tails(plan, sp, r)
         x = from_numpy_u64(rng.integers(0, plan.q, size=(2, tail.n), dtype=np.uint64), card)
-        hm.reset_counts()
-        hml.reset_counts()
+        tracing.reset()
         f, i = tg.ntt_lanes(x, tail), tg.intt_lanes(x, tail)
         torch.cuda.synchronize()
         if tail.bigring:
@@ -1047,7 +1040,7 @@ def test_kmerge_u64_matches_plain_on_card(card, logn, poly, bits):
     kp = hk.kernel_plan(plan)
     x = from_numpy_u64(np.random.default_rng(logn).integers(
         0, 1 << 64, size=(1 if logn > 20 else 2, p.n), dtype=np.uint64, endpoint=False), card)
-    hk64.reset_counts()
+    tracing.reset()
     fx, ix = hk64.kmerge_u64(x, kp), hk64.kmerge_u64(x, kp, inverse=True)
     torch.cuda.synchronize()
     assert [(k.launches, k.plain_calls) for k in hk64.KERNELS] == [(1, 0), (1, 0)]
@@ -1117,7 +1110,7 @@ def test_kmerge_u32_matches_plain_on_card(card, logn, poly, widest):
     kp = hk.KernelMergePlan.from_params(p, device=card)
     x = torch.from_numpy(np.random.default_rng(logn).integers(
         0, 1 << 32, size=(1 if logn > 20 else 2, p.n), dtype=np.int64)).to(card)
-    hk.reset_counts()
+    tracing.reset()
     fx, ix = hk.kmerge_u32(x, kp), hk.kmerge_u32(x, kp, inverse=True)
     torch.cuda.synchronize()
     assert [(k.launches, k.plain_calls) for k in hk.KERNELS] == [(1, 0), (1, 0)]
@@ -1158,7 +1151,7 @@ def test_probe_kernel_matches_plain(card, is64):
                                            rng.integers(0, q, 100003, dtype=np.uint64)]), card)
         for w in (1, q - 1, int(rng.integers(2, q - 1))):
             for depth in (0, 1, 7):
-                pr.reset_counts()
+                tracing.reset()
                 got = pr.shoup_chain(x, w, q, depth, is64)
                 torch.cuda.synchronize()
                 stats = pr.CHAIN64 if is64 else pr.CHAIN32
@@ -1192,7 +1185,7 @@ def test_headline_polymul_graph_capture(card):
     rng = np.random.default_rng(1)
     a_np, b_np = (rng.integers(0, p.modulus.value, (128, p.n), dtype=np.uint64)
                   for _ in range(2))
-    hm.reset_counts()
+    tracing.reset()
     eager, replay, _ = E.graph_check(lambda u, v: tg.polymul_lanes(u, v, plan),
                                      (from_numpy_u64(a_np, card), from_numpy_u64(b_np, card)))
     assert [k.launches for k in hm.KERNELS] == [6, 0, 3]
@@ -1212,11 +1205,47 @@ def test_example_on_card(card, capsys, name, args, want):
     import importlib
 
     mod = importlib.import_module(f"gpuntt_tpu_torch.examples.{name}")
-    hm.reset_counts()
-    hr.reset_counts()
+    tracing.reset()
     assert mod.main([*args, f"--device={card}"]) == 0
     assert "All Correct." in capsys.readouterr().out.splitlines()
     torch.cuda.synchronize()
     ran = {k.name: k.launches for k in (*hm.KERNELS, *hr.KERNELS) if k.launches}
     assert ran == want
     assert not any(k.plain_calls for k in (*hm.KERNELS, *hr.KERNELS))
+
+
+def test_launch_spans_match_launch_counts_on_card(card):
+    """Under torch.profiler, each rns_polymul_lanes call (30 rows of 2^15,
+    ladder 15, as the single HE cell) records one ntt.launch span for
+    each launch its kernels count: 3 (two K12 forwards, the fused
+    inverse), inside its ntt.entry span, after a route that finds the
+    plan and the schedule on the card."""
+    from collections import Counter
+
+    plan = tg.RNSMergePlan.from_params(_rns_members(15, tg.ReductionPolynomial.X_N_plus, 15),
+                                       device=card)
+    rng = np.random.default_rng(16)
+    a, b = (from_numpy_u64(rng.integers(0, min(plan.qs), (30, plan.n), dtype=np.uint64), card)
+            for _ in range(2))
+    mod_idx = np.arange(30) % 15
+    want = td.rns_polymul_lanes(a, b, plan, mod_idx)
+    torch.cuda.synchronize()
+    tracing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        outs = [td.rns_polymul_lanes(a, b, plan, mod_idx) for _ in range(4)]
+        torch.cuda.synchronize()
+    snap = tracing.snapshot()
+    spans = snap["spans"]
+    launches = sum(k["launches"] for k in snap["kernels"].values())
+    entries = [s for s in spans if s["name"] == "ntt.entry"]
+    launch_spans = [s for s in spans if s["name"] == "ntt.launch"]
+    assert launches == len(launch_spans) == 12 and len(entries) == 4
+    assert Counter(s["call"] for s in launch_spans) == {e["call"]: 3 for e in entries}
+    assert all(spans[s["parent"]]["name"] == "ntt.entry" for s in launch_spans)
+    assert Counter(s["attrs"]["kernel"] for s in launch_spans) == {
+        hr.FORWARD.name: 8, hr.POLYMUL_INVERSE.name: 4}
+    assert [s["attrs"] for s in spans if s["name"] == "ntt.route"] == [
+        {"plan": "hit", "schedule": "hit", "path": "hopper-rns"}] * 4
+    assert tracing.split_ms(spans)["launch"] > 0
+    assert all(torch.equal(out, want) for out in outs)

@@ -36,6 +36,7 @@ from gpuntt_tpu.ops.limb import u64_to_numpy
 from gpuntt_tpu.ops.merge_ntt import from_lanes as jfrom
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import fourstep as tf
 from gpuntt_tpu_torch.ops import hopper_fourstep as hf
@@ -131,7 +132,7 @@ def check_entries(jp, tp, shape, seed, golden=False):
         want = [jfrom(o, jp.dtype == np.uint64)
                 for o in _jax_entries(jto(x, jp.dtype == np.uint64), jplan)]
     plan = tg.FourStepPlan.from_params(tp, device="cpu")
-    hf.reset_counts()
+    tracing.reset()
     got = [unlanes(o, tp.dtype) for o in _port_entries(lanes(x), plan)]
     for name, g, w in zip(("ntt_lanes", "intt_lanes", "intt_lanes(scale=False)", "ntt_full",
                            "intt_full", "transpose_lanes"), got, want):
@@ -169,7 +170,7 @@ def test_entries_match_jax_on_a_3d_batch():
 
 def test_entries_match_jax_at_logn_20():
     jp, tp = both(20, MINUS, np.uint64)
-    hm.reset_counts()
+    tracing.reset()
     check_entries(jp, tp, (1, jp.n), 20, golden=True)
     # rows of 2^15 on K1/K2: two forwards, two inverses
     assert [k.plain_calls for k in hm.KERNELS] == [2, 2, 0]
@@ -206,7 +207,7 @@ def test_custom_dims_on_both_sides_of_the_row_rule(dtype, dims, route):
     plan = tg.FourStepPlan.from_params(tp, device="cpu")
     assert hf.covers(plan) == route
     x = data(jp, (2, jp.n), 5)
-    hf.reset_counts()
+    tracing.reset()
     fx = unlanes(tg.fourstep_ntt_full(lanes(x), plan), dtype)
     np.testing.assert_array_equal(fx, np.stack([gen.ntt(r) for r in x]))
     np.testing.assert_array_equal(unlanes(tg.fourstep_intt_full(lanes(fx), plan), dtype), x)
@@ -349,7 +350,7 @@ def test_non_root_factors_take_the_engine():
         jg.Modulus64(576460752303415297), 5, 7))
     tp = tg.NTTParameters4Step(12, tg.ReductionPolynomial.X_N_plus, np.uint64,
                                factors=tg.NTTFactors(tg.Modulus64(576460752303415297), 5, 7))
-    hf.reset_counts()
+    tracing.reset()
     check_entries(jp, tp, (1, jp.n), 4)  # shares the logn-12 cell's compile
     assert sum(k.plain_calls for k in hf.KERNELS) == 0
 
@@ -383,8 +384,7 @@ def test_u32_family_takes_logn_7():
     assert not hm32.takes(tg.MergePlan.from_params(
         tg.NTTParameters(6, tg.ReductionPolynomial.X_N_minus, np.uint32), device="cpu"))
     x = torch.from_numpy(np.random.default_rng(7).integers(0, 1 << 32, size=(3, p.n)))
-    hm32.reset_counts()
-    hf.reset_counts()
+    tracing.reset()
     gen = tg.NTTCPU(p)
     xr = x.numpy().astype(np.uint32) % np.uint32(p.modulus.value)
     fx = hf.fourstep_u32_row(x, plan, False)
@@ -405,7 +405,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     plan = tg.FourStepPlan.from_params(tp, device="cpu")
     kp = hf.kernel_plan(plan)
     x = lanes(data(jp, (2, jp.n), 2))
-    hf.reset_counts()
+    tracing.reset()
     y = hf.fourstep_u64_col(x, kp, False)
     hf.fourstep_u64_row(y.view(-1, kp.n2), kp.rows, False)
     assert [(k.launches, k.plain_calls) for k in hf.KERNELS] == [(0, 1), (0, 1), (0, 0),

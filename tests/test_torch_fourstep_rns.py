@@ -28,6 +28,7 @@ from gpuntt_tpu.ops.limb import u64_to_numpy
 from gpuntt_tpu.ops.merge_ntt import from_lanes as jfrom
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import fourstep_rns as tfr
 from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.ops.merge_ntt import from_lanes, to_lanes
@@ -91,7 +92,7 @@ def test_entries_match_jax(dtype, logn, mc, route):
     # 4-step sweeps (u32); the golden test below holds them at logn 14
     fns = fns if not is64 else fns[:3]
     want = jax.jit(lambda v, p: tuple(f(v, p) for f in fns))(jto(x, is64), jplan)
-    hr.reset_counts()
+    tracing.reset()
     got = _port(to_lanes(x, is64), plan, mod_idx)
     for name, g, w in zip(ENTRIES, got, want):
         np.testing.assert_array_equal(from_lanes(g, is64), jfrom(w, is64), err_msg=name)

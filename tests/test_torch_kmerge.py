@@ -47,6 +47,7 @@ from gpuntt_tpu.ops.pallas_merge import KernelMergePlan as JKernelMergePlan
 from gpuntt_tpu.ops.pallas_merge import pallas_merge_u32
 from gpuntt_tpu.ops.pallas_merge64 import pallas_merge2_u64
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import hopper_kmerge as hk
 from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
@@ -183,8 +184,7 @@ def test_vpu_entries_match_golden(logn, poly):
     plan = tg.MergePlan.from_params(p, device="cpu")
     gen = jg.NTTCPU(jp)
     a, b = data(p, 2, logn), data(p, 2, logn + 1)
-    hk64.reset_counts()
-    hm.reset_counts()
+    tracing.reset()
     fa = tg.ntt_lanes(to_lanes(a, True), plan, use_pallas="vpu")
     np.testing.assert_array_equal(u64(fa), gen.ntt(a))
     back = tg.intt_lanes(fa, plan, use_pallas="vpu")
@@ -217,7 +217,7 @@ def test_vpu_wide_moduli(wide, poly):
     plan = tg.MergePlan.from_params(p, device="cpu")
     gen = jg.NTTCPU(jp)
     a, b = data(p, 2, 10), data(p, 2, 11)
-    hk64.reset_counts()
+    tracing.reset()
     fa = tg.ntt_lanes(to_lanes(a, True), plan, use_pallas="vpu")
     np.testing.assert_array_equal(u64(fa), gen.ntt(a))
     np.testing.assert_array_equal(u64(tg.intt_lanes(fa, plan, use_pallas="vpu")), a)
@@ -242,7 +242,7 @@ def test_vpu_signed_and_layout():
     s = torch.from_numpy(rng.integers(-(q // 2), q // 2, size=(3, p.n), dtype=np.int64))
     for kw in ({"signed_input": True}, {"layout": tg.NTTLayout.PerCoefficient}):
         x = s if kw.get("signed_input") else s.abs().t().contiguous()
-        hk64.reset_counts()
+        tracing.reset()
         got = tg.ntt_lanes(x, plan, use_pallas="vpu", **kw)
         assert hk64.FORWARD.plain_calls == 1
         assert torch.equal(got, tg.ntt_lanes(x, plan, **kw)), kw
@@ -266,7 +266,7 @@ def test_vpu_polymul_matches_jax_k15_over62(monkeypatch):
     a, b = data(p, 2, 9), data(p, 2, 10)
     want = jfrom(jd.polymul_lanes(jto(a, True), jto(b, True), jg.MergePlan.from_params(jp),
                                   use_pallas="vpu"), True)
-    hk64.reset_counts()
+    tracing.reset()
     got = tg.polymul_lanes(to_lanes(a, True), to_lanes(b, True),
                            tg.MergePlan.from_params(p, device="cpu"), use_pallas="vpu")
     np.testing.assert_array_equal(u64(got), want)
@@ -287,7 +287,7 @@ def test_vpu_any_factors_match_jax_k15():
     want = jfrom(pallas_merge2_u64(jto(x, True), JKernelMergePlan.from_params(odd(jg)),
                                    interpret=True), True)
     plan = tg.MergePlan.from_params(p, device="cpu")
-    hk64.reset_counts()
+    tracing.reset()
     fx = tg.ntt_lanes(to_lanes(x, True), plan, use_pallas="vpu")
     np.testing.assert_array_equal(u64(fx), want)
     tg.intt_lanes(fx, plan, use_pallas="vpu")
@@ -315,7 +315,7 @@ def test_vpu_limits():
     twisted = tg.MergePlan.from_eval(q, 9, omega, pow(omega, -1, q), 3, pow(3, -1, q), p.n_inv,
                                      device="cpu")
     x = to_lanes(data(p, 1, 5), True)
-    hk64.reset_counts()
+    tracing.reset()
     for fn in (tg.ntt_lanes, tg.intt_lanes):
         with pytest.raises(tg.NTTDispatchError, match="twist"):
             fn(x, twisted, use_pallas="vpu")
@@ -331,7 +331,7 @@ def test_kmerge_u32_matches_golden(logn, poly):
     kp = hk.kernel_plan(tg.MergePlan.from_params(p, device="cpu"))
     gen = jg.NTTCPU(params(jg, logn, poly, np.uint32))
     x = data(p, 2, logn)
-    hk.reset_counts()
+    tracing.reset()
     fx = hk.kmerge_u32(to_lanes(x, False), kp)
     np.testing.assert_array_equal(from_lanes(fx, False), gen.ntt(x))
     np.testing.assert_array_equal(from_lanes(hk.kmerge_u32(fx, kp, inverse=True), False), x)
@@ -430,8 +430,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     kp = hk.kernel_plan(plan)
     assert hk.kernel_plan(plan) is kp and kp._w == {}
     x = to_lanes(data(p, 2, 1), True)
-    hk64.reset_counts()
-    hk.reset_counts()
+    tracing.reset()
     hk64.kmerge_u64(x, kp)
     assert list(kp._w) == [False]  # W is built per direction, at first use
     assert [(k.launches, k.plain_calls) for k in (*hk64.KERNELS, *hk.KERNELS)] == \
@@ -458,17 +457,14 @@ def test_chip_smoke_kmerge_phase_rehearses_on_the_cpu():
     import importlib.util
     import os
 
-    from gpuntt_tpu_torch.ops import hopper_merge32, hopper_merge_large
-
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    mods = (hk, hk64, hm, hopper_merge32, hopper_merge_large)
     launches, err = {}, {}
     cs.kmerge_phase(torch.device("cpu"), np.random.default_rng(0),
-                    lambda: [m.reset_counts() for m in mods], launches, err, {}, {},
+                    tracing.reset, launches, err, {}, {},
                     sizes=dict(main=(10, 4), k15=((9, 2), (10, 2)), k17=((9, 4), (10, 2)),
                                k17_top=(11, 1)))
     names = [k.name for k in (*hk64.KERNELS, *hk.KERNELS)]

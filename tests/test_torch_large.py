@@ -31,6 +31,7 @@ from gpuntt_tpu.ops.merge_ntt import merge_intt_lanes as jintt
 from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import barrett as bo
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
@@ -107,7 +108,7 @@ def test_recursive_composition_matches_pallas():
                                  row_kwargs=dict(a_col=8), device="cpu")
     assert lp.row_kernel == "nested" and lp.nested.row_kernel == "K8"
     x = data(jp, 2, 3)
-    hml.reset_counts()
+    tracing.reset()
     for inverse in (False, True):
         want = jfrom(jml.pallas_mxu_large_u64(jto(x, True), mp, inverse=inverse,
                                               interpret=True), True)
@@ -130,8 +131,7 @@ def test_entries_match_jax_engine_and_native(logn, poly):
     assert plan.fwd_table is None
     x, y = data(jp, 1, logn), data(jp, 1, logn + 1)
     gen = jg.NTTCPU(jp)
-    hm.reset_counts()
-    hml.reset_counts()
+    tracing.reset()
     fx, ix = tg.ntt(x, plan), tg.intt(x, plan)
     np.testing.assert_array_equal(fx, gen.ntt(x))
     np.testing.assert_array_equal(ix, gen.intt(x))
@@ -245,7 +245,7 @@ def test_one_dim_and_per_coefficient_inputs_take_the_route():
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = data(p, 2, 9)
     want = tg.ntt(x, plan)
-    hml.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.ntt(x[1], plan), want[1])
     np.testing.assert_array_equal(
         tg.ntt(x.T.copy(), plan, layout=tg.NTTLayout.PerCoefficient), want.T)

@@ -45,6 +45,7 @@ from gpuntt_tpu.ops.merge_ntt import merge_intt_lanes as jintt
 from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.utils import kernel_bench
 from gpuntt_tpu_torch.utils.kernel_bench import largest_ntt_prime
 from gpuntt_tpu_torch.ops import _build
@@ -122,7 +123,7 @@ def test_non_root_factors_at_kernel_sizes_take_the_engine():
     plan, _ = carry(jp)
     x = data(jp, 2, 1)
     assert td._kernel_path(plan, x.shape, tg.NTTLayout.PerPolynomial) == "engine"
-    hm.reset_counts()
+    tracing.reset()
     got = tg.ntt(x, plan)
     assert sum(k.plain_calls for k in hm.KERNELS) == 0
     np.testing.assert_array_equal(got, jg.NTTCPU(jp).ntt(x))
@@ -871,7 +872,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     p = tg.NTTParameters(12, tg.ReductionPolynomial.X_N_minus, np.uint64)
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = to_lanes(data(p, 2, 8), True)
-    hm.reset_counts()
+    tracing.reset()
     fx = hm.merge_u64_fwd(x, plan)
     hm.merge_u64_inv(fx, plan)
     hm.merge_u64_polymul_inv(fx, fx, plan)

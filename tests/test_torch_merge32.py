@@ -29,6 +29,7 @@ from gpuntt_tpu.ops.merge_ntt import MergePlan as JPlan
 from gpuntt_tpu.ops.merge_ntt import merge_intt_lanes as jintt
 from gpuntt_tpu.ops.merge_ntt import merge_ntt_lanes as jntt
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
@@ -161,13 +162,13 @@ def test_carried_plan_runs_the_kernel_route(carried):
     jp, jplan, plan, x, y = carried
     k = hm32.tpu_kernel(jp.logn)
     fwd, inv = hm32.FORWARD[k].name, hm32.INVERSE[k].name
-    hm32.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.ntt(x, plan), jg.ntt(x, jplan))
     assert counts() == {fwd: (0, 1)}
-    hm32.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.intt(x, plan), jg.intt(x, jplan))
     assert counts() == {inv: (0, 1)}
-    hm32.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.polymul(x, y, plan), jg.polymul(x, y, jplan))
     assert counts() == {fwd: (0, 2), inv: (0, 1)}
 
@@ -177,7 +178,7 @@ def test_carried_plan_layouts_and_signs(carried):
     jp, jplan, plan, x, _ = carried
     xs = x.astype(np.int64)
     xs = np.where(xs > jp.modulus.value // 2, xs - jp.modulus.value, xs).astype(np.int32)
-    hm32.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(tg.ntt(xs, plan), jg.ntt(xs, jplan))
     np.testing.assert_array_equal(tg.intt(x, plan, signed_output=True),
                                   jg.intt(x, jplan, signed_output=True))
@@ -195,7 +196,7 @@ def test_polynomial_multiplier_u32_kernel_route():
     x, y = data(jp, 3, 5), data(jp, 3, 6)
     model = tg.PolynomialMultiplier(tg.NTTParameters(10, tg.ReductionPolynomial.X_N_plus,
                                                      np.uint32), device="cpu")
-    hm32.reset_counts()
+    tracing.reset()
     np.testing.assert_array_equal(model(x, y), JModel(jp)(x, y))
     assert counts() == {"merge_u32_forward_k4": (0, 2), "merge_u32_inverse_k4": (0, 1)}
 
@@ -242,7 +243,7 @@ def test_route_by_layout_shape_and_factors():
     assert route(plan, shape=(plan.n,)) == "engine"
     p, odd = plan_of(12, factors=tg.NTTFactors(tg.Modulus32(469762049), 5, 7))
     assert not odd.genuine_root and route(odd) == "engine"
-    hm32.reset_counts()
+    tracing.reset()
     tg.ntt(data(p, 2, 0), odd)
     assert counts() == {}
     u64 = tg.MergePlan.from_params(tg.NTTParameters(12, tg.ReductionPolynomial.X_N_plus,
@@ -256,7 +257,7 @@ def test_route_by_layout_shape_and_factors():
 def test_wrappers_take_plain_versions_on_cpu_only():
     p, plan = plan_of(17)
     x = to_lanes(data(p, 2, 8), False)
-    hm32.reset_counts()
+    tracing.reset()
     assert torch.equal(hm32.merge_u32_inv(hm32.merge_u32_fwd(x, plan), plan), x)
     assert counts() == {"merge_u32_forward_k5": (0, 1), "merge_u32_inverse_k5": (0, 1)}
     assert "merge_u32" not in _build._libs  # nothing was built for CPU tensors

@@ -26,6 +26,7 @@ import torch
 
 import gpuntt_tpu as jg
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64, signed
@@ -253,7 +254,7 @@ def test_k7_local_wrapper_contract():
     shard out of range, a non-contiguous or 2-D tensor."""
     q, _, tp = _colmat_pair()
     x = from_numpy_u64(R.inputs(2, [q], (2, 8, 256)))
-    hml.reset_counts()
+    tracing.reset()
     y = hml.col_phase_local(x[:, :, :128].contiguous(), tp, 1, 2, False)
     assert (hml.COLFWD_LOCAL.plain_calls, hml.COLFWD_LOCAL.launches) == (1, 0)
     assert torch.equal(y, hml.col_phase_local_plain(x[:, :, :128], tp, 1, 2, False))
@@ -296,18 +297,14 @@ def test_chip_smoke_dist_phase_rehearses_on_the_cpu():
     pass."""
     import importlib.util
 
-    from gpuntt_tpu_torch.ops import hopper_fourstep, hopper_merge, hopper_merge32
-    from gpuntt_tpu_torch.ops import hopper_rns, hopper_rns32
-
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    mods = (hopper_merge, hopper_merge32, hml, hopper_fourstep, hopper_rns, hopper_rns32)
     launches, err = {}, {}
     cs.dist_phase(torch.device("cpu"), np.random.default_rng(0),
-                  lambda: [m.reset_counts() for m in mods], launches, err, {}, {},
+                  tracing.reset, launches, err, {}, {},
                   sizes=dict(four=20, merge=14, rns=13, poly=13, merge_tails=(8, 4)))
     assert launches == {hml.COLFWD_LOCAL.name: 1, hml.COLINV_LOCAL.name: 1}
     assert err == {hml.COLFWD_LOCAL.name: 0, hml.COLINV_LOCAL.name: 0}

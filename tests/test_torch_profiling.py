@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu.ops import barrett as jb
 from gpuntt_tpu.ops.limb import u64_from_numpy, u64_to_numpy
 from gpuntt_tpu.utils.profiling import ntt_cost as jax_ntt_cost
@@ -98,7 +99,7 @@ def test_plain_chain32_matches_jax(q):
 
 def test_chain_wrapper_counts_and_refuses():
     x = from_numpy_u64(_words(Q64[0], 5))
-    profiling.reset_counts()
+    tracing.reset()
     profiling.shoup_chain(x, 3, Q64[0], 2, True)
     profiling.shoup_chain(x & 0xFFFF, 3, Q32[0], 2, False)
     assert [(k.launches, k.plain_calls) for k in profiling.KERNELS] == [(0, 1), (0, 1)]

@@ -35,6 +35,7 @@ from gpuntt_tpu.ops import rns as jr
 from gpuntt_tpu.ops.merge_ntt import from_lanes as jfrom
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_kmerge64 as hk64
 from gpuntt_tpu_torch.ops import hopper_merge as hm
@@ -127,7 +128,7 @@ def test_f2_merge_rns_schedule_broadcast(mod_idx):
                          (jr.rns_intt_lanes, (td.intt_rns_lanes, trns.rns_intt_lanes))):
         want = jax_result(jax.jit(lambda v, mi, jfn=jfn: jfn(v, jplan, mi)), jto(x, True), m)
         for fn in entries:
-            hr.reset_counts()
+            tracing.reset()
             same_as_jax(want, lambda fn=fn: fn(to_lanes(x, True), plan, m))
             if fn.__module__.endswith("dispatch") and not isinstance(want, Exception):
                 assert hr.FORWARD.plain_calls + hr.INVERSE.plain_calls == 1
@@ -153,7 +154,7 @@ def test_f2_fourstep_rns_schedule_broadcast(mod_idx):
                     (jf.rns_fourstep_intt_lanes, tg.rns_fourstep_intt_lanes)):
         # the JAX 4-step reads its schedule on the host: a constant here
         want = jax_result(jax.jit(lambda v, jfn=jfn: jfn(v, jplan, m)), jto(x, True))
-        hr.reset_counts()
+        tracing.reset()
         same_as_jax(want, lambda fn=fn: fn(to_lanes(x, True), plan, m))
         if not isinstance(want, Exception):
             assert hr.FOURSTEP_COL.plain_calls == 1
@@ -216,14 +217,12 @@ def test_f3_use_pallas_routes(dtype, logn, use_pallas, fwd):
     else:
         want = [from_lanes(tg.ntt_lanes(x, plan, use_pallas=False), is64),
                 from_lanes(tg.polymul_lanes(x, y, plan, use_pallas=False), is64)]
-    for k in (hm, hml, hm32, hk64):
-        k.reset_counts()
+    tracing.reset()
     fx = tg.ntt_lanes(x, plan, use_pallas=use_pallas)
     assert set(_counts()) == fwd
     np.testing.assert_array_equal(from_lanes(fx, is64), want[0])
     assert torch.equal(tg.intt_lanes(fx, plan, use_pallas=use_pallas), x)
-    for k in (hm, hml, hm32, hk64):
-        k.reset_counts()
+    tracing.reset()
     got = tg.polymul_lanes(x, y, plan, use_pallas=use_pallas)
     np.testing.assert_array_equal(from_lanes(got, is64), want[1])
     assert ("merge_u64_polymul_inverse" in _counts()) == (use_pallas == "auto" and is64)
@@ -238,8 +237,7 @@ def test_f3_vpu_on_u64_names_k15():
                                                      np.uint64), device="cpu")
     x_np, y_np, fx_want, prod_want = jax_merge_ref(np.uint64)
     x, y = to_lanes(x_np, True), to_lanes(y_np, True)
-    hk64.reset_counts()
-    hm.reset_counts()
+    tracing.reset()
     fx = tg.ntt_lanes(x, plan, use_pallas="vpu")
     np.testing.assert_array_equal(from_lanes(fx, True), fx_want)
     assert torch.equal(tg.intt_lanes(fx, plan, use_pallas="vpu"), x)

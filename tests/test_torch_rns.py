@@ -37,6 +37,7 @@ from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 from gpuntt_tpu.ops.rns import rns_intt_lanes as j_intt
 from gpuntt_tpu.ops.rns import rns_ntt_lanes as j_ntt
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_rns as hr
 from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
@@ -112,8 +113,7 @@ def test_entries_match_jax(dtype, logn, poly, mc, route):
     x = data(plan.qs, (batch, plan.n), logn, dtype)
     y = data(plan.qs, (batch, plan.n), logn + 1, dtype)
     assert td._rns_kernel_path(plan, x.shape) == route
-    hr.reset_counts()
-    hr32.reset_counts()
+    tracing.reset()
 
     cyclic = np.arange(batch) % mc
     fx, ix = jax_ref(x, jplan, cyclic)
@@ -220,7 +220,7 @@ def test_model_matches_jax_model():
     model = tg.RNSPolynomialMultiplier(ladder(tg, 12, 3, PLUS, np.uint64), device="cpu")
     a = data(model.qs, (1, 3, 1 << 12), 1, np.uint64)
     b = data(model.qs, (1, 3, 1 << 12), 2, np.uint64)
-    hr.reset_counts()
+    tracing.reset()
     got = model(a, b)
     np.testing.assert_array_equal(got, jmodel(a, b))
     assert hr.POLYMUL_INVERSE.plain_calls == 1 and hr.FORWARD.plain_calls == 2

@@ -33,6 +33,7 @@ from gpuntt_tpu.ops import pallas_mxu_rns as pr
 from gpuntt_tpu.ops.rns import rns_intt_lanes as j_intt
 from gpuntt_tpu.ops.rns import rns_ntt_lanes as j_ntt
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
@@ -140,7 +141,7 @@ def test_entries_match_jax(logn, mc, poly):
     x = residues(low, [0] * batch, plan.n, logn)
     y = residues(low, [0] * batch, plan.n, logn + 1)
     assert td._rns_kernel_path(plan, x.shape) == "hopper-rns32"
-    hr32.reset_counts()
+    tracing.reset()
 
     cyclic = np.arange(batch) % mc
     fx, ix = jax_ref(x, jplan, cyclic)
@@ -170,7 +171,7 @@ def test_entries_match_jax(logn, mc, poly):
     model = tg.RNSPolynomialMultiplier(members(tg, logn, poly, plan.qs), device="cpu")
     a = residues(plan.qs, range(mc), plan.n, 3)[None]
     b = residues(plan.qs, range(mc), plan.n, 4)[None]
-    hr32.reset_counts()
+    tracing.reset()
     # the JAX model on the plan's members, which host its jit caches
     np.testing.assert_array_equal(model(a, b), RNSPolynomialMultiplier(jplan.members)(a, b))
     assert plain_calls() == {fwd: 2, pinv: 1}
@@ -254,7 +255,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     plan = tg.RNSMergePlan.from_params(members(tg, 12, PLUS, primes(12, 2)), device="cpu")
     x = words((2, plan.n), 1)
     midx = sched([1, 0])
-    hr32.reset_counts()
+    tracing.reset()
     hr32.rns_u32_fwd(x, plan, midx)
     hr32.rns_u32_polymul_inv(x, x, plan, midx)
     assert plain_calls() == {"rns_u32_forward_k16": 1, "rns_u32_polymul_inverse_k16": 1}

@@ -25,6 +25,7 @@ from gpuntt_tpu.ops import pallas_mxu_rns as pr
 from gpuntt_tpu.ops.merge_ntt import from_lanes as jfrom
 from gpuntt_tpu.ops.merge_ntt import to_lanes as jto
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import _build
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
@@ -267,7 +268,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
     plan = tg.RNSMergePlan.from_params(ladder(tg, 12, 2, PLUS), device="cpu")
     x = words((2, plan.n), 1)
     midx = sched([1, 0])
-    hr.reset_counts()
+    tracing.reset()
     hr.rns_u64_fwd(x, plan, midx)
     hr.rns_u64_polymul_inv(x, x, plan, midx)
     assert [(k.launches, k.plain_calls) for k in hr.KERNELS[:3]] == [(0, 1), (0, 0), (0, 1)]
@@ -293,7 +294,7 @@ def test_rowmat_wrapper_refuses_blocks_across_rings():
     r = words((16, 512), 2)
     with pytest.raises(tg.NTTDispatchError):
         hr.rns_u64_large_rowmat(r, rows, sched([1, 0, 1, 0]), 2, False)
-    hr.reset_counts()
+    tracing.reset()
     hr.rns_u64_large_rowmat(r, rows, sched([1, 0]), 3, False)
     assert hr.LARGE_ROWMAT.plain_calls == 1
     with pytest.raises(tg.NTTDispatchError):  # rows above 512 words are K12's

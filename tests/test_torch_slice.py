@@ -20,6 +20,7 @@ from gpuntt_tpu.models.polymul import PolynomialMultiplier as JModel
 from gpuntt_tpu.ops.limb import u64_to_numpy
 from gpuntt_tpu.ops.merge_ntt import MergePlan as JPlan
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops.merge_ntt import from_lanes, to_lanes
 
@@ -67,7 +68,7 @@ def test_converter_carries_the_jax_tables(kernel_cell):
 
 
 def _counted(fn):
-    hm.reset_counts()
+    tracing.reset()
     out = fn()
     return out, tuple(k.plain_calls for k in hm.KERNELS)
 
@@ -150,7 +151,7 @@ def engine_cell(dtype):
     (np.uint64, c) for c in ("ntt_signed_input", "intt_signed_output", "polymul")])
 def test_engine_route_matches_jax(dtype, case):
     c = engine_cell(dtype)
-    hm.reset_counts()
+    tracing.reset()
     fn = ENGINE_CASES[case]
     got, want = fn(tg, c["plan"], c), fn(jg, c["jplan"], c)
     out_dtype = c["sdt"] if case == "intt_signed_output" else c["jp"].dtype

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.models.polymul import DistPolynomialMultiplier, DistRNSPolynomialMultiplier
 from gpuntt_tpu_torch.ops import hopper_merge_large as hml
 from gpuntt_tpu_torch.parallel import mesh as M
@@ -119,7 +120,7 @@ def fourstep_worker(rank: int, n: int, device, outdir: str) -> None:
         x = M.shard(_lanes(inputs(logn, [p.modulus.value], (BATCH, p.n1, p.n2))), mesh, M.BLOCKS)
         s = M.shard(_lanes(inputs(logn + 1, [p.modulus.value], (BATCH, p.n2, p.n1))), mesh,
                     M.BLOCKS)
-        hml.reset_counts()
+        tracing.reset()
         fwd = dist_fourstep_ntt(x, dplan, mesh)
         inv = dist_fourstep_intt(s, dplan, mesh)
         k7 = hml.COLFWD_LOCAL.plain_calls + hml.COLINV_LOCAL.plain_calls
