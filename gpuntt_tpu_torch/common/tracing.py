@@ -8,8 +8,9 @@ Counters are always on:
 - `COUNTERS`, plain integers: `plan_to.hit` / `plan_to.move` (a plan's
   `.to(device)` in MergePlan, RNSMergePlan and FourStepPlan returned
   the plan or a cached copy / built a copy), `schedule.hit` /
-  `schedule.miss` (hopper_rns.schedule found an RNS schedule's device
-  copy / made one).
+  `schedule.miss` (the RNS entries' route memo, ops/dispatch._rns_route,
+  or the RNS 4-step's hopper_rns.schedule found what an earlier call
+  derived from the schedule / derived it).
 
 Spans are recorded only while a torch.profiler session records
 (`recording()`, one read of the profiler's enabled flag).  A span then
@@ -27,7 +28,8 @@ records, a span site reads the flag and does nothing more.
                 holds the other's span
     ntt.route   inside an entry: the plan's move to the operand's device,
                 the schedule's check and device copy, the route decision
-                (attrs: path; plan, hit or move; schedule, hit or miss)
+                (attrs: path; plan, hit or move; schedule, hit or miss:
+                whether the RNS route memo held the route)
     ntt.launch  hopper_merge._launch, the one function every C entry
                 passes through: the stream lookup, the call and its
                 return code (attrs: kernel)

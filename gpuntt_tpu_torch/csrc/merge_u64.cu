@@ -489,4 +489,22 @@ int rns_u64_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb, 
                        (cudaStream_t)stream);
 }
 
+// K12's product in one call: rns_u64_forward on a (a -> fa) and on b
+// (b -> fb), then rns_u64_polymul_inverse (fa, fb -> y), the same six
+// launches in that order.  fa and fb are the caller's scratch spectra.
+int rns_u64_polymul(int device, const uint64_t* a, const uint64_t* b, uint64_t* fa,
+                    uint64_t* fb, uint64_t* y, long long batch, int logn, int logA,
+                    const int* mod_idx, long long entries, int shift, const uint64_t* fwd_tw,
+                    const uint64_t* fwd_tws, const uint64_t* inv_tw, const uint64_t* inv_tws,
+                    const uint64_t* consts, int xnp, void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Stacked fwd = rns(mod_idx, shift, logn, fwd_tw, fwd_tws, consts, xnp);
+  if (int rc = forward(a, fa, batch, logn, fwd, xnp, st)) return rc;
+  if (int rc = forward(b, fb, batch, logn, fwd, xnp, st)) return rc;
+  return inverse<true>(fa, fb, y, batch, logn,
+                       rns(mod_idx, shift, logn, inv_tw, inv_tws, consts, xnp), xnp, st);
+}
+
 }  // extern "C"

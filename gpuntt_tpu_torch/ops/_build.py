@@ -46,6 +46,8 @@ _ENTRIES = {
                             _i32, _p] for e in ("forward", "inverse")},
         "rns_u64_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p,
                                     _p, _p, _i32, _p],
+        "rns_u64_polymul": [_i32, _p, _p, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p,
+                            _p, _p, _p, _i32, _p],
     },
     "merge_u64_large": {
         "merge_u64_large_colfwd": [_i32, _p, _p, _i64, _i32, _i32, _p, _p, _p, _p, _p, _p,

@@ -68,7 +68,13 @@ all have a genuine root:
 - everything else (other logn, wide q) -> the engine of ops/rns.py.
 
 A schedule of one entry serves every row; any other length that is not
-the batch raises NTTScheduleError.
+the batch raises NTTScheduleError.  The route (`_rns_route`) is derived
+once per device plan, row count and schedule (its contents, so an array
+changed in place is routed anew) and kept on the plan: the checked
+schedule, its copy on the device and, for K12 on a card, the product's
+launch prepared once (`hopper_rns.prepare`), so that rns_polymul_lanes
+there is the operands' checks, two allocations and one C call of six
+launches (`hopper_rns.rns_u64_polymul`).
 
 Spans (common/tracing.py, recorded only under torch.profiler): each
 `*_lanes` entry of both families is an ntt.entry span and holds one
@@ -79,6 +85,7 @@ plan's move, the schedule's check and copy and the route decision.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -419,26 +426,56 @@ _RNS_KERNELS = {
 }
 
 
+class _RNSRoute(NamedTuple):
+    """What the RNS route derives from a device plan, a row count and a
+    schedule."""
+
+    mod_idx: np.ndarray  # the checked schedule, one entry a row
+    path: str
+    midx: torch.Tensor | None  # its int32 copy on the device, on a kernel route
+    k12: hr.Prepared | None  # K12's product on a card ("hopper-rns"), else None
+
+
+def _routed(plan: RNSMergePlan, x: torch.Tensor, mod_idx) -> _RNSRoute:
+    mod_idx = checked_schedule(mod_idx, plan.mod_count, x.shape[0])
+    path = _rns_kernel_path(plan, x.shape)
+    if path == "engine":
+        return _RNSRoute(mod_idx, path, None, None)
+    # a host-to-device copy from pageable memory waits for the stream: once per schedule
+    midx = torch.from_numpy(mod_idx.astype(np.int32)).to(x.device)
+    k12 = hr.prepare(plan, midx) if path == "hopper-rns" and x.is_cuda else None
+    return _RNSRoute(mod_idx, path, midx, k12)
+
+
 def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
-    """The ntt.route span of the RNS entries: the plan on x's device, the
-    checked schedule, the route of x and, on a kernel route, the
-    schedule's cached copy on the device (else None)."""
+    """The ntt.route span of the RNS entries: the plan on x's device, then
+    x's route (_RNSRoute), derived once per (device, rows, schedule's
+    contents) and kept on the device plan (64 at most).  The lookup counts
+    under tracing's schedule.hit / schedule.miss."""
     span = tracing.begin(tracing.ROUTE)
     try:
         plan = plan.to(x.device)
-        mod_idx = checked_schedule(mod_idx, plan.mod_count, x.shape[0])
-        path = _rns_kernel_path(plan, x.shape)
-        midx = None if path == "engine" else hr.schedule(plan, mod_idx, x.device)
+        memo = plan._lazy.setdefault("routes", {})
+        key = (x.device, x.dim(), x.shape[0], np.asarray(mod_idx, dtype=np.int64).tobytes())
+        route = memo.get(key)
+        if route is None:
+            route = _routed(plan, x, mod_idx)
+            tracing.outcome("schedule.miss", "schedule", "miss")
+            if len(memo) >= 64:
+                memo.clear()
+            memo[key] = route
+        else:
+            tracing.outcome("schedule.hit", "schedule", "hit")
         if span:
-            span.attrs["path"] = path
+            span.attrs["path"] = route.path
     finally:
         if span:
             span.end()
-    return plan, mod_idx, path, midx
+    return plan, route
 
 
 def _rns_transform(x: torch.Tensor, plan: RNSMergePlan, mod_idx, inverse: bool):
-    plan, mod_idx, path, midx = _rns_route(plan, x, mod_idx)
+    plan, (mod_idx, path, midx, _) = _rns_route(plan, x, mod_idx)
     if path == "engine":
         return (rns_intt_lanes if inverse else rns_ntt_lanes)(x, plan, mod_idx)
     x = x.contiguous()
@@ -574,7 +611,9 @@ def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
     its u32 twin, on the rows of a big ring for K13); on the engine:
     forward, rns_pointwise_mult_lanes, inverse.  Outputs are bit-identical
     either way."""
-    plan, mod_idx, path, midx = _rns_route(plan, a, mod_idx)
+    plan, (mod_idx, path, midx, k12) = _rns_route(plan, a, mod_idx)
+    if k12 is not None:
+        return hr.rns_u64_polymul(a, b, k12)
     if path == "engine":
         prod = rns_pointwise_mult_lanes(rns_ntt_lanes(a, plan, mod_idx),
                                         rns_ntt_lanes(b, plan, mod_idx), plan, mod_idx)

@@ -146,8 +146,11 @@ def _check(name: str, plan: MergePlan, *xs: torch.Tensor) -> None:
         raise NTTDeviceError(f"no merge_u64 kernel for {xs[0].device}")
 
 
-def _launch(stats: KernelStats, fn, x: torch.Tensor, *args) -> None:
-    span = tracing.begin(tracing.LAUNCH, "kernel", stats.name)
+def _launch(stats: KernelStats, fn, x: torch.Tensor, *args, kernel: str | None = None) -> None:
+    """Call the C entry `fn` on x's card and current stream, under an
+    ntt.launch span whose `kernel` attr is `kernel` or the stats' name;
+    one launch more for `stats` once it returns 0."""
+    span = tracing.begin(tracing.LAUNCH, "kernel", kernel or stats.name)
     try:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.device.index, *args, ctypes.c_void_p(stream))

@@ -16,6 +16,8 @@ modulus once.
                                      fused into its first load (the JAX
                                      package leaves the product unfused;
                                      the outputs are identical)
+         rns_u64_polymul          the two forwards and the fused inverse
+                                     in one C call (`rns_u64_polymul`)
     K13  rns_u64_large_colfwd     <- _rns_colfwd_kernel (:375)   merge_u64_large.cu
          rns_u64_large_colinv     <- _rns_colinv_kernel (:388)
          rns_u64_large_rowmat     <- _rns_rowmat_kernel (:448), rows <= 512
@@ -37,9 +39,13 @@ plain version — each modulus's rows through the single-modulus kernel's
 plain version with that member's plan — and only there; on a CUDA tensor
 it launches the kernel or raises.  Every launch adds one to its kernel's
 `launches`, every plain-version call through a wrapper one to
-`plain_calls`; `tracing.reset()` zeroes both.  The `*_plain`
-compositions run the plain versions alone, on any device, which is how
-the kernels are checked on the card.
+`plain_calls`; `tracing.reset()` zeroes both.  `rns_u64_polymul`, given
+the `Prepared` record of a plan, row count and schedule on a card
+(`prepare`), checks its operands against the record and launches K12's
+product through one C call: FORWARD counts its two forwards,
+POLYMUL_INVERSE its fused inverse, under one ntt.launch span.  The
+`*_plain` compositions run the plain versions alone, on any device,
+which is how the kernels are checked on the card.
 """
 
 from __future__ import annotations
@@ -97,7 +103,7 @@ def covers_large(plan: RNSMergePlan) -> bool:
 
 def schedule(owner, mod_idx: np.ndarray, device: torch.device) -> torch.Tensor:
     """`mod_idx` (normalised, int64) as an int32 tensor on `device`,
-    copied once per schedule and cached on `owner` (an RNS plan): a
+    copied once per schedule and cached on `owner` (an RNS 4-step plan): a
     host-to-device copy from pageable memory waits for the stream, which
     would hold the host back on every call.  Counted under tracing's
     schedule.hit / schedule.miss."""
@@ -312,6 +318,53 @@ def rns_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor, plan: RNSMergePlan,
     with the row's modulus fused into the first load."""
     return _k12(POLYMUL_INVERSE, rns_u64_polymul_inv_plain, "rns_u64_polymul_inverse", plan,
                 midx, shift, True, fa, fb)
+
+
+class Prepared(NamedTuple):
+    """K12's product for one plan, row count and schedule on a card: the
+    C entry and its arguments that do not change from call to call."""
+
+    fn: Any             # merge_u64.cu's rns_u64_polymul
+    rows: int
+    n: int
+    device: torch.device
+    midx: torch.Tensor  # the schedule on the card, kept alive for its pointer in `args`
+    args: tuple         # batch, logn, logA, schedule, entries, shift, tables, consts, xnp
+
+
+def prepare(plan: RNSMergePlan, midx: torch.Tensor) -> Prepared:
+    """The Prepared product of `plan` (on a card) over midx.numel() rows,
+    row r under modulus midx[r]; refused as the wrappers refuse a plan."""
+    hm.lazy_bound(POLYMUL_INVERSE.name, max(plan.qs))
+    if not takes(plan):
+        raise NTTDispatchError(
+            f"rns_u64 kernels take u64 plans with every q < 2^62 and logn 11-17, got "
+            f"logn={plan.logn} is64={plan.is64}")
+    rows = midx.numel()
+    return Prepared(_lib("merge_u64").rns_u64_polymul, rows, plan.n, plan.device, midx,
+                    (rows, plan.logn, hm.split(plan.logn), midx.data_ptr(), rows, 0,
+                     *(t.data_ptr() for t in (plan.fwd_tables, plan.fwd_shoup,
+                                              plan.inv_tables, plan.inv_shoup, plan.consts)),
+                     int(plan.xnp)))
+
+
+def rns_u64_polymul(a: torch.Tensor, b: torch.Tensor, prepared: Prepared) -> torch.Tensor:
+    """INTT(NTT(a) o NTT(b)) per row of (rows, N) operands, the same six
+    launches as rns_u64_fwd twice and rns_u64_polymul_inv, in one C call;
+    an operand the wrappers would refuse raises their error."""
+    p = prepared
+    a, b = a.contiguous(), b.contiguous()
+    if not (a.dtype == b.dtype == torch.int64 and a.shape == b.shape == (p.rows, p.n)
+            and a.device == b.device == p.device):
+        for x in (a, b):
+            _check(x, p.n, p.device, p.midx, 0)
+    spectra = torch.empty((2, p.rows, p.n), dtype=torch.int64, device=p.device)
+    y = torch.empty_like(a)
+    fa = spectra.data_ptr()
+    _launch(POLYMUL_INVERSE, p.fn, a, a.data_ptr(), b.data_ptr(), fa, fa + 8 * a.numel(),
+            y.data_ptr(), *p.args, kernel="rns_u64_polymul")
+    FORWARD.launches += 2
+    return y
 
 
 def _col13(stats: KernelStats, entry: str, x, sp: RNSColumnPlan, midx, inverse: bool):

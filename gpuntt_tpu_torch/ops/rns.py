@@ -79,7 +79,7 @@ class RNSMergePlan:
     device: torch.device
     params: tuple | None = None
     _moved: dict = dataclasses.field(default_factory=dict, repr=False)
-    # lazily built: "large" (hopper_rns' K13 plan), "schedules" (device copies)
+    # lazily built: "large" (hopper_rns' K13 plan), "routes" (dispatch's route memo)
     _lazy: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property

@@ -19,8 +19,9 @@ of fourstep_ntt_lanes and fourstep_intt_lanes; for each RNS cell — u64
 59-bit primes, and u32 2^16 x 128 and 2^20 x 16 with a ladder of 8 (the
 stacked u32 kernels in K16's and K6's ranges), X^N + 1, 30-bit primes,
 all on the cyclic schedule — ntt_rns_lanes, intt_rns_lanes and
-rns_polymul_lanes (at 2^16 also ntt_rns_lanes with its schedule copied
-to the card on every call, the cost its cache saves), and for the RNS
+rns_polymul_lanes (at 2^16 also ntt_rns_lanes routed anew on every
+call, its schedule checked and copied to the card, the cost the route
+memo saves), and for the RNS
 4-step at 2^16 x 64 and 2^20 x 8, ladder 8, rns_fourstep_ntt_lanes and
 rns_fourstep_intt_lanes; and for the distributed 4-step at u64 2^24 x 1
 on a world of one rank (NCCL, a HashStore), dist_fourstep_ntt and
@@ -192,9 +193,9 @@ def main(iters: int = 20) -> int:
         entries = [("ntt_rns_lanes", lambda: td.ntt_rns_lanes(a, plan, mod_idx)),
                    ("intt_rns_lanes", lambda: td.intt_rns_lanes(fa, plan, mod_idx)),
                    ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a, b, plan, mod_idx))]
-        if (u32, logn) == (False, 16):  # what the cached schedule saves: its copy every call
-            entries.append(("ntt_rns_lanes, schedule copied every call",
-                            lambda: (plan._lazy.pop("schedules", None),
+        if (u32, logn) == (False, 16):  # what the route memo saves: the route every call
+            entries.append(("ntt_rns_lanes, routed anew every call",
+                            lambda: (plan._lazy.pop("routes", None),
                                      td.ntt_rns_lanes(a, plan, mod_idx))))
         for entry, fn in entries:
             print(f"RNS u{32 if u32 else 64} 2^{logn}x{batch} ladder {count} {entry}:")

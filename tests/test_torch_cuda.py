@@ -632,6 +632,32 @@ def test_rns_k12_matches_plain_on_card(card, logn, poly, schedule):
         assert torch.equal(px, hr.rns_u64_polymul_inv_plain(fx, fb, plan, midx, shift))
 
 
+@pytest.mark.parametrize("rows", [30, 240])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(12, 18))
+def test_rns_u64_polymul_matches_the_wrappers_on_card(card, logn, poly, rows):
+    """K12's product in one C call (hopper_rns.rns_u64_polymul, prepared
+    by dispatch's route on its first call and found on the next)
+    bit-identical to the three wrappers it replaces (forward, forward,
+    fused inverse), ladder 5 on the cyclic schedule, on any u64 word and
+    a non-contiguous operand; the same launch counts."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(logn, poly, 5), device=card)
+    order = np.arange(rows) % 5
+    midx = torch.tensor(order, dtype=torch.int32, device=card)
+    a = _words((rows, plan.n), True, logn, card)
+    b = _words((rows, 2 * plan.n), True, logn + 1, card)[:, plan.n:]
+    assert not b.is_contiguous()
+    want = hr.rns_u64_polymul_inv(hr.rns_u64_fwd(a, plan, midx),
+                                  hr.rns_u64_fwd(b.contiguous(), plan, midx), plan, midx)
+    tracing.reset()
+    got = [td.rns_polymul_lanes(a, b, plan, order) for _ in range(2)]
+    got.append(hr.rns_u64_polymul(a, b, hr.prepare(plan, midx)))
+    torch.cuda.synchronize()
+    assert _rns_counts() == {hr.FORWARD.name: (6, 0), hr.POLYMUL_INVERSE.name: (3, 0)}
+    assert (tracing.COUNTERS["schedule.miss"], tracing.COUNTERS["schedule.hit"]) == (1, 1)
+    assert all(torch.equal(y, want) for y in got)
+
+
 @pytest.mark.parametrize("schedule", list(SCHEDULES))
 @pytest.mark.parametrize("poly", POLYS)
 @pytest.mark.parametrize("logn", range(18, 24))
@@ -1216,10 +1242,11 @@ def test_example_on_card(card, capsys, name, args, want):
 
 def test_launch_spans_match_launch_counts_on_card(card):
     """Under torch.profiler, each rns_polymul_lanes call (30 rows of 2^15,
-    ladder 15, as the single HE cell) records one ntt.launch span for
-    each launch its kernels count: 3 (two K12 forwards, the fused
-    inverse), inside its ntt.entry span, after a route that finds the
-    plan and the schedule on the card."""
+    ladder 15, as the single HE cell) records one ntt.launch span, the
+    one C call of K12's product (rns_u64_polymul), inside its ntt.entry
+    span, after a route that finds the plan and the schedule on the card;
+    the kernels count their launches as before, two K12 forwards and the
+    fused inverse a call."""
     from collections import Counter
 
     plan = tg.RNSMergePlan.from_params(_rns_members(15, tg.ReductionPolynomial.X_N_plus, 15),
@@ -1240,11 +1267,11 @@ def test_launch_spans_match_launch_counts_on_card(card):
     launches = sum(k["launches"] for k in snap["kernels"].values())
     entries = [s for s in spans if s["name"] == "ntt.entry"]
     launch_spans = [s for s in spans if s["name"] == "ntt.launch"]
-    assert launches == len(launch_spans) == 12 and len(entries) == 4
-    assert Counter(s["call"] for s in launch_spans) == {e["call"]: 3 for e in entries}
+    assert launches == 12 and len(launch_spans) == len(entries) == 4
+    assert (hr.FORWARD.launches, hr.POLYMUL_INVERSE.launches) == (8, 4)
+    assert Counter(s["call"] for s in launch_spans) == {e["call"]: 1 for e in entries}
     assert all(spans[s["parent"]]["name"] == "ntt.entry" for s in launch_spans)
-    assert Counter(s["attrs"]["kernel"] for s in launch_spans) == {
-        hr.FORWARD.name: 8, hr.POLYMUL_INVERSE.name: 4}
+    assert Counter(s["attrs"]["kernel"] for s in launch_spans) == {"rns_u64_polymul": 4}
     assert [s["attrs"] for s in spans if s["name"] == "ntt.route"] == [
         {"plan": "hit", "schedule": "hit", "path": "hopper-rns"}] * 4
     assert tracing.split_ms(spans)["launch"] > 0
