@@ -60,8 +60,13 @@ at once) and runs, on the card:
    entries with the launch counts read around them, every row against
    the plain versions, two rows against NTTCPU; the ordered schedules at
    logn 8 and 12 against the same entries on the host; K6's range at
-   2^20 x 16 (ladder 8) and 2^24 x 2 (167772161, 469762049); the
-   kernels' and the entries' CUDA-event times;
+   2^20 x 16 (ladder 8) and 2^24 x 2 (167772161, 469762049); the int32-lane
+   (4-byte word) instances, their launch counts read around the entries:
+   K6's at 2^20 x 16, and K16's at the u32 HE cell's call, 2^15 x 480 on
+   portbench's 30-prime ladder of 30 bits, against the plain versions,
+   the int64 lanes narrowed and, two rows, NTTCPU; the kernels' (each
+   instance's, the int32 bounds on 4-byte words) and the entries'
+   CUDA-event times;
 22-25. the distributed path (`dist_phase`) at world size 1 on NCCL (a
    HashStore, no network): the dist 4-step at u64 and u32 2^24 x 1
    (256 x 65536; u64 on K7' and K1/K2) against the single-chip
@@ -118,9 +123,11 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 128
 LOGN = 16
@@ -146,10 +153,12 @@ def bound_of(by: int, ops: int) -> tuple[float, str]:
     return (t_by, "bytes") if t_by >= t_ops else (t_ops, "operations")
 
 
-def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int) -> tuple[float, str]:
-    """Least time for a transform of (batch, 2^logn) int64 lanes that reads
-    `operands` tensors and writes one: bytes against multiplies."""
-    return bound_of((operands + 1) * batch * (8 << logn),
+def bound_ms(batch: int, logn: int, operands: int, mul_per_bf: int,
+             word: int = 8) -> tuple[float, str]:
+    """Least time for a transform of (batch, 2^logn) lanes of `word`-byte
+    words (int64 lanes: 8) that reads `operands` tensors and writes one:
+    bytes against multiplies."""
+    return bound_of((operands + 1) * batch * (word << logn),
                     batch * (1 << (logn - 1)) * logn * mul_per_bf)
 
 
@@ -629,8 +638,68 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
             check(np.array_equal(u32(fx[r]), gen.ntt(x_np[r])),
                   f"{cellw} row {r} == NTTCPU of member {r % mc} "
                   f"({time.perf_counter() - t0:.1f} s on the host)")
+        if logn == 20:  # the int32-lane instance of K6 on the same rows
+            xw, yw = x.int(), y.int()
+            reset()
+            fxw = td.ntt_rns_lanes(xw, planw, cycw)
+            bxw = td.intt_rns_lanes(fxw, planw, cycw)
+            pxyw = td.rns_polymul_lanes(xw, yw, planw, cycw)
+            run = counted()
+            check(run == {F6: 3, I6: 1, P6: 1} and fxw.dtype == pxyw.dtype == torch.int32,
+                  f"{cellw} int32 lanes: ntt, intt and polymul launched {run}")
+            launches.update({f"{k}_i32": v for k, v in run.items()})
+            fxw_plain = hr32.rns_u32_fwd_plain(xw, planw, mw)
+            same(f"{F6}_i32", fxw, fxw_plain, f"{cellw} int32 ntt_rns_lanes, all rows,")
+            same(f"{I6}_i32", bxw, hr32.rns_u32_inv_plain(fxw, planw, mw),
+                 f"{cellw} int32 intt_rns_lanes")
+            same(f"{P6}_i32", pxyw, hr32.rns_u32_polymul_inv_plain(
+                fxw_plain, hr32.rns_u32_fwd_plain(yw, planw, mw), planw, mw),
+                f"{cellw} int32 polymul")
+            check(torch.equal(fxw, fx.int()) and torch.equal(pxyw, pxy.int()),
+                  f"{cellw} int32 lanes == int64 lanes narrowed")
+            wide["i32"] = (xw, fxw)
+            del bxw, pxyw, fxw_plain
         wide[logn] = (planw, x, y, fx, mw, cycw)
         del bx, pxy, fx_plain
+
+    # -- 20, on int32 lanes at the u32 HE cell's call: 480 rows of 2^15
+    # (8 ciphertext pairs) under portbench's he_std128_n15_u32 ladder, 30
+    # primes of 30 bits, X^N + 1, cyclic
+    cfg = json.loads((ROOT / "portbench" / "configs" / "he_std128_n15_u32.json").read_text())
+    ms30 = members(cfg["logn"], cfg["primes"])
+    plan30 = g.RNSMergePlan.from_params(ms30, device=dev)
+    n30, cyc30 = plan30.n, np.arange(480) % 30
+    a30_np, b30_np = residues(plan30.qs, cyc30, n30), residues(plan30.qs, cyc30, n30)
+    a30, b30 = lanes(a30_np).int(), lanes(b30_np).int()
+    midx30 = torch.tensor(cyc30, dtype=torch.int32, device=dev)
+    cell30 = f"RNS u32 2^{cfg['logn']}x480 L30 int32"
+    reset()
+    p30 = td.rns_polymul_lanes(a30, b30, plan30, cyc30)
+    f30 = td.ntt_rns_lanes(a30, plan30, cyc30)
+    b30_back = td.intt_rns_lanes(f30, plan30, cyc30)
+    run = counted()
+    check(run == {F16: 3, I16: 1, P16: 1} and p30.dtype == f30.dtype == torch.int32,
+          f"{cell30} rns_polymul_lanes, ntt_rns_lanes and intt_rns_lanes launched the "
+          f"int32 instance, int32 out ({run})")
+    launches.update({f"{k}_i32": v for k, v in run.items()})
+    fa30_plain = hr32.rns_u32_fwd_plain(a30, plan30, midx30)
+    fb30_plain = hr32.rns_u32_fwd_plain(b30, plan30, midx30)
+    same(f"{F16}_i32", f30, fa30_plain, f"{cell30} ntt_rns_lanes, all rows,")
+    same(f"{I16}_i32", b30_back, hr32.rns_u32_inv_plain(f30, plan30, midx30),
+         f"{cell30} intt_rns_lanes, all rows,")
+    check(torch.equal(b30_back, a30), f"{cell30} intt(ntt(a)) == a")
+    same(f"{P16}_i32", p30, hr32.rns_u32_polymul_inv_plain(fa30_plain, fb30_plain, plan30,
+                                                            midx30),
+         f"{cell30} rns_polymul_lanes, all rows,")
+    p30_64 = td.rns_polymul_lanes(a30.long(), b30.long(), plan30, cyc30)
+    check(p30_64.dtype == torch.int64 and torch.equal(p30_64.int(), p30),
+          f"{cell30} product == the int64 lanes' narrowed")
+    for r in (0, 479):
+        gen = g.NTTCPU(ms30[r % 30])
+        check(np.array_equal(u32(p30[r]), gen.intt(gen.mult(gen.ntt(a30_np[r]),
+                                                            gen.ntt(b30_np[r])))),
+              f"{cell30} product row {r} == NTTCPU of member {r % 30}")
+    del fa30_plain, fb30_plain, b30_back, p30_64
 
     # -- 21. times: each kernel at its cell (plain, kernel, kernel, plain), end to end
     timed(F16, lambda: hr32.rns_u32_fwd(a, plan, midx),
@@ -664,6 +733,34 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
                      ("intt_rns_lanes", lambda: td.intt_rns_lanes(fx, planw, cycw)),
                      ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(x, y, planw, cycw))):
         e2e(f"{what} {cellw} end to end", fn)
+    xw, fxw = wide["i32"]
+    timed(f"{F6}_i32", lambda: hr32.rns_u32_fwd(xw, planw, mw),
+          lambda: hr32.rns_u32_fwd_plain(xw, planw, mw), bound_ms(16, 20, 1, 3, 4),
+          cellw + " int32")
+    timed(f"{I6}_i32", lambda: hr32.rns_u32_inv(fxw, planw, mw),
+          lambda: hr32.rns_u32_inv_plain(fxw, planw, mw), bound_ms(16, 20, 1, 3, 4),
+          cellw + " int32")
+    timed(f"{P6}_i32", lambda: hr32.rns_u32_polymul_inv(fxw, fxw, planw, mw),
+          lambda: hr32.rns_u32_polymul_inv_plain(fxw, fxw, planw, mw),
+          bound_ms(16, 20, 2, 3, 4), cellw + " int32")
+    # the int32 instance of K16 at the u32 HE cell's call, and the int64
+    # instance on the same rows widened (a caller holding 8-byte words)
+    timed(f"{F16}_i32", lambda: hr32.rns_u32_fwd(a30, plan30, midx30),
+          lambda: hr32.rns_u32_fwd_plain(a30, plan30, midx30), bound_ms(480, 15, 1, 3, 4),
+          cell30)
+    timed(f"{I16}_i32", lambda: hr32.rns_u32_inv(f30, plan30, midx30),
+          lambda: hr32.rns_u32_inv_plain(f30, plan30, midx30), bound_ms(480, 15, 1, 3, 4),
+          cell30)
+    timed(f"{P16}_i32", lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30),
+          lambda: hr32.rns_u32_polymul_inv_plain(f30, f30, plan30, midx30),
+          bound_ms(480, 15, 2, 3, 4), cell30)
+    a30_64, f30_64 = a30.long(), f30.long()
+    for what, fn in (
+            (f"{F16} on int64 lanes", lambda: hr32.rns_u32_fwd(a30_64, plan30, midx30)),
+            (f"{P16} on int64 lanes",
+             lambda: hr32.rns_u32_polymul_inv(f30_64, f30_64, plan30, midx30)),
+            ("rns_polymul_lanes", lambda: td.rns_polymul_lanes(a30, b30, plan30, cyc30))):
+        e2e(f"{what} {cell30} end to end", fn)
 
 
 # the kmerge phase's (logn, batch) cells: K15's main path, its big check
@@ -1934,14 +2031,19 @@ def main() -> int:
     probe_phase(dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
+    def row(k, name):
+        return {"name": name, "route": k.route, "source": k.source,
+                "replaces": k.replaces, "launches": launches[name],
+                "max_abs_err": err[name], "ms": times[name][0],
+                "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": None}
+
+    # the u32 RNS kernels twice: their int64-lane and int32-lane (_i32) instances
     print(json.dumps({"kernels": [
-        {"name": k.name, "route": k.route, "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": err[k.name], "ms": times[k.name][0],
-         "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
-         "bound_by": bounds[k.name][1], "library_ms": None}
-        for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
-                  *hr.KERNELS, *hr32.KERNELS, *hk64.KERNELS, *hk.KERNELS)]}))
+        *(row(k, k.name)
+          for k in (*hm.KERNELS, *hm32.KERNELS, *hml.KERNELS, *hml.LOCAL_KERNELS, *hf.KERNELS,
+                    *hr.KERNELS, *hr32.KERNELS, *hk64.KERNELS, *hk.KERNELS)),
+        *(row(k, f"{k.name}_i32") for k in hr32.KERNELS)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

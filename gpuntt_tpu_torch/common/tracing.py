@@ -29,10 +29,12 @@ records, a span site reads the flag and does nothing more.
     ntt.route   inside an entry: the plan's move to the operand's device,
                 the schedule's check and device copy, the route decision
                 (attrs: path; plan, hit or move; schedule, hit or miss:
-                whether the RNS route memo held the route)
+                whether the RNS route memo held the route; lanes, the RNS
+                operand's dtype, "int32" or "int64")
     ntt.launch  hopper_merge._launch, the one function every C entry
                 passes through: the stream lookup, the call and its
-                return code (attrs: kernel)
+                return code (attrs: kernel; word, the bytes of the
+                operand's words in device memory, 4 or 8)
 
 An entry's self time, its duration less its children's, is the work
 that is neither route nor launch: the wrappers' checks, allocations,

@@ -101,9 +101,17 @@
 // Tensor cores, TMA and clusters are not used: the work is integer
 // arithmetic on 32-bit words.
 //
-// Lanes: the port's u32 data are int64 tensors holding values < 2^32, so
-// each kernel loads 8-byte words, keeps its tile in 32-bit words and
-// stores 8-byte words (twice the bytes of a uint32 layout).
+// Lanes: every kernel keeps its tile in 32-bit words and is a template
+// over the word it reads and writes in device memory (Wide):
+//   - uint64_t, the port's int64 lanes holding values < 2^32 (the
+//     merge_u32_* entries and the rns_u32_* ones): 8-byte words, twice the
+//     bytes of the values;
+//   - uint32_t, int32 lanes (the rns_u32_*_i32 entries, for u32 RNS
+//     ladders held as 4-byte words): half the bytes a pass.
+// Rows move 16 bytes a lane (2 or 4 words) where the block's words start
+// 16-byte aligned, and one word a lane where a caller's view starts
+// elsewhere (aligned16, checked once a block); columns move one word a
+// lane, the lanes of a warp on adjacent words.
 //
 // An RNS batch adds its ring's modulus's table to each block's reads:
 // 512 KiB of packed table per modulus at 2^16 for X^N + 1, 4 MiB for a
@@ -192,18 +200,63 @@ struct Tile {
   }
 };
 
+// Whether a 16-byte access at p is aligned.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// 16 bytes of device memory as words of type W, at a 16-byte aligned
+// address: two 8-byte words (ulonglong2) or four 4-byte ones (uint4).
+template <class W>
+struct Wide;
+template <>
+struct Wide<uint64_t> {
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ static void load(const uint64_t* p, uint64_t (&v)[2]) {
+    const ulonglong2 u = *reinterpret_cast<const ulonglong2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  }
+  __device__ __forceinline__ static void store(uint64_t* p, const uint64_t (&v)[2]) {
+    ulonglong2 u;
+    u.x = v[0];
+    u.y = v[1];
+    *reinterpret_cast<ulonglong2*>(p) = u;
+  }
+};
+template <>
+struct Wide<uint32_t> {
+  static constexpr int kWords = 4;
+  __device__ __forceinline__ static void load(const uint32_t* p, uint32_t (&v)[4]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+  __device__ __forceinline__ static void store(uint32_t* p, const uint32_t (&v)[4]) {
+    uint4 u;
+    u.x = v[0];
+    u.y = v[1];
+    u.z = v[2];
+    u.w = v[3];
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
 // The launch's input, read by its first pass: the low 32 bits of each
 // word of x (kMul: the Barrett product with b's), reduced mod q when
 // `reduce`.  x may equal the output: every word is read before a
 // barrier that precedes its write, or by the thread that writes it.
-template <bool kMul_>
+template <bool kMul_, class W>
 struct In {
   static constexpr bool kMul = kMul_;
-  const uint64_t* x;
-  const uint64_t* b;
+  using Word = W;
+  const W* x;
+  const W* b;
   Ring f;
   int reduce;
-  __device__ __forceinline__ uint32_t word(uint64_t xv, uint64_t bv) const {
+  __device__ __forceinline__ uint32_t word(W xv, W bv) const {
     const uint32_t v = kMul ? barrett_mul((uint32_t)xv, (uint32_t)bv, f.q, f.bit, f.mu)
                             : (uint32_t)xv;
     return reduce ? reduce_any(v, f.q, f.one_s) : v;
@@ -221,12 +274,13 @@ struct In {
 // The launch's output, written by its last pass: canonical residues
 // (the forward's values lie in [0, 4q), the inverse's in [0, 2q)), or
 // for the inverse's last phase (`scale`) the canonical product by n^-1.
-template <bool kFwd>
+template <bool kFwd, class W>
 struct Out {
-  uint64_t* y;
+  using Word = W;
+  W* y;
   Ring f;
   int scale;
-  __device__ __forceinline__ uint64_t word(uint32_t v) const {
+  __device__ __forceinline__ uint32_t word(uint32_t v) const {
     if (kFwd) return cond_sub(cond_sub(v, 2 * f.q), f.q);
     return scale ? shoup_mul(v, f.n_inv, f.n_inv_s, f.q) : cond_sub(v, f.q);
   }
@@ -277,30 +331,45 @@ __device__ __forceinline__ void pass_r(int r, const Geo& geo, int l0, const Src&
   }
 }
 
-// Rows of the tile, 16 bytes a lane: `in` into the tile, or the tile to
-// `out` (adjacent lanes on adjacent words, each 32-word run of the tile
-// read or written without a bank conflict).
+// Rows of the tile: `in` into the tile, or the tile to `out`, 16 bytes a
+// lane where the block's words start 16-byte aligned and one word a lane
+// where they do not (adjacent lanes on adjacent words either way, each
+// 32-word run of the tile read or written without a bank conflict).
 template <class Src, class Geo>
 __device__ __forceinline__ void tile_in(const Src& in, const Geo& geo, uint32_t* tile) {
-  const ulonglong2* x2 = reinterpret_cast<const ulonglong2*>(in.x);
-  const ulonglong2* b2 = reinterpret_cast<const ulonglong2*>(Src::kMul ? in.b : in.x);
+  using W = typename Src::Word;
+  constexpr int kV = Wide<W>::kWords;
+  if (aligned16(in.x) && (!Src::kMul || aligned16(in.b))) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < geo.words() / 2; i += kThreads) {
-    const ulonglong2 u = x2[i], w = Src::kMul ? b2[i] : u;
-    tile[radix::padded<kPad>(2 * i)] = in.word(u.x, w.x);
-    tile[radix::padded<kPad>(2 * i + 1)] = in.word(u.y, w.y);
+    for (int i = threadIdx.x; i < geo.words() / kV; i += kThreads) {
+      W u[kV], w[kV];
+      Wide<W>::load(in.x + kV * i, u);
+      if (Src::kMul) Wide<W>::load(in.b + kV * i, w);
+#pragma unroll
+      for (int j = 0; j < kV; ++j)
+        tile[radix::padded<kPad>(kV * i + j)] = in.word(u[j], Src::kMul ? w[j] : u[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < geo.words(); i += kThreads)
+      tile[radix::padded<kPad>(i)] = in.word(in.x[i], Src::kMul ? in.b[i] : 0);
   }
 }
 
 template <class Dst, class Geo>
 __device__ __forceinline__ void tile_out(const Dst& out, const Geo& geo, const uint32_t* tile) {
-  ulonglong2* y2 = reinterpret_cast<ulonglong2*>(out.y);
+  using W = typename Dst::Word;
+  constexpr int kV = Wide<W>::kWords;
+  if (aligned16(out.y)) {
 #pragma unroll 4
-  for (int i = threadIdx.x; i < geo.words() / 2; i += kThreads) {
-    ulonglong2 u;
-    u.x = out.word(tile[radix::padded<kPad>(2 * i)]);
-    u.y = out.word(tile[radix::padded<kPad>(2 * i + 1)]);
-    y2[i] = u;
+    for (int i = threadIdx.x; i < geo.words() / kV; i += kThreads) {
+      W u[kV];
+#pragma unroll
+      for (int j = 0; j < kV; ++j) u[j] = out.word(tile[radix::padded<kPad>(kV * i + j)]);
+      Wide<W>::store(out.y + kV * i, u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < geo.words(); i += kThreads)
+      out.y[i] = out.word(tile[radix::padded<kPad>(i)]);
   }
 }
 
@@ -347,9 +416,9 @@ __device__ __forceinline__ void network(int L, bool short_first, const Geo& geo,
 // x and the last writes y, the lanes of a warp on adjacent columns.
 // Past one pass, the column table's entries (2^logA words at most)
 // follow the tile in shared memory.
-template <bool kFwd, class F>
+template <bool kFwd, class W, class F>
 __global__ void __launch_bounds__(kThreads, kBlocks)
-cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp) {
+cols(const W* x, W* y, int logn, int logA, int logC, F fs, int xnp) {
   extern __shared__ uint32_t smem[];
   const int logB = logn - logA, tiles_log = logB - logC;
   const size_t ring = blockIdx.x >> tiles_log;
@@ -359,7 +428,7 @@ cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp
   if (logA > kRadix)  // read after the first barrier
     for (int e = threadIdx.x; e < (1 << (logA - 1 + xnp)); e += kThreads) stw[e] = __ldg(f.tw + e);
   network<kFwd>(logA, false, ColGeo{logA, logB, logC, xnp}, smem,
-                In<false>{x + off, nullptr, f, kFwd}, Out<kFwd>{y + off, f, !kFwd},
+                In<false, W>{x + off, nullptr, f, kFwd}, Out<kFwd, W>{y + off, f, !kFwd},
                 GlobalTw{f.tw}, SharedTw{stw}, Lazy{f.q, 2 * f.q});
 }
 
@@ -369,16 +438,16 @@ cols(const uint64_t* x, uint64_t* y, int logn, int logA, int logC, F fs, int xnp
 // first phase); `scale`: n^-1 on store (the inverse's last phase).  kMul:
 // the load is the Barrett product x o b, then reduced (the polymul's
 // inverse).  x may equal y.  Rows (B >= 64: two passes at least) go out
-// of the tile 16 bytes a lane (tile_out) after a barrier, and the
-// inverse's come in the same way (tile_in); the forward's first pass
+// of the tile 16 bytes a lane where aligned (tile_out) after a barrier,
+// and the inverse's come in the same way (tile_in); the forward's first pass
 // reads x itself, 32 words a thread at a stride of B / 32, the lanes of
 // a warp on adjacent words.  The output's constants are read after the
 // passes, so that a stacked modulus's n^-1 holds no register through
 // them.
-template <bool kFwd, bool kMul, class F>
+template <bool kFwd, bool kMul, class W, class F>
 __global__ void __launch_bounds__(kThreads, kBlocks)
-rows(const uint64_t* x, const uint64_t* b, uint64_t* y, int total_rows, int logA, int logB,
-     int log_rows, F fs, int reduce, int scale, int xnp) {
+rows(const W* x, const W* b, W* y, int total_rows, int logA, int logB, int log_rows, F fs,
+     int reduce, int scale, int xnp) {
   extern __shared__ uint32_t smem[];
   const int r0 = (int)(blockIdx.x << log_rows);
   const int left = total_rows - r0;
@@ -388,7 +457,7 @@ rows(const uint64_t* x, const uint64_t* b, uint64_t* y, int total_rows, int logA
   const RowGeo geo{logA, logB, r0, nrows, xnp};
   const GlobalTw tw{f.tw};
   const Lazy ar{f.q, 2 * f.q};
-  const In<kMul> in{x + off, kMul ? b + off : nullptr, f, reduce};
+  const In<kMul, W> in{x + off, kMul ? b + off : nullptr, f, reduce};
   const Tile t{smem};
   if (kFwd) {
     network<kFwd>(logB, false, geo, smem, in, t, tw, tw, ar);
@@ -398,7 +467,7 @@ rows(const uint64_t* x, const uint64_t* b, uint64_t* y, int total_rows, int logA
     network<kFwd>(logB, true, geo, smem, t, t, tw, tw, ar);
   }
   __syncthreads();
-  tile_out(Out<kFwd>{y + off, fs.at(ring), scale}, geo, smem);
+  tile_out(Out<kFwd, W>{y + off, fs.at(ring), scale}, geo, smem);
 }
 
 // log2 words of a block's tile for rows of 2^logB words.
@@ -463,39 +532,39 @@ bool schedule_ok(long long batch, long long entries, int shift) {
   return shift >= 0 && shift < 31 && entries > 0 && (entries << shift) == batch;
 }
 
-template <class F>
-int forward(const uint64_t* x, uint64_t* y, long long batch, int logn, int logA, F f, int xnp,
+template <class W, class F>
+int forward(const W* x, W* y, long long batch, int logn, int logA, F f, int xnp,
             cudaStream_t st) {
   const int logB = logn - logA, logW = tile_log(logB);
   if (logA > 0) {
     const int bytes = col_bytes(logW, logA);
-    if (int rc = fit_smem(cols<true, F>, bytes)) return rc;
-    cols<true, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
+    if (int rc = fit_smem(cols<true, W, F>, bytes)) return rc;
+    cols<true, W, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
         x, y, logn, logA, logW - logA, f, xnp);
     if (int rc = launch_status()) return rc;
   }
   const int log_rows = rows_log(logA, logB, f), bytes = 4 * padded_words(logB + log_rows);
-  if (int rc = fit_smem(rows<true, false, F>, bytes)) return rc;
-  rows<true, false, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
+  if (int rc = fit_smem(rows<true, false, W, F>, bytes)) return rc;
+  rows<true, false, W, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
       logA > 0 ? y : x, nullptr, y, (int)(batch << logA), logA, logB, log_rows, f, logA == 0,
       0, xnp);
   return launch_status();
 }
 
 // kMul: INTT(a o b); otherwise INTT(a) (b unused).
-template <bool kMul, class F>
-int inverse(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, int logn,
-            int logA, F f, int xnp, cudaStream_t st) {
+template <bool kMul, class W, class F>
+int inverse(const W* a, const W* b, W* y, long long batch, int logn, int logA, F f, int xnp,
+            cudaStream_t st) {
   const int logB = logn - logA, logW = tile_log(logB);
   const int log_rows = rows_log(logA, logB, f), bytes = 4 * padded_words(logB + log_rows);
-  if (int rc = fit_smem(rows<false, kMul, F>, bytes)) return rc;
-  rows<false, kMul, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
+  if (int rc = fit_smem(rows<false, kMul, W, F>, bytes)) return rc;
+  rows<false, kMul, W, F><<<grid_rows(batch, logA, log_rows), kThreads, bytes, st>>>(
       a, b, y, (int)(batch << logA), logA, logB, log_rows, f, 1, logA == 0, xnp);
   if (int rc = launch_status()) return rc;
   if (logA > 0) {
     const int bytes = col_bytes(logW, logA);
-    if (int rc = fit_smem(cols<false, F>, bytes)) return rc;
-    cols<false, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
+    if (int rc = fit_smem(cols<false, W, F>, bytes)) return rc;
+    cols<false, W, F><<<grid_cols(batch, logn, logA), kThreads, bytes, st>>>(
         y, y, logn, logA, logW - logA, f, xnp);
   }
   return launch_status();
@@ -513,6 +582,29 @@ Stacked rns(const int* mod_idx, int shift, int logn, const uint64_t* tw, const u
   return Stacked{mod_idx, shift, tw, xnp ? 1LL << logn : 1LL << (logn - 1), consts};
 }
 
+// The RNS entries on words of type W: the schedule checked, then the
+// kernels.
+template <class W>
+int rns_forward(int device, const W* x, W* y, long long batch, int logn, int logA,
+                const int* mod_idx, long long entries, int shift, const uint64_t* tw,
+                const uint64_t* consts, int xnp, void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp), xnp,
+                 (cudaStream_t)stream);
+}
+
+// kMul: INTT(a o b) (the polymul's inverse); otherwise INTT(a).
+template <bool kMul, class W>
+int rns_inverse(int device, const W* a, const W* b, W* y, long long batch, int logn, int logA,
+                const int* mod_idx, long long entries, int shift, const uint64_t* tw,
+                const uint64_t* consts, int xnp, void* stream) {
+  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  return inverse<kMul>(a, b, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp),
+                       xnp, (cudaStream_t)stream);
+}
+
 }  // namespace
 }  // namespace merge_u32
 
@@ -520,7 +612,9 @@ using namespace merge_u32;
 
 // Every entry: pointers to contiguous (batch, 2^logn) int64 lanes holding
 // u32 words on card `device` (only the low 32 bits of each input word are
-// read), launches on `stream`, allocates nothing, does not synchronise,
+// read), or for the *_i32 entries int32 lanes (4-byte words, each
+// reduced mod q as read; the output canonical residues < 2^30), launches
+// on `stream`, allocates nothing, does not synchronise,
 // and returns the cudaError_t of its launches (0 = none).  logA is log2 of
 // the column count A of the split (hopper_merge32.split); x may equal y.
 // `tw` is a packed table: one int64 word per entry of the bit-reversed
@@ -530,7 +624,8 @@ using namespace merge_u32;
 // numbers.  The rns_u32_* entries take an int32 schedule of batch >> shift
 // moduli (ring i uses modulus mod_idx[i >> shift], every entry in
 // [0, mod_count)), the stacked (mod_count, table) packed tables and the
-// (mod_count, 6) constants of ops/rns.py's RNSMergePlan.
+// (mod_count, 6) constants of ops/rns.py's RNSMergePlan; each has a twin,
+// rns_u32_*_i32, with the same arguments on int32 lanes.
 extern "C" {
 
 int merge_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -545,36 +640,54 @@ int merge_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batc
                       int logn, int logA, const uint64_t* tw, uint32_t q, uint32_t one_s,
                       uint32_t n_inv, uint32_t n_inv_s, int xnp, void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<false>(x, nullptr, y, batch, logn, logA,
-                        one_modulus(tw, q, one_s, n_inv, n_inv_s), xnp, (cudaStream_t)stream);
+  return inverse<false, uint64_t>(x, nullptr, y, batch, logn, logA,
+                                  one_modulus(tw, q, one_s, n_inv, n_inv_s), xnp,
+                                  (cudaStream_t)stream);
 }
 
 int rns_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
                     int logA, const int* mod_idx, long long entries, int shift,
                     const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
-  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
-  if (int rc = begin(device, batch, logn, logA)) return rc;
-  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp), xnp,
-                 (cudaStream_t)stream);
+  return rns_forward(device, x, y, batch, logn, logA, mod_idx, entries, shift, tw, consts, xnp,
+                     stream);
 }
 
 int rns_u32_inverse(int device, const uint64_t* x, uint64_t* y, long long batch, int logn,
                     int logA, const int* mod_idx, long long entries, int shift,
                     const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
-  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
-  if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<false>(x, nullptr, y, batch, logn, logA,
-                        rns(mod_idx, shift, logn, tw, consts, xnp), xnp, (cudaStream_t)stream);
+  return rns_inverse<false>(device, x, static_cast<const uint64_t*>(nullptr), y, batch, logn,
+                            logA, mod_idx, entries, shift, tw, consts, xnp, stream);
 }
 
 int rns_u32_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb, uint64_t* y,
                             long long batch, int logn, int logA, const int* mod_idx,
                             long long entries, int shift, const uint64_t* tw,
                             const uint64_t* consts, int xnp, void* stream) {
-  if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
-  if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<true>(fa, fb, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, consts, xnp),
-                       xnp, (cudaStream_t)stream);
+  return rns_inverse<true>(device, fa, fb, y, batch, logn, logA, mod_idx, entries, shift, tw,
+                           consts, xnp, stream);
+}
+
+int rns_u32_forward_i32(int device, const uint32_t* x, uint32_t* y, long long batch, int logn,
+                        int logA, const int* mod_idx, long long entries, int shift,
+                        const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
+  return rns_forward(device, x, y, batch, logn, logA, mod_idx, entries, shift, tw, consts, xnp,
+                     stream);
+}
+
+int rns_u32_inverse_i32(int device, const uint32_t* x, uint32_t* y, long long batch, int logn,
+                        int logA, const int* mod_idx, long long entries, int shift,
+                        const uint64_t* tw, const uint64_t* consts, int xnp, void* stream) {
+  return rns_inverse<false>(device, x, static_cast<const uint32_t*>(nullptr), y, batch, logn,
+                            logA, mod_idx, entries, shift, tw, consts, xnp, stream);
+}
+
+int rns_u32_polymul_inverse_i32(int device, const uint32_t* fa, const uint32_t* fb,
+                                uint32_t* y, long long batch, int logn, int logA,
+                                const int* mod_idx, long long entries, int shift,
+                                const uint64_t* tw, const uint64_t* consts, int xnp,
+                                void* stream) {
+  return rns_inverse<true>(device, fa, fb, y, batch, logn, logA, mod_idx, entries, shift, tw,
+                           consts, xnp, stream);
 }
 
 }  // extern "C"

@@ -69,10 +69,11 @@ _ENTRIES = {
         "merge_u32_forward": [_i32, _p, _p, _i64, _i32, _i32, _p, _u32, _u32, _i32, _p],
         "merge_u32_inverse": [_i32, _p, _p, _i64, _i32, _i32, _p, _u32, _u32, _u32, _u32,
                               _i32, _p],
-        **{f"rns_u32_{e}": [_i32, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p, _i32,
-                            _p] for e in ("forward", "inverse")},
-        "rns_u32_polymul_inverse": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p,
-                                    _p, _i32, _p],
+        # the rns_u32_* entries on int64 lanes, and their twins on int32 lanes
+        **{f"rns_u32_{e}{w}": [_i32, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p, _i32,
+                               _p] for e in ("forward", "inverse") for w in ("", "_i32")},
+        **{f"rns_u32_polymul_inverse{w}": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32,
+                                           _p, _p, _i32, _p] for w in ("", "_i32")},
     },
     "fourstep": {
         **{f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p,

@@ -68,13 +68,20 @@ all have a genuine root:
 - everything else (other logn, wide q) -> the engine of ops/rns.py.
 
 A schedule of one entry serves every row; any other length that is not
-the batch raises NTTScheduleError.  The route (`_rns_route`) is derived
-once per device plan, row count and schedule (its contents, so an array
-changed in place is routed anew) and kept on the plan: the checked
-schedule, its copy on the device and, for K12 on a card, the product's
-launch prepared once (`hopper_rns.prepare`), so that rns_polymul_lanes
-there is the operands' checks, two allocations and one C call of six
-launches (`hopper_rns.rns_u64_polymul`).
+the batch raises NTTScheduleError.  The lanes are int64 tensors (u64 bit
+patterns, or u32 values), or on a u32 ladder int32 tensors (4-byte
+words; every residue of a q < 2^30 fits), and the output has the
+operands' dtype: on "hopper-rns32" the kernels read and write the 4-byte
+words themselves, while the engine widens them, runs and narrows its
+result.  A u64 ladder given int32 lanes, or a product given operands
+of two dtypes, raises NTTDispatchError.  The
+route (`_rns_route`) is derived once per device plan, row count and
+schedule (its contents, so an array changed in place is routed anew) and
+kept on the plan: the checked schedule, its copy on the device and, for
+K12 on a card, the product's launch prepared once
+(`hopper_rns.prepare`), so that rns_polymul_lanes there is the operands'
+checks, two allocations and one C call of six launches
+(`hopper_rns.rns_u64_polymul`).
 
 Spans (common/tracing.py, recorded only under torch.profiler): each
 `*_lanes` entry of both families is an ntt.entry span and holds one
@@ -91,6 +98,7 @@ import numpy as np
 import torch
 
 from ..common import tracing
+from ..common.errors import NTTDispatchError
 from ..params.merge import NTTLayout, NTTType, ReductionPolynomial
 from . import barrett as bo
 from . import hopper_kmerge64 as hk64
@@ -449,9 +457,11 @@ def _routed(plan: RNSMergePlan, x: torch.Tensor, mod_idx) -> _RNSRoute:
 
 def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
     """The ntt.route span of the RNS entries: the plan on x's device, then
-    x's route (_RNSRoute), derived once per (device, rows, schedule's
-    contents) and kept on the device plan (64 at most).  The lookup counts
-    under tracing's schedule.hit / schedule.miss."""
+    x's route (_RNSRoute), derived once per (device, rank, rows, schedule's
+    contents) and kept on the device plan (64 at most); int32 lanes on a
+    u64 ladder raise NTTDispatchError, on a hit as on a miss.  The lookup
+    counts under tracing's schedule.hit / schedule.miss; the span notes
+    the lanes' dtype."""
     span = tracing.begin(tracing.ROUTE)
     try:
         plan = plan.to(x.device)
@@ -466,18 +476,30 @@ def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
             memo[key] = route
         else:
             tracing.outcome("schedule.hit", "schedule", "hit")
+        if x.dtype == torch.int32 and plan.is64:
+            raise NTTDispatchError("int32 lanes hold u32 words: a u64 ladder takes int64 lanes")
         if span:
             span.attrs["path"] = route.path
+            span.attrs["lanes"] = str(x.dtype).removeprefix("torch.")
     finally:
         if span:
             span.end()
     return plan, route
 
 
+def _on_int64(fn, *xs):
+    """fn(*xs) on the engine's int64 lanes: int32 lanes are widened for it
+    and its result narrowed back."""
+    if xs[0].dtype != torch.int32:
+        return fn(*xs)
+    return fn(*(x.long() for x in xs)).int()
+
+
 def _rns_transform(x: torch.Tensor, plan: RNSMergePlan, mod_idx, inverse: bool):
     plan, (mod_idx, path, midx, _) = _rns_route(plan, x, mod_idx)
     if path == "engine":
-        return (rns_intt_lanes if inverse else rns_ntt_lanes)(x, plan, mod_idx)
+        return _on_int64(lambda v: (rns_intt_lanes if inverse else rns_ntt_lanes)(
+            v, plan, mod_idx), x)
     x = x.contiguous()
     if path == "hopper-rns-large":
         return hr.rns_u64_large(x, hr.large_plan(plan), midx, inverse)
@@ -604,20 +626,23 @@ def rns_pointwise_mult(x, y, plan: RNSMergePlan, order=None) -> np.ndarray:
 @tracing.entry
 def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
                       mod_idx) -> torch.Tensor:
-    """INTT(NTT(a) o NTT(b)) of (batch, N) lane tensors, row r modulo
-    (q_{mod_idx[r]}, X^N +/- 1), the schedule read as ntt_rns_lanes reads
-    it.  On the kernel routes: two forward transforms and the inverse
-    with the product fused into its first load (K12's fused inverse and
-    its u32 twin, on the rows of a big ring for K13); on the engine:
-    forward, rns_pointwise_mult_lanes, inverse.  Outputs are bit-identical
-    either way."""
+    """INTT(NTT(a) o NTT(b)) of (batch, N) lane tensors (int64, or int32 on
+    a u32 ladder), row r modulo (q_{mod_idx[r]}, X^N +/- 1), the
+    schedule read as ntt_rns_lanes reads it.  On the kernel routes: two
+    forward transforms and the inverse with the product fused into its
+    first load (K12's fused inverse and its u32 twin, on the rows of a
+    big ring for K13); on the engine: forward, rns_pointwise_mult_lanes,
+    inverse.  Outputs are bit-identical either way.  Operands of two
+    dtypes raise NTTDispatchError, on every route."""
     plan, (mod_idx, path, midx, k12) = _rns_route(plan, a, mod_idx)
+    if a.dtype != b.dtype:
+        raise NTTDispatchError(f"operands of one dtype, got {a.dtype} and {b.dtype}")
     if k12 is not None:
         return hr.rns_u64_polymul(a, b, k12)
     if path == "engine":
-        prod = rns_pointwise_mult_lanes(rns_ntt_lanes(a, plan, mod_idx),
-                                        rns_ntt_lanes(b, plan, mod_idx), plan, mod_idx)
-        return rns_intt_lanes(prod, plan, mod_idx)
+        return _on_int64(lambda u, v: rns_intt_lanes(rns_pointwise_mult_lanes(
+            rns_ntt_lanes(u, plan, mod_idx), rns_ntt_lanes(v, plan, mod_idx), plan, mod_idx),
+            plan, mod_idx), a, b)
     a, b = a.contiguous(), b.contiguous()
     if path == "hopper-rns-large":
         sp = hr.large_plan(plan)

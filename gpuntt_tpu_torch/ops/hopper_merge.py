@@ -148,10 +148,13 @@ def _check(name: str, plan: MergePlan, *xs: torch.Tensor) -> None:
 
 def _launch(stats: KernelStats, fn, x: torch.Tensor, *args, kernel: str | None = None) -> None:
     """Call the C entry `fn` on x's card and current stream, under an
-    ntt.launch span whose `kernel` attr is `kernel` or the stats' name;
-    one launch more for `stats` once it returns 0."""
+    ntt.launch span whose `kernel` attr is `kernel` or the stats' name and
+    whose `word` attr is x's element size in bytes (4 or 8); one launch
+    more for `stats` once it returns 0."""
     span = tracing.begin(tracing.LAUNCH, "kernel", kernel or stats.name)
     try:
+        if span:
+            span.attrs["word"] = x.element_size()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.device.index, *args, ctypes.c_void_p(stream))
         if rc != 0:

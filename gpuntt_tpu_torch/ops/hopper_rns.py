@@ -256,11 +256,15 @@ def col4_plain(x, sp: RNSColumnPlan, midx, inverse: bool):
 
 
 def _check(x: torch.Tensor, n: int, device: torch.device, midx: torch.Tensor,
-           shift: int) -> None:
-    if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != n
+           shift: int, dtypes: tuple = (torch.int64,)) -> None:
+    """Refuse an operand the kernels do not take: x must be a contiguous
+    (batch, n) tensor of one of `dtypes` on `device`, midx an int32
+    schedule there of one entry per ring of 2^shift rows."""
+    if (x.dtype not in dtypes or x.dim() != 2 or x.shape[1] != n
             or not x.is_contiguous() or x.device != device):
+        words = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
         raise NTTDispatchError(
-            f"expected a contiguous (batch, {n}) int64 tensor on {device}, got "
+            f"expected a contiguous (batch, {n}) {words} tensor on {device}, got "
             f"{tuple(x.shape)} {x.dtype} on {x.device} contiguous={x.is_contiguous()}")
     if (midx.dtype != torch.int32 or midx.dim() != 1 or midx.device != device
             or midx.numel() << shift != x.shape[0]):

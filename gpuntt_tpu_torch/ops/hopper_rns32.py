@@ -25,17 +25,22 @@ at logn 8-17, under K6 at 18-25.  A transform is one launch up to logn
 13 and two above (hopper_merge32.split); below logn 14 a row block holds
 only rings of one schedule entry (csrc/merge_u32.cu).
 
-Each wrapper takes contiguous (batch, N) int64 tensors of u32 values on
-the plan's device and an int32 schedule `midx` on that device with one
-entry in [0, mod_count) per ring of 2^shift rows (hopper_rns.schedule
-caches it).  On a CPU tensor it runs the kernel's plain version — each
+Each wrapper takes contiguous (batch, N) tensors of u32 values on the
+plan's device, all int64 lanes or all int32 lanes (4-byte words, for
+ladders held as 32-bit words: every q < 2^30, so residues fit a
+non-negative int32), and an int32 schedule `midx` on that device with
+one entry in [0, mod_count) per ring of 2^shift rows
+(hopper_rns.schedule caches it); the output has the operands' dtype.  On
+int32 lanes the kernels read and write 4-byte words themselves (the
+rns_u32_*_i32 entries of merge_u32.cu): no pass widens or narrows them.
+On a CPU tensor a wrapper runs the kernel's plain version — each
 modulus's rows through hopper_merge32's plain versions with that
-member's plan — and only there; on a CUDA tensor it launches the kernel
-or raises.  Every launch adds one to its kernel's `launches`, every
-plain-version call through a wrapper one to `plain_calls`;
-`tracing.reset()` zeroes both.  The `*_plain` functions run the plain
-versions alone, on any device, which is how the kernels are checked on
-the card.
+member's plan, int32 lanes widened for them and the result narrowed —
+and only there; on a CUDA tensor it launches the kernel or raises.
+Every launch adds one to its kernel's `launches`, every plain-version
+call through a wrapper one to `plain_calls`; `tracing.reset()` zeroes
+both.  The `*_plain` functions run the plain versions alone, on any
+device, which is how the kernels are checked on the card.
 """
 
 from __future__ import annotations
@@ -87,12 +92,19 @@ def covers(plan: RNSMergePlan) -> bool:
 # ------------------------------------------------------------ plain versions
 
 
+def _per_modulus(fn, plan: RNSMergePlan, midx, shift: int, *xs):
+    """fn on each modulus's rows, on int64 lanes: int32 operands are
+    widened for it and the result narrowed back to int32."""
+    out = per_modulus(fn, plan.members, _row_schedule(midx, shift), *(x.long() for x in xs))
+    return out.to(xs[0].dtype)
+
+
 def rns_u32_fwd_plain(x, plan: RNSMergePlan, midx, shift: int = 0):
-    return per_modulus(hm32.merge_u32_fwd_plain, plan.members, _row_schedule(midx, shift), x)
+    return _per_modulus(hm32.merge_u32_fwd_plain, plan, midx, shift, x)
 
 
 def rns_u32_inv_plain(x, plan: RNSMergePlan, midx, shift: int = 0):
-    return per_modulus(hm32.merge_u32_inv_plain, plan.members, _row_schedule(midx, shift), x)
+    return _per_modulus(hm32.merge_u32_inv_plain, plan, midx, shift, x)
 
 
 def _polymul_inv_plain(fa, fb, member):
@@ -102,7 +114,7 @@ def _polymul_inv_plain(fa, fb, member):
 
 def rns_u32_polymul_inv_plain(fa, fb, plan: RNSMergePlan, midx, shift: int = 0):
     """Each modulus's Barrett product (barrett_mul32), then its inverse."""
-    return per_modulus(_polymul_inv_plain, plan.members, _row_schedule(midx, shift), fa, fb)
+    return _per_modulus(_polymul_inv_plain, plan, midx, shift, fa, fb)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -114,6 +126,11 @@ def _lib():
     return library("merge_u32")
 
 
+# the lanes the kernels take, and the suffix of their C entries
+WORDS = {torch.int64: "", torch.int32: "_i32"}
+_DTYPES = tuple(WORDS)
+
+
 def _run(family: dict, plain, entry: str, plan: RNSMergePlan, midx, shift: int,
          inverse: bool, *xs):
     if not covers(plan):
@@ -121,13 +138,16 @@ def _run(family: dict, plain, entry: str, plan: RNSMergePlan, midx, shift: int,
             f"rns_u32 kernels take u32 plans with stacked tables, every q < 2^30 and logn "
             f"8-25, got logn={plan.logn} is64={plan.is64} qs={plan.qs}")
     for x in xs:
-        _check(x, plan.n, plan.device, midx, shift)
+        _check(x, plan.n, plan.device, midx, shift, _DTYPES)
+        if x.dtype != xs[0].dtype:
+            raise NTTDispatchError(f"operands of one dtype, got {[v.dtype for v in xs]}")
     stats = family[tpu_kernel(plan.logn)]
     if xs[0].device.type == "cpu":
         stats.plain_calls += 1
         return plain(*xs, plan, midx, shift)
     y = torch.empty_like(xs[0])
-    _launch(stats, getattr(_lib(), entry), xs[0], *(x.data_ptr() for x in xs), y.data_ptr(),
+    _launch(stats, getattr(_lib(), entry + WORDS[xs[0].dtype]), xs[0],
+            *(x.data_ptr() for x in xs), y.data_ptr(),
             xs[0].shape[0], plan.logn, hm32.split(plan.logn), midx.data_ptr(), midx.numel(),
             shift, hm32.packed_tables(plan)[int(inverse)].data_ptr(), plan.consts.data_ptr(),
             int(plan.xnp))

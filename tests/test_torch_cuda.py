@@ -15,7 +15,10 @@ the distributed path: K7' on every shard of sp 1-8 at u64 2^20 and
 2^24, the merge's per-rank tail plans, and the dist entries and models
 at world size 1 on NCCL against the single-chip entries; the value
 edges of the register-pass kernels (the largest NTT prime below 2^62 or
-2^30) and operands that start at an odd word (K1-K3, K8, K12).
+2^30) and operands that start at an odd word (K1-K3, K8, K12, and the
+u32 RNS kernels on int32 and int64 lanes); the u32 RNS entries on int32
+lanes against int64 lanes, and one traced int32 call's spans and device
+operations.
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -883,6 +886,114 @@ def test_rns32_wrappers_refuse_on_card(card):
             hr32.rns_u32_fwd(bad_x, plan, bad_m)
 
 
+def _u32_words_ladder(logn, count=30):
+    """`count` 30-bit primes with a 2N-th root of unity (the port's search,
+    as portbench's he_std128_n15_u32 finds its 30 at logn 15), X^N + 1."""
+    out = []
+    for q in tg.find_ntt_primes(30, logn, count):
+        omega, psi = tg.ntt_root_pair(q, logn)
+        out.append(tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint32,
+                                    factors=tg.NTTFactors(tg.Modulus32(q), omega, psi)))
+    return out
+
+
+def _residues(plan, rows, seed, card):
+    """(rows, N) int64 lanes on the card, row r canonical under modulus r % L."""
+    q = torch.tensor(plan.qs, device=card)[torch.arange(rows, device=card) % plan.mod_count]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    return torch.randint(0, 1 << 62, (rows, plan.n), generator=gen, device=card) % q[:, None]
+
+
+@pytest.mark.parametrize("rows", [60, 480])
+@pytest.mark.parametrize("logn", [*range(8, 18), 18])
+def test_rns32_int32_lanes_on_card(card, logn, rows):
+    """A ladder of 30 primes of 30 bits (the u32 HE deployment's shape):
+    ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes on int32 lanes
+    equal the int64 lanes' results narrowed, bit for bit, through the
+    4-byte-word kernels (K16 up to logn 17, K6's function at 18) and no
+    plain version."""
+    plan = tg.RNSMergePlan.from_params(_u32_words_ladder(logn), device=card)
+    mod_idx = np.arange(rows) % plan.mod_count
+    a, b = _residues(plan, rows, logn, card), _residues(plan, rows, logn + 1, card)
+    a32, b32 = a.int(), b.int()
+    for fn in (td.ntt_rns_lanes, td.intt_rns_lanes):
+        got = fn(a32, plan, mod_idx)
+        assert got.dtype == torch.int32 and torch.equal(got, fn(a, plan, mod_idx).int())
+    tracing.reset()
+    got = td.rns_polymul_lanes(a32, b32, plan, mod_idx)
+    torch.cuda.synchronize()
+    k = hr32.tpu_kernel(logn)
+    assert _rns32_counts() == {hr32.FORWARD[k].name: (2, 0),
+                               hr32.POLYMUL_INVERSE[k].name: (1, 0)}
+    assert got.dtype == torch.int32
+    assert torch.equal(got, td.rns_polymul_lanes(a, b, plan, mod_idx).int())
+
+
+def _view_at(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of x in a view that starts `offset` bytes past a 16-byte boundary."""
+    step = x.element_size()
+    flat = torch.zeros(x.numel() + 32 // step, dtype=x.dtype, device=x.device)
+    start = (-flat.data_ptr() % 16 + offset) // step
+    v = flat[start:start + x.numel()].view(x.shape)
+    v.copy_(x)
+    assert v.data_ptr() % 16 == offset and v.is_contiguous()
+    return v
+
+
+@pytest.mark.parametrize("logn", [8, 14, 15, 18])
+def test_rns32_odd_word_views_on_card(card, logn):
+    """F4 on the u32 RNS kernels: int32 operands and outputs 4, 8 and 12
+    bytes past a 16-byte boundary, and int64 ones 8 bytes past it, take
+    one-word accesses where 16-byte ones would be misaligned and agree
+    with the plain versions."""
+    plan = tg.RNSMergePlan.from_params(_u32_words_ladder(logn, 3), device=card)
+    midx = torch.tensor([2, 0, 1, 1, 0, 2], dtype=torch.int32, device=card)
+    x, w = _residues(plan, 6, logn, card), _residues(plan, 6, logn + 1, card)
+    x = x % torch.tensor(plan.qs, device=card)[midx.long()][:, None]
+    w = w % torch.tensor(plan.qs, device=card)[midx.long()][:, None]
+    fx, fw = hr32.rns_u32_fwd_plain(x, plan, midx), hr32.rns_u32_fwd_plain(w, plan, midx)
+    ix = hr32.rns_u32_inv_plain(x, plan, midx)
+    px = hr32.rns_u32_polymul_inv_plain(fx, fw, plan, midx)
+    for dtype, offsets in ((torch.int32, (4, 8, 12)), (torch.int64, (8,))):
+        for off in offsets:
+            xo = _view_at(x.to(dtype), off)
+            assert torch.equal(hr32.rns_u32_fwd(xo, plan, midx), fx.to(dtype)), (dtype, off)
+            assert torch.equal(hr32.rns_u32_inv(xo, plan, midx), ix.to(dtype)), (dtype, off)
+            got = hr32.rns_u32_polymul_inv(_view_at(fx.to(dtype), off), fw.to(dtype), plan,
+                                           midx)
+            assert torch.equal(got, px.to(dtype)), (dtype, off)
+
+
+def test_rns32_int32_traced_call_on_card(card, tmp_path):
+    """One traced rns_polymul_lanes call of the u32 HE cell's shape (480
+    rows of 2^15 on int32 lanes): three ntt.launch spans (forward,
+    forward, fused inverse), each with word 4, the route span's lanes
+    int32, and in the device trace six kernels of merge_u32.cu and no
+    copy, set or cast."""
+    import json
+
+    plan = tg.RNSMergePlan.from_params(_u32_words_ladder(15), device=card)
+    mod_idx = np.arange(480) % plan.mod_count
+    a, b = (_residues(plan, 480, s, card).int() for s in (1, 2))
+    want = td.rns_polymul_lanes(a, b, plan, mod_idx)
+    torch.cuda.synchronize()
+    tracing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = td.rns_polymul_lanes(a, b, plan, mod_idx)
+        torch.cuda.synchronize()
+    spans = tracing.snapshot()["spans"]
+    assert [s["attrs"]["word"] for s in spans if s["name"] == "ntt.launch"] == [4, 4, 4]
+    assert [s["attrs"]["lanes"] for s in spans if s["name"] == "ntt.route"] == ["int32"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ops = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert len(ops) == 6 and all("merge_u32" in name for name in ops), ops
+    assert out.dtype == torch.int32 and torch.equal(out, want)
+
+
 # ------------------------------------------------------- the distributed path
 
 
@@ -1273,6 +1384,6 @@ def test_launch_spans_match_launch_counts_on_card(card):
     assert all(spans[s["parent"]]["name"] == "ntt.entry" for s in launch_spans)
     assert Counter(s["attrs"]["kernel"] for s in launch_spans) == {"rns_u64_polymul": 4}
     assert [s["attrs"] for s in spans if s["name"] == "ntt.route"] == [
-        {"plan": "hit", "schedule": "hit", "path": "hopper-rns"}] * 4
+        {"plan": "hit", "schedule": "hit", "path": "hopper-rns", "lanes": "int64"}] * 4
     assert tracing.split_ms(spans)["launch"] > 0
     assert all(torch.equal(out, want) for out in outs)

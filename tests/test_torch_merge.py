@@ -205,6 +205,7 @@ static EmuDim3 threadIdx = {0}, blockIdx = {0};
 alignas(16) static uint32_t emu_smem[1 << 16];  // the largest dynamic tiles, u32 ...
 alignas(16) static uint64_t emu_smem64[1 << 15];  // ... and u64
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 template <class T> inline T __ldg(const T* p) { return *p; }
 #define __global__
 #define __device__

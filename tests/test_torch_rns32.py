@@ -264,7 +264,7 @@ def test_wrappers_take_plain_versions_on_cpu_only():
         hr32.rns_u32_fwd(torch.empty((2, plan.n), dtype=torch.int64, device="meta"),
                          plan.to("meta"), midx.to("meta"))
     for bad_x, bad_m in ((x, midx.long()), (x, sched([1, 0, 1])), (x[:, :-1], midx),
-                         (x.to(torch.int32), midx), (x.t(), midx)):
+                         (x.to(torch.int16), midx), (x.t(), midx)):
         with pytest.raises(tg.NTTDispatchError):
             hr32.rns_u32_fwd(bad_x, plan, bad_m)
     u64 = tg.RNSMergePlan.from_params([tg.NTTParameters(12, tg.ReductionPolynomial.X_N_plus,

@@ -1,0 +1,318 @@
+"""The u32 RNS entries on int32 lanes (4-byte words), on the CPU.
+
+- ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes take int32 lanes on
+  a u32 ladder and return int32 equal, bit for bit, to their int64-lane
+  results narrowed: at logn 8-17 (K16's range) and 18 (K6's), both
+  reduction polynomials, the cyclic and a permuted schedule.
+- rns_polymul_lanes on the benchmark's own ladder (portbench's
+  he_std128_n15_u32: 30 primes of 30 bits, each 1 mod 2^16) at logn 12,
+  60 rows, against portbench/reference/modpoly.polymul (plain PyTorch);
+  and one product against the JAX package's u32 RNS polymul on its
+  uint32 arrays.
+- merge_u32.cu's rns_u32_*_i32 entries, compiled by g++ through
+  test_torch_merge.py's host emulation under UBSan's alignment check,
+  against the int64-lane entries and the plain versions: views aligned
+  to 16 bytes and views 1-3 words past it (4 bytes each), and the int64
+  entries on views one word past it.
+- The engine route widens, runs and narrows; a u64 ladder refuses int32
+  lanes; the wrappers and rns_polymul_lanes, on the engine route too,
+  refuse mixed lanes; the `word` attr of ntt.launch spans and the
+  `lanes` attr of the RNS ntt.route span under a profiler.
+- The benchmark's he_n15_u32_polymul_stream at a CPU size: correct, and
+  its control is not.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gpuntt_tpu as jg
+import gpuntt_tpu_torch as tg
+from gpuntt_tpu_torch.common import tracing
+from gpuntt_tpu_torch.ops import dispatch as td
+from gpuntt_tpu_torch.ops import hopper_merge as hm
+from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+from portbench import harness
+from portbench.reference import modpoly, primes
+from test_torch_merge import _emulate  # the host emulation of csrc/
+
+torch.set_num_threads(2)
+
+MINUS, PLUS = tg.ReductionPolynomial.X_N_minus, tg.ReductionPolynomial.X_N_plus
+
+
+@pytest.fixture(autouse=True)
+def _clean_registry():
+    tracing.reset()
+    yield
+    tracing.reset()
+
+
+def members(pkg, logn, poly, qs):
+    return [pkg.NTTParameters(
+        logn, pkg.ReductionPolynomial(poly.value), np.uint32,
+        factors=pkg.NTTFactors(pkg.Modulus32(q), *primes.root_pair(q, logn))) for q in qs]
+
+
+def ladder(logn, poly, count=3, bits=30):
+    return tg.RNSMergePlan.from_params(
+        members(tg, logn, poly, primes.ntt_primes(bits, logn, count)), device="cpu")
+
+
+def residues(plan, mod_idx, seed):
+    """(rows, N) int64 lanes, row r canonical under modulus mod_idx[r]."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([rng.integers(0, plan.qs[m], plan.n)
+                                      for m in mod_idx]).astype(np.int64))
+
+
+# ------------------------------------------- int32 lanes against int64 lanes
+
+
+SCHEDULES = {"cyclic": [0, 1, 2, 0, 1, 2], "permuted": [2, 0, 1, 1, 2, 0]}
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("poly", [MINUS, PLUS])
+@pytest.mark.parametrize("logn", [*range(8, 18), 18])
+def test_int32_lanes_equal_int64_lanes_narrowed(logn, poly, schedule):
+    plan = ladder(logn, poly)
+    mod_idx = np.array(SCHEDULES[schedule])
+    assert td._rns_kernel_path(plan, (len(mod_idx), plan.n)) == "hopper-rns32"
+    a, b = residues(plan, mod_idx, logn), residues(plan, mod_idx, logn + 100)
+    a32, b32 = a.int(), b.int()
+    for fn in (td.ntt_rns_lanes, td.intt_rns_lanes):
+        got, want = fn(a32, plan, mod_idx), fn(a, plan, mod_idx)
+        assert got.dtype == torch.int32 and torch.equal(got, want.int()), fn.__name__
+    got = td.rns_polymul_lanes(a32, b32, plan, mod_idx)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, td.rns_polymul_lanes(a, b, plan, mod_idx).int())
+    k = hr32.tpu_kernel(logn)
+    assert hr32.FORWARD[k].plain_calls == 2 * 3 and hr32.POLYMUL_INVERSE[k].plain_calls == 2
+
+
+# ---------------------------------------- against the reference and the JAX package
+
+
+def test_polymul_on_the_benchmarks_ladder_equals_the_plain_reference():
+    """The configuration's 30 primes at logn 12 (each is 1 mod 2^16, so
+    has a 2^13-th root), 60 rows: two ciphertexts' worth, row r under
+    prime r mod 30."""
+    qs = harness.config("he_std128_n15_u32")["primes"]
+    logn, rows = 12, 60
+    plan = tg.RNSMergePlan.from_params(members(tg, logn, PLUS, qs), device="cpu")
+    mod_idx = np.arange(rows) % len(qs)
+    a, b = residues(plan, mod_idx, 1), residues(plan, mod_idx, 2)
+    got = td.rns_polymul_lanes(a.int(), b.int(), plan, mod_idx)
+    q = torch.tensor([qs[m] for m in mod_idx]).reshape(-1, 1)
+    psi = torch.tensor([primes.root_pair(qs[m], logn)[1] for m in mod_idx]).reshape(-1, 1)
+    want = modpoly.polymul(a, b, q, psi, True)
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+
+
+def test_polymul_on_int32_lanes_equals_the_jax_packages_u32_polymul():
+    logn, qs = 12, primes.ntt_primes(30, 12, 3)
+    jplan = jg.RNSMergePlan.from_params(members(jg, logn, MINUS, qs))
+    plan = tg.RNSMergePlan.from_params(members(tg, logn, MINUS, qs), device="cpu")
+    mod_idx = np.arange(5) % 3
+    x = residues(plan, mod_idx, 3).numpy().astype(np.uint32)
+    y = residues(plan, mod_idx, 4).numpy().astype(np.uint32)
+    want = np.asarray(jg.rns_polymul(x, y, jplan))
+    got = td.rns_polymul_lanes(torch.from_numpy(x.view(np.int32)),
+                               torch.from_numpy(y.view(np.int32)), plan, mod_idx)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+# ------------------------------------------------ the CUDA source, emulated
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    """merge_u32.cu emulated under UBSan's alignment check: a 16-byte
+    access at an address that is not 16-byte aligned reports itself on
+    stderr."""
+    return _emulate(tmp_path_factory, "merge_u32", ("-fsanitize=alignment",))
+
+
+def _entry(lib, entry, plan, midx, shift, *xs, y):
+    table = hm32.packed_tables(plan)[int(not entry.startswith("rns_u32_forward"))]
+    rc = getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
+                             plan.logn, hm32.split(plan.logn), midx.data_ptr(), midx.numel(),
+                             shift, table.data_ptr(), plan.consts.data_ptr(), int(plan.xnp),
+                             None)
+    assert rc == 0, entry
+    return y
+
+
+def _at(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of x in a view that starts `offset` bytes past a 16-byte
+    boundary."""
+    step = x.element_size()
+    flat = torch.zeros(x.numel() + 32 // step, dtype=x.dtype)
+    start = (-flat.data_ptr() % 16 + offset) // step
+    v = flat[start:start + x.numel()].view(x.shape)
+    v.copy_(x)
+    assert v.data_ptr() % 16 == offset
+    return v
+
+
+@pytest.mark.parametrize("logn,poly", [(8, PLUS), (14, MINUS), (15, PLUS), (18, MINUS)])
+def test_source_emulated_int32_entries(emu, capfd, logn, poly):
+    """The three rns_u32_*_i32 entries on canonical residues equal the
+    int64-lane entries and the plain versions, narrowed, on schedules of
+    one entry per ring and per two rings, with operands and outputs at
+    every 4-byte offset from a 16-byte boundary (one launch over whole
+    rings at logn 8, a column and a row launch above); the int64-lane
+    entries on views one word (8 bytes) past it agree too."""
+    plan = ladder(logn, poly)
+    for midx, shift in ((torch.tensor([2, 0, 1, 1], dtype=torch.int32), 0),
+                        (torch.tensor([1, 2], dtype=torch.int32), 1)):
+        rows = midx.numel() << shift
+        sched = hr32._row_schedule(midx, shift).numpy()
+        x, w = residues(plan, sched, logn), residues(plan, sched, logn + 1)
+        fx = hr32.rns_u32_fwd_plain(x, plan, midx, shift)
+        fw = hr32.rns_u32_fwd_plain(w, plan, midx, shift)
+        want = {"rns_u32_forward": (fx, (x,)),
+                "rns_u32_inverse": (hr32.rns_u32_inv_plain(x, plan, midx, shift), (x,)),
+                "rns_u32_polymul_inverse": (hr32.rns_u32_polymul_inv_plain(fx, fw, plan, midx,
+                                                                          shift), (fx, fw))}
+        for entry, (out, ins) in want.items():
+            for k, off in enumerate((0, 4, 8, 12)):
+                xs = [_at(v.int(), (off + 4 * j) % 16) for j, v in enumerate(ins)]
+                y = _at(torch.empty((rows, plan.n), dtype=torch.int32), (16 - off) % 16)
+                got = _entry(emu, entry + "_i32", plan, midx, shift, *xs, y=y)
+                assert torch.equal(got, out.int()), (entry, off)
+            xs = [_at(v, 8 * j) for j, v in enumerate(ins)]
+            y = _at(torch.empty((rows, plan.n), dtype=torch.int64), 8)
+            assert torch.equal(_entry(emu, entry, plan, midx, shift, *xs, y=y), out), entry
+    err = capfd.readouterr().err
+    assert "misaligned" not in err, err
+
+
+def test_source_emulated_int32_entries_refuse_bad_schedules(emu):
+    plan = ladder(12, PLUS, 2)
+    x = torch.zeros((4, plan.n), dtype=torch.int32)
+    midx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    for entries, shift in ((3, 0), (3, 1), (0, 2)):  # 3 or 6 rings named for 4 rows, or none
+        rc = emu.rns_u32_forward_i32(0, x.data_ptr(), x.data_ptr(), 4, 12, hm32.split(12),
+                                     midx.data_ptr(), entries, shift,
+                                     hm32.packed_tables(plan)[0].data_ptr(),
+                                     plan.consts.data_ptr(), 1, None)
+        assert rc == 1  # cudaErrorInvalidValue
+
+
+# ------------------------------------------------ the engine and the refusals
+
+
+@pytest.mark.parametrize("case", ["logn 7", "q above 2^30"])
+def test_engine_route_widens_runs_and_narrows(case):
+    plan = ladder(7, PLUS) if case == "logn 7" else ladder(12, MINUS, 2, bits=31)
+    mod_idx = np.array([1, 0, 1])
+    assert td._rns_kernel_path(plan, (3, plan.n)) == "engine"
+    a, b = residues(plan, mod_idx, 5), residues(plan, mod_idx, 6)
+    for fn in (td.ntt_rns_lanes, td.intt_rns_lanes):
+        got = fn(a.int(), plan, mod_idx)
+        assert got.dtype == torch.int32 and torch.equal(got, fn(a, plan, mod_idx).int())
+    got = td.rns_polymul_lanes(a.int(), b.int(), plan, mod_idx)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, td.rns_polymul_lanes(a, b, plan, mod_idx).int())
+    assert sum(k.plain_calls for k in hr32.KERNELS) == 0
+
+
+def test_u64_ladder_refuses_int32_lanes():
+    ms = [tg.NTTParameters(12, PLUS, np.uint64,
+                           factors=tg.NTTFactors(tg.Modulus64(q), *primes.root_pair(q, 12)))
+          for q in primes.ntt_primes(59, 12, 2)]
+    plan = tg.RNSMergePlan.from_params(ms, device="cpu")
+    a = torch.zeros((2, plan.n), dtype=torch.int32)
+    for call in (lambda: td.ntt_rns_lanes(a, plan, [0, 1]),
+                 lambda: td.intt_rns_lanes(a, plan, [0, 1]),
+                 lambda: td.rns_polymul_lanes(a, a, plan, [0, 1])):
+        with pytest.raises(tg.NTTDispatchError):
+            call()
+    td.rns_polymul_lanes(a.long(), a.long(), plan, [0, 1])  # int64 lanes still taken
+    with pytest.raises(tg.NTTDispatchError):  # and int32 refused on the route's hit too
+        td.rns_polymul_lanes(a, a, plan, [0, 1])
+    assert (tracing.COUNTERS["schedule.hit"], tracing.COUNTERS["schedule.miss"]) == (4, 1)
+
+
+def test_wrappers_refuse_mixed_lanes():
+    plan = ladder(12, PLUS, 2)
+    midx = torch.tensor([1, 0], dtype=torch.int32)
+    x = residues(plan, [1, 0], 7)
+    with pytest.raises(tg.NTTDispatchError):
+        hr32.rns_u32_polymul_inv(x, x.int(), plan, midx)
+    with pytest.raises(tg.NTTDispatchError):
+        td.rns_polymul_lanes(x.int(), x, plan, [1, 0])
+    assert hr32.rns_u32_fwd(x.int(), plan, midx).dtype == torch.int32
+
+
+@pytest.mark.parametrize("order", ["int32, int64", "int64, int32"])
+@pytest.mark.parametrize("case", ["logn 7", "q above 2^30"])
+def test_engine_route_refuses_mixed_lanes(case, order):
+    plan = ladder(7, PLUS) if case == "logn 7" else ladder(12, MINUS, 2, bits=31)
+    mod_idx = np.array([1, 0, 1])
+    assert td._rns_kernel_path(plan, (3, plan.n)) == "engine"
+    a = residues(plan, mod_idx, 9)
+    ops = (a.int(), a) if order == "int32, int64" else (a, a.int())
+    with pytest.raises(tg.NTTDispatchError):
+        td.rns_polymul_lanes(*ops, plan, mod_idx)
+    assert td.rns_polymul_lanes(a.int(), a.int(), plan, mod_idx).dtype == torch.int32
+
+
+# ------------------------------------------- the benchmark's cell, cut down
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["sound", "control"])
+def test_the_u32_cell_at_a_cpu_size(control):
+    """he_n15_u32_polymul_stream cut to portbench's tiny size (logn 12,
+    two primes, one ciphertext pair a call): a run of the port is
+    correct, and the control's, whose float product the entry reads at
+    float32, is not."""
+    import time
+
+    from portbench.control import Control
+    from portbench.tests import tiny
+
+    name = "he_n15_u32_polymul_stream"
+    spec = tiny.spec(name)
+    if control:
+        spec["entry"] = Control(spec["entry"], spec["config"], spec["traffic"])
+    rec = harness.execute(name, 2**31 + 29, 0.2, False, "cpu", time.perf_counter(), spec=spec)
+    assert rec["correct"] is not control, rec["check"]
+    assert rec["check"]["compared_calls"]["value"] >= 1 and rec["failed"] == 0
+    if control:
+        assert rec["check"]["mismatched_coefs"]["value"] > 0
+
+
+# ------------------------------------------------------------------- spans
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+def test_word_attr_on_launch_spans(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for dtype in (torch.int32, torch.int64):
+            hm._launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=dtype))
+    hm._launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=torch.int32))
+    spans = tracing.snapshot()["spans"]
+    assert [s["attrs"] for s in spans] == [{"kernel": hr32.FORWARD["K16"].name, "word": w}
+                                           for w in (4, 8)]
+    assert hr32.FORWARD["K16"].launches == 3
+
+
+def test_lanes_attr_on_the_rns_route_span():
+    plan = ladder(12, PLUS, 2)
+    a = residues(plan, [0, 1], 8)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for x in (a.int(), a, a.int()):
+            td.rns_polymul_lanes(x, x, plan, [0, 1])
+    routes = [s["attrs"] for s in tracing.snapshot()["spans"] if s["name"] == "ntt.route"]
+    assert [(r["lanes"], r["schedule"], r["path"]) for r in routes] == [
+        ("int32", "miss", "hopper-rns32"), ("int64", "hit", "hopper-rns32"),
+        ("int32", "hit", "hopper-rns32")]

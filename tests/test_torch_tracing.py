@@ -163,13 +163,16 @@ def test_plan_and_schedule_outcomes_first_call_repeat_and_a_new_schedule():
     plan = _rns_plan(device="cpu:0")
     a, b = _rns_operands(plan)
     first = _route_attrs(td.rns_polymul_lanes, a, b, plan, np.arange(3) % 3)
-    assert first == [{"plan": "move", "schedule": "miss", "path": "hopper-rns"}]
+    assert first == [{"plan": "move", "schedule": "miss", "path": "hopper-rns",
+                    "lanes": "int64"}]
     assert tracing.COUNTERS["plan_to.move"] == 1 and tracing.COUNTERS["schedule.miss"] == 1
     again = _route_attrs(td.rns_polymul_lanes, a, b, plan, np.arange(3) % 3)
-    assert again == [{"plan": "hit", "schedule": "hit", "path": "hopper-rns"}]
+    assert again == [{"plan": "hit", "schedule": "hit", "path": "hopper-rns",
+                    "lanes": "int64"}]
     assert tracing.COUNTERS["plan_to.hit"] == 1 and tracing.COUNTERS["schedule.hit"] == 1
     new = _route_attrs(td.ntt_rns_lanes, a, plan, np.array([2, 0, 1]))
-    assert new == [{"plan": "hit", "schedule": "miss", "path": "hopper-rns"}]
+    assert new == [{"plan": "hit", "schedule": "miss", "path": "hopper-rns",
+                  "lanes": "int64"}]
     p = tg.NTTParameters(LOGN, tg.ReductionPolynomial.X_N_plus, np.uint64)
     merge = tg.MergePlan.from_params(p, device="cpu:0")
     x = a[:1].contiguous()
@@ -196,8 +199,8 @@ def test_launch_span_comes_from_launch(monkeypatch):
             hm._launch(hm.INVERSE, lambda *args: 700, x)
     spans = tracing.snapshot()["spans"]
     assert [(s["name"], s["attrs"], s["parent"]) for s in spans] == [
-        ("ntt.launch", {"kernel": hm.FORWARD.name}, None),
-        ("ntt.launch", {"kernel": hm.INVERSE.name}, None)]
+        ("ntt.launch", {"kernel": hm.FORWARD.name, "word": 8}, None),
+        ("ntt.launch", {"kernel": hm.INVERSE.name, "word": 8}, None)]
     assert all(s["end_ns"] is not None for s in spans)
     assert len(calls) == 1 and calls[0][1:3] == (1, 2)
     assert (hm.FORWARD.launches, hm.INVERSE.launches) == (1, 0)
