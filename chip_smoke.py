@@ -64,8 +64,10 @@ at once) and runs, on the card:
    (4-byte word) instances, their launch counts read around the entries:
    K6's at 2^20 x 16, and K16's at the u32 HE cell's call, 2^15 x 480 on
    portbench's 30-prime ladder of 30 bits, against the plain versions,
-   the int64 lanes narrowed and, two rows, NTTCPU; the kernels' (each
-   instance's, the int32 bounds on 4-byte words) and the entries'
+   the int64 lanes narrowed and, two rows, NTTCPU, one kernel a
+   transform in the device trace, and the same outputs at the split of
+   two launches a transform (log A 2); the kernels' (each instance's,
+   the int32 bounds on 4-byte words), the entries' and the old split's
    CUDA-event times;
 22-25. the distributed path (`dist_phase`) at world size 1 on NCCL (a
    HashStore, no network): the dist 4-step at u64 and u32 2^24 x 1
@@ -194,6 +196,48 @@ def recorders(err, times, bounds):
         return ms
 
     return same, timed, e2e
+
+
+def device_kernels(fn) -> list:
+    """The names of the kernels, copies and sets that one call of fn puts
+    on the card, read from a torch.profiler trace."""
+    import tempfile
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def old_split(entry: str, plan, midx, *xs):
+    """merge_u32.cu's int32-lane RNS entry `entry` at logn 15 with the split
+    it took before whole rings went on chip (log A 2: a column launch and a
+    row launch a transform), called directly on the current stream."""
+    import ctypes
+
+    import torch
+
+    from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
+    from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+
+    y = torch.empty_like(xs[0])
+    table = hm32.packed_tables(plan)[int(entry != "rns_u32_forward")]
+    rc = getattr(hr32._lib(), entry + "_i32")(
+        xs[0].device.index, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
+        plan.logn, 2, midx.data_ptr(), midx.numel(), 0, table.data_ptr(),
+        plan.consts.data_ptr(), int(plan.xnp),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise AssertionError(f"{entry}_i32 at log A 2: cudaError_t {rc}")
+    return y
 
 
 def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
@@ -694,6 +738,18 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     p30_64 = td.rns_polymul_lanes(a30.long(), b30.long(), plan30, cyc30)
     check(p30_64.dtype == torch.int64 and torch.equal(p30_64.int(), p30),
           f"{cell30} product == the int64 lanes' narrowed")
+    # one kernel a transform (a whole ring on a cluster of two blocks), and
+    # the same outputs at the split of two launches a transform (log A 2)
+    for name, fn in ((F16, lambda: hr32.rns_u32_fwd(a30, plan30, midx30)),
+                     (I16, lambda: hr32.rns_u32_inv(f30, plan30, midx30)),
+                     (P16, lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30))):
+        ops = device_kernels(fn)
+        check(len(ops) == 1 and "cluster_ring" in ops[0],
+              f"{name}_i32 at {cell30}: one kernel a transform ({ops})")
+    check(torch.equal(old_split("rns_u32_forward", plan30, midx30, a30), f30) and
+          torch.equal(old_split("rns_u32_polymul_inverse", plan30, midx30, f30, f30),
+                      hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30)),
+          f"{cell30} forward and fused inverse == theirs at log A 2 (two launches)")
     for r in (0, 479):
         gen = g.NTTCPU(ms30[r % 30])
         check(np.array_equal(u32(p30[r]), gen.intt(gen.mult(gen.ntt(a30_np[r]),
@@ -754,6 +810,14 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     timed(f"{P16}_i32", lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30),
           lambda: hr32.rns_u32_polymul_inv_plain(f30, f30, plan30, midx30),
           bound_ms(480, 15, 2, 3, 4), cell30)
+    for what, fn in (
+            (f"{F16}_i32 at log A 2 (two launches)",
+             lambda: old_split("rns_u32_forward", plan30, midx30, a30)),
+            (f"{I16}_i32 at log A 2 (two launches)",
+             lambda: old_split("rns_u32_inverse", plan30, midx30, f30)),
+            (f"{P16}_i32 at log A 2 (two launches)",
+             lambda: old_split("rns_u32_polymul_inverse", plan30, midx30, f30, f30))):
+        e2e(f"{what} {cell30}", fn)
     a30_64, f30_64 = a30.long(), f30.long()
     for what, fn in (
             (f"{F16} on int64 lanes", lambda: hr32.rns_u32_fwd(a30_64, plan30, midx30)),

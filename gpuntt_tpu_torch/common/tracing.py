@@ -34,7 +34,9 @@ records, a span site reads the flag and does nothing more.
     ntt.launch  hopper_merge._launch, the one function every C entry
                 passes through: the stream lookup, the call and its
                 return code (attrs: kernel; word, the bytes of the
-                operand's words in device memory, 4 or 8)
+                operand's words in device memory, 4 or 8; on the
+                merge_u32.cu entries passes, the passes over device
+                memory a transform of the launch takes, 1 or 2)
 
 An entry's self time, its duration less its children's, is the work
 that is neither route nor launch: the wrappers' checks, allocations,

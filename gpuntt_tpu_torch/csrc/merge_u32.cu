@@ -50,14 +50,43 @@
 //     K6's factored W need no pass of their own.
 // The inverse runs rows first, then columns, then n^-1.
 //
-// Split rule (one rule for logn 8-25; hopper_merge32.split mirrors it):
-//   B = 2^min(logn, 13) up to logn 22, B = 2^15 for logn 23-25; A = N / B;
-//   the tile holds W = max(B, 2^13) u32 words: 32 KiB up to logn 22,
-//   128 KiB above, as dynamic shared memory (cudaFuncSetAttribute past
-//   48 KB).  logn <= 13 has A = 1: one launch over whole rings, 2^13 / N
-//   rings per block, with the reduce (and the n^-1 scaling) in that launch.
-//   logn 14-22: A = 2..512, C = 2^13 / A = 4096..16 columns.
+// Split rule (one rule for logn 7-25; hopper_merge32.split mirrors it):
+//   A = 1 up to logn 15: one launch over whole rings, one pass over device
+//   memory a transform, with the reduce (and the n^-1 scaling) in that
+//   launch.  Above, B = 2^13 up to logn 22, B = 2^15 for logn 23-25;
+//   A = N / B; the tile holds W = max(B, 2^13) u32 words: 32 KiB up to
+//   logn 22, 128 KiB above, as dynamic shared memory (cudaFuncSetAttribute
+//   past 48 KB).
+//   logn <= 13: 2^13 / N rings a block (rows).
+//   logn 14-15: one ring a cluster of two blocks (cluster_ring), each
+//   block's tile half the ring (32 or 64 KiB), two blocks an SM.  A block
+//   holding a whole 128 KiB ring would leave its SM one block, whose
+//   loads, passes and stores would not overlap another's: a forward at
+//   2^15 x 480 on 4-byte words took 0.188 ms so (0.158 with 512 threads),
+//   0.132 on the clusters; at 2^14 x 960, one ring a block (64 KiB, two
+//   blocks an SM) and the clusters time alike (0.111, 0.112 ms), the
+//   fused inverse 5% faster on the clusters.
+//   logn 16-22: A = 8..512, C = 2^13 / A = 1024..16 columns.
 //   logn 23-25: A = 256..1024, C = 128..32 columns.
+//
+// The clusters at logn 14-15 (cluster_ring).  Block c of a ring's
+// cluster holds words [c N/2, (c + 1) N/2): row c of the ring's (2, N/2)
+// view.  The ring's stages 0-4 are one pass whose items (32 words N/32
+// apart) span both halves: forward, it reads x from device memory into
+// registers and writes each item's first 16 words to the first half's
+// tile and its last 16 to the second's, one of them the peer block's,
+// through distributed shared memory (cluster.map_shared_rank); one
+// cluster barrier later, stages 5-9 and 10 .. logn - 1 are passes local
+// to each half, and each block stores its half 16 bytes a lane.  The
+// inverse mirrors it: its half into the tile (with the fused product),
+// stages logn - 1 .. 10 and 9-5 locally, a cluster barrier, then stages
+// 4-0 reading both tiles and storing y, scaled by n^-1.  Two blocks an SM
+// (128 registers a thread), each a half of another ring, so one ring's
+// loads overlap another's passes.  The bound: a forward at 2^15 x 480 on
+// 4-byte words must read and write 126 MB (0.038 ms at 3.35 TB/s); it
+// takes 0.131 ms, of which the twiddle table's reads (8 bytes an entry,
+// the modulus's whole table a ring, each lane its own subtree in the last
+// pass) are about 30%, distributed shared memory 5%.
 //
 // What bounds a launch, and the design.  A transform at 2^20 x 16 must
 // read and write its batch once, 256 MiB of int64 lanes (0.080 ms at
@@ -98,8 +127,8 @@
 //     (and the engine) hold them where they split the network.
 //   - 128 registers a thread, 2 blocks an SM (__launch_bounds__): an
 //     item of 32 words and its 31 twiddles fit without spilling.
-// Tensor cores, TMA and clusters are not used: the work is integer
-// arithmetic on 32-bit words.
+// Tensor cores and TMA are not used: the work is integer arithmetic on
+// 32-bit words; clusters only at logn 14-15, for their shared memory.
 //
 // Lanes: every kernel keeps its tile in 32-bit words and is a template
 // over the word it reads and writes in device memory (Wide):
@@ -117,6 +146,7 @@
 // 512 KiB of packed table per modulus at 2^16 for X^N + 1, 4 MiB for a
 // ladder of 8, which L2 (50 MB) holds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -127,12 +157,16 @@
 namespace merge_u32 {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kLogTile = 13;       // log2 words of the smallest tile (32 KiB)
 constexpr int kLogTileLarge = 15;  // log2 words of the largest tile (128 KiB)
 constexpr int kRadix = 5;          // log2 words of an item of a pass inside the tile
 constexpr int kPad = 5;            // one spare tile word after every 2^kPad
 constexpr int kBlocks = 2;         // blocks an SM holds (128 registers a thread)
+constexpr int kCluster = 2;        // blocks a ring takes from 2^kLogCluster words on
+constexpr int kLogCluster = 14;    // log2 words of the least ring a cluster holds
 
 // Words of a padded tile that holds 2^logw words.
 __host__ __device__ inline int padded_words(int logw) {
@@ -183,6 +217,18 @@ struct ColGeo {
   }
 };
 
+// The items of a pass over a whole ring held by a cluster: those of
+// a ring's row pass (logA 0), block c taking the c-th share of them.
+struct CrossGeo {
+  RowGeo ring;
+  int c;
+  __device__ __forceinline__ int items(int r) const { return ring.items(r) / kCluster; }
+  template <int kR>
+  __device__ __forceinline__ Item item(int k, int l0) const {
+    return ring.template item<kR>(k + c * items(kR), l0);
+  }
+};
+
 // The tile in shared memory, padded (radix::padded).
 struct Tile {
   uint32_t* s;
@@ -199,6 +245,43 @@ struct Tile {
     for (int kk = 0; kk < kN; ++kk) b[radix::padded_step<kPad>(kk, it.S)] = v[kk];
   }
 };
+
+// A ring's two halves in the padded tiles of its cluster's blocks, lo
+// holding words [0, N/2) and hi the rest (one of them the block's own
+// tile, the other its peer's): an item of the ring's stages 0 .. r - 1
+// (words N / 2^r apart) has its first 2^(r-1) words in lo and its last
+// in hi, at the same offsets.
+struct Halves {
+  uint32_t* lo;
+  uint32_t* hi;
+  template <int kN>
+  __device__ __forceinline__ void get(const Item& it, uint32_t (&v)[kN]) const {
+    const uint32_t* a = lo + radix::padded<kPad>(it.p);
+    const uint32_t* b = hi + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN / 2; ++kk) {
+      v[kk] = a[radix::padded_step<kPad>(kk, it.S)];
+      v[kk + kN / 2] = b[radix::padded_step<kPad>(kk, it.S)];
+    }
+  }
+  template <int kN>
+  __device__ __forceinline__ void put(const Item& it, const uint32_t (&v)[kN]) const {
+    uint32_t* a = lo + radix::padded<kPad>(it.p);
+    uint32_t* b = hi + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN / 2; ++kk) {
+      a[radix::padded_step<kPad>(kk, it.S)] = v[kk];
+      b[radix::padded_step<kPad>(kk, it.S)] = v[kk + kN / 2];
+    }
+  }
+};
+
+// The halves of the ring of block c of `cluster`, the block's tile smem.
+__device__ __forceinline__ Halves halves(const cg::cluster_group& cluster, uint32_t* smem,
+                                         int c) {
+  uint32_t* peer = cluster.map_shared_rank(smem, c ^ 1);
+  return c ? Halves{peer, smem} : Halves{smem, peer};
+}
 
 // Whether a 16-byte access at p is aligned.
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -470,8 +553,55 @@ rows(const W* x, const W* b, W* y, int total_rows, int logA, int logB, int log_r
   tile_out(Out<kFwd, W>{y + off, fs.at(ring), scale}, geo, smem);
 }
 
+// Whole rings from 2^kLogCluster words on (logA = 0; see the note at the
+// top): block c of a ring's cluster holds half c in its tile, row c of
+// the ring's (2, N/2) view, whose local stage l is the ring's l + 1.
+// Forward: reduce on load, canonical residues on store.  Inverse: kMul's
+// product and the reduce on load, n^-1 on store.  x may equal y: every
+// word is read before the cluster barrier that precedes its write.
+template <bool kFwd, bool kMul, class W, class F>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBlocks)
+cluster_ring(const W* x, const W* b, W* y, int logn, F fs, int xnp) {
+  extern __shared__ uint32_t smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank(), logH = logn - 1;
+  const size_t ring = blockIdx.x / kCluster, off = ring << logn;
+  const Ring f = fs.at(ring);
+  const CrossGeo cross{RowGeo{0, logn, 0, 1, xnp}, c};
+  const RowGeo local{1, logH, c, 1, xnp};
+  const GlobalTw tw{f.tw};
+  const Lazy ar{f.q, 2 * f.q};
+  const Tile t{smem};
+  const int last = logn - 2 * kRadix;  // stages in the pass of 10 .. logn - 1
+  if (kFwd) {
+    cluster.sync();  // the peer's tile is there to be written
+    pass<kRadix, true>(cross, 0, In<false, W>{x + off, nullptr, f, 1},
+                       halves(cluster, smem, c), tw, ar);
+    cluster.sync();
+    pass<kRadix, true>(local, kRadix - 1, t, t, tw, ar);
+    __syncthreads();
+    pass_r<true>(last, local, 2 * kRadix - 1, t, t, tw, ar);
+    __syncthreads();
+    tile_out(Out<true, W>{y + off + ((size_t)c << logH), f, 0}, local, smem);
+  } else {
+    const size_t half = off + ((size_t)c << logH);
+    tile_in(In<kMul, W>{x + half, kMul ? b + half : nullptr, f, 1}, local, smem);
+    __syncthreads();
+    pass_r<false>(last, local, 2 * kRadix - 1, t, t, tw, ar);
+    __syncthreads();
+    pass<kRadix, false>(local, kRadix - 1, t, t, tw, ar);
+    cluster.sync();
+    pass<kRadix, false>(cross, 0, halves(cluster, smem, c), Out<false, W>{y + off, f, 1}, tw,
+                        ar);
+    cluster.sync();  // the peer reads this block's tile until here
+  }
+}
+
 // log2 words of a block's tile for rows of 2^logB words.
 int tile_log(int logB) { return logB > kLogTile ? logB : kLogTile; }
+
+// Whether a transform of this split runs on the clusters (cluster_ring).
+bool clustered(int logn, int logA) { return logA == 0 && logn >= kLogCluster; }
 
 // Shapes the tiles cover: rows of 2^6 to 2^15 words (two passes at
 // least), and a column tile of whole columns that is no wider than a row.
@@ -482,7 +612,8 @@ bool shape_ok(long long batch, int logn, int logA) {
   if (logA > 0 && (logA > logW || logW > logn)) return false;
   // every row index and grid size fits an int
   return batch < (1LL << 31) && (batch << logA) < (1LL << 31) &&
-         ((batch << logn) >> logW) < (1LL << 31);
+         ((batch << logn) >> logW) < (1LL << 31) &&
+         (!clustered(logn, logA) || batch * kCluster < (1LL << 31));
 }
 
 int grid_cols(long long batch, int logn, int logA) {
@@ -521,6 +652,18 @@ int launch_status() {
   return e == cudaSuccess ? 0 : (int)e;
 }
 
+// A whole-ring transform on the clusters: kMul, INTT(x o b); otherwise
+// NTT(x) (kFwd) or INTT(x), b unused.
+template <bool kFwd, bool kMul, class W, class F>
+int ring_launch(const W* x, const W* b, W* y, long long batch, int logn, F f, int xnp,
+                cudaStream_t st) {
+  const int bytes = 4 * padded_words(logn - 1);
+  if (int rc = fit_smem(cluster_ring<kFwd, kMul, W, F>, bytes)) return rc;
+  cluster_ring<kFwd, kMul, W, F><<<(int)(batch * kCluster), kThreads, bytes, st>>>(
+      x, b, y, logn, f, xnp);
+  return launch_status();
+}
+
 // Check the shape and select the card; 0 or a cudaError_t.
 int begin(int device, long long batch, int logn, int logA) {
   if (!shape_ok(batch, logn, logA)) return (int)cudaErrorInvalidValue;
@@ -535,6 +678,8 @@ bool schedule_ok(long long batch, long long entries, int shift) {
 template <class W, class F>
 int forward(const W* x, W* y, long long batch, int logn, int logA, F f, int xnp,
             cudaStream_t st) {
+  if (clustered(logn, logA))
+    return ring_launch<true, false, W>(x, nullptr, y, batch, logn, f, xnp, st);
   const int logB = logn - logA, logW = tile_log(logB);
   if (logA > 0) {
     const int bytes = col_bytes(logW, logA);
@@ -555,6 +700,8 @@ int forward(const W* x, W* y, long long batch, int logn, int logA, F f, int xnp,
 template <bool kMul, class W, class F>
 int inverse(const W* a, const W* b, W* y, long long batch, int logn, int logA, F f, int xnp,
             cudaStream_t st) {
+  if (clustered(logn, logA))
+    return ring_launch<false, kMul, W>(a, b, y, batch, logn, f, xnp, st);
   const int logB = logn - logA, logW = tile_log(logB);
   const int log_rows = rows_log(logA, logB, f), bytes = 4 * padded_words(logB + log_rows);
   if (int rc = fit_smem(rows<false, kMul, W, F>, bytes)) return rc;

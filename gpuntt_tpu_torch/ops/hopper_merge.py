@@ -146,15 +146,20 @@ def _check(name: str, plan: MergePlan, *xs: torch.Tensor) -> None:
         raise NTTDeviceError(f"no merge_u64 kernel for {xs[0].device}")
 
 
-def _launch(stats: KernelStats, fn, x: torch.Tensor, *args, kernel: str | None = None) -> None:
+def _launch(stats: KernelStats, fn, x: torch.Tensor, *args, kernel: str | None = None,
+            log_a: int | None = None) -> None:
     """Call the C entry `fn` on x's card and current stream, under an
     ntt.launch span whose `kernel` attr is `kernel` or the stats' name and
-    whose `word` attr is x's element size in bytes (4 or 8); one launch
-    more for `stats` once it returns 0."""
+    whose `word` attr is x's element size in bytes (4 or 8), and, given
+    the split's `log_a`, whose `passes` attr is the passes over device
+    memory a transform takes (1 for log A 0, else 2); one launch more for
+    `stats` once it returns 0."""
     span = tracing.begin(tracing.LAUNCH, "kernel", kernel or stats.name)
     try:
         if span:
             span.attrs["word"] = x.element_size()
+            if log_a is not None:
+                span.attrs["passes"] = 2 if log_a else 1
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.device.index, *args, ctypes.c_void_p(stream))
         if rc != 0:

@@ -14,10 +14,12 @@ serves them all:
 Each wrapper takes a contiguous (batch, N) int64 tensor of u32 values
 and a u32 MergePlan on the same device.  On a CPU tensor it runs the
 kernel's plain version, and only there; on a CUDA tensor it launches
-the kernel or raises.  A transform is one launch up to logn 13 and two
-above: the ring is viewed as an (A, B) matrix (`split`), the first
-log A stages run down its columns and the last log B along its rows,
-a tile of 2^13 words (2^15 from logn 23) in shared memory per block.
+the kernel or raises.  A transform is one launch up to logn 15 (whole
+rings in shared memory: a block's tile up to logn 13, the tiles of a
+cluster of two blocks at 14-15) and two above: the ring is viewed as an (A, B)
+matrix (`split`), the first log A stages run down its columns and the
+last log B along its rows, a tile of 2^13 words (2^15 from logn 23) in
+shared memory per block.
 Inside a launch the stages run as radix-32 passes in registers, with
 lazy butterflies, and read the plan's table packed with its Shoup
 companion, one 8-byte word per entry (`packed_tables`; see the note in
@@ -69,9 +71,12 @@ def tpu_kernel(logn: int) -> str:
 
 
 def split(logn: int) -> int:
-    """log A of the (A, B) view: B = 2^min(logn, 13) up to logn 22, 2^15
-    above (merge_u32.cu's split rule)."""
-    return logn - min(logn, 13 if logn <= 22 else 15)
+    """log A of the (A, B) view (merge_u32.cu's split rule): 0 up to logn
+    15, where a whole ring of 32-bit words fits on chip (one block's tile
+    up to logn 13, a cluster of two blocks' tiles at 14-15), so a transform
+    is one launch and one pass over device memory; B = 2^13 up to logn 22,
+    2^15 above."""
+    return 0 if logn <= 15 else logn - (13 if logn <= 22 else 15)
 
 
 def covers(plan: MergePlan) -> bool:
@@ -81,7 +86,7 @@ def covers(plan: MergePlan) -> bool:
 
 def takes(plan: MergePlan) -> bool:
     """Plans the kernels take: those `covers`, and the logn-7 rows of the
-    4-step (its 128-word rows; the tile holds whole rings up to logn 13)."""
+    4-step (its 128-word rows; a launch takes whole rings up to logn 15)."""
     return not plan.is64 and plan.q < (1 << 30) and 7 <= plan.logn <= 25
 
 
@@ -168,10 +173,10 @@ def forward(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tenso
     if x.device.type == "cpu":
         stats.plain_calls += 1
         return merge_u32_fwd_plain(x, plan)
-    y = torch.empty_like(x)
+    y, log_a = torch.empty_like(x), split(plan.logn)
     _launch(stats, _lib().merge_u32_forward, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, split(plan.logn), packed_tables(plan)[0].data_ptr(),
-            plan.q, (1 << 32) // plan.q, int(plan.xnp))
+            x.shape[0], plan.logn, log_a, packed_tables(plan)[0].data_ptr(),
+            plan.q, (1 << 32) // plan.q, int(plan.xnp), log_a=log_a)
     return y
 
 
@@ -181,10 +186,11 @@ def inverse(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tenso
     if x.device.type == "cpu":
         stats.plain_calls += 1
         return merge_u32_inv_plain(x, plan)
-    y = torch.empty_like(x)
+    y, log_a = torch.empty_like(x), split(plan.logn)
     _launch(stats, _lib().merge_u32_inverse, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, split(plan.logn), packed_tables(plan)[1].data_ptr(),
-            plan.q, (1 << 32) // plan.q, plan.n_inv, plan.n_inv_shoup, int(plan.xnp))
+            x.shape[0], plan.logn, log_a, packed_tables(plan)[1].data_ptr(),
+            plan.q, (1 << 32) // plan.q, plan.n_inv, plan.n_inv_shoup, int(plan.xnp),
+            log_a=log_a)
     return y
 
 

@@ -21,9 +21,10 @@ The JAX package runs K16 up to logn 17 (pallas_mxu32.py:93) and splits a
 larger u32 ladder per modulus onto K6 (gpuntt_tpu/ops/dispatch.py:
 499-500), so the launches are counted per TPU kernel replaced, by the
 logn that served the call, as hopper_merge32.py counts them: under K16
-at logn 8-17, under K6 at 18-25.  A transform is one launch up to logn
-13 and two above (hopper_merge32.split); below logn 14 a row block holds
-only rings of one schedule entry (csrc/merge_u32.cu).
+at logn 8-17, under K6 at 18-25.  A transform is one launch and one pass
+over device memory up to logn 15 and two above (hopper_merge32.split);
+below logn 14 a row block holds only rings of one schedule entry, and
+at logn 14-15 a cluster of two blocks holds one ring (csrc/merge_u32.cu).
 
 Each wrapper takes contiguous (batch, N) tensors of u32 values on the
 plan's device, all int64 lanes or all int32 lanes (4-byte words, for
@@ -145,12 +146,12 @@ def _run(family: dict, plain, entry: str, plan: RNSMergePlan, midx, shift: int,
     if xs[0].device.type == "cpu":
         stats.plain_calls += 1
         return plain(*xs, plan, midx, shift)
-    y = torch.empty_like(xs[0])
+    y, log_a = torch.empty_like(xs[0]), hm32.split(plan.logn)
     _launch(stats, getattr(_lib(), entry + WORDS[xs[0].dtype]), xs[0],
             *(x.data_ptr() for x in xs), y.data_ptr(),
-            xs[0].shape[0], plan.logn, hm32.split(plan.logn), midx.data_ptr(), midx.numel(),
+            xs[0].shape[0], plan.logn, log_a, midx.data_ptr(), midx.numel(),
             shift, hm32.packed_tables(plan)[int(inverse)].data_ptr(), plan.consts.data_ptr(),
-            int(plan.xnp))
+            int(plan.xnp), log_a=log_a)
     return y
 
 

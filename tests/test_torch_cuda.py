@@ -18,7 +18,9 @@ edges of the register-pass kernels (the largest NTT prime below 2^62 or
 2^30) and operands that start at an odd word (K1-K3, K8, K12, and the
 u32 RNS kernels on int32 and int64 lanes); the u32 RNS entries on int32
 lanes against int64 lanes, and one traced int32 call's spans and device
-operations.
+operations; the whole-ring u32 kernels at logn 14-15 (a cluster of two
+blocks a ring) on the 30-prime ladder at batches 1-480, and the device
+kernels and the `passes` span attr of a u32 transform at logn 14-16.
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -886,13 +888,14 @@ def test_rns32_wrappers_refuse_on_card(card):
             hr32.rns_u32_fwd(bad_x, plan, bad_m)
 
 
-def _u32_words_ladder(logn, count=30):
+def _u32_words_ladder(logn, count=30, poly=tg.ReductionPolynomial.X_N_plus):
     """`count` 30-bit primes with a 2N-th root of unity (the port's search,
-    as portbench's he_std128_n15_u32 finds its 30 at logn 15), X^N + 1."""
+    as portbench's he_std128_n15_u32 finds its 30 at logn 15), X^N + 1 or
+    `poly`."""
     out = []
     for q in tg.find_ntt_primes(30, logn, count):
         omega, psi = tg.ntt_root_pair(q, logn)
-        out.append(tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_plus, np.uint32,
+        out.append(tg.NTTParameters(logn, poly, np.uint32,
                                     factors=tg.NTTFactors(tg.Modulus32(q), omega, psi)))
     return out
 
@@ -965,14 +968,79 @@ def test_rns32_odd_word_views_on_card(card, logn):
             assert torch.equal(got, px.to(dtype)), (dtype, off)
 
 
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("logn", [14, 15])
+def test_rns32_whole_ring_kernels_match_plain_on_card(card, logn, dtype, poly):
+    """The whole-ring kernels (a cluster of two blocks a ring, one launch
+    and one pass over device memory a transform) on a ladder of 30 primes
+    of 30 bits, the u32 HE cell's, against their plain versions: batches
+    of 1, 3 and 61 rings (a lone ring, batches that are no multiple of
+    anything) and the cell's 480, on int32 and int64 lanes."""
+    plan = tg.RNSMergePlan.from_params(_u32_words_ladder(logn, poly=poly), device=card)
+    for rows in (1, 3, 61, 480):
+        midx = (torch.arange(rows, dtype=torch.int32, device=card) % plan.mod_count).flip(0)
+        q = torch.tensor(plan.qs, device=card)[midx.long()][:, None]
+        x, w = ((_residues(plan, rows, rows + s, card) % q).to(dtype) for s in (0, 1))
+        fx, fw = hr32.rns_u32_fwd(x, plan, midx), hr32.rns_u32_fwd(w, plan, midx)
+        ix = hr32.rns_u32_inv(x, plan, midx)
+        px = hr32.rns_u32_polymul_inv(fx, fw, plan, midx)
+        torch.cuda.synchronize()
+        assert fx.dtype == ix.dtype == px.dtype == dtype
+        assert torch.equal(fx, hr32.rns_u32_fwd_plain(x, plan, midx)), rows
+        assert torch.equal(ix, hr32.rns_u32_inv_plain(x, plan, midx)), rows
+        assert torch.equal(px, hr32.rns_u32_polymul_inv_plain(fx, fw, plan, midx)), rows
+        assert torch.equal(hr32.rns_u32_inv(fx, plan, midx), x), rows
+
+
+def _device_ops(prof, tmp_path) -> list:
+    """The names of the kernels, copies and sets in a profile's device trace."""
+    import json
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+@pytest.mark.parametrize("logn,passes", [(14, 1), (15, 1), (16, 2)])
+def test_u32_launches_and_passes_per_transform_on_card(card, tmp_path, logn, passes):
+    """Under the profiler, each u32 transform (the RNS forward, inverse
+    and fused inverse on int32 lanes, and the single-modulus forward and
+    inverse) is `passes` kernels of merge_u32.cu on the card, one a pass
+    over device memory, and its ntt.launch span's `passes` attr reads the
+    same."""
+    plan = tg.RNSMergePlan.from_params(_u32_words_ladder(logn, 3), device=card)
+    midx = torch.tensor([2, 0, 1], dtype=torch.int32, device=card)
+    x = (_residues(plan, 3, logn, card) % torch.tensor(plan.qs, device=card)[
+        midx.long()][:, None])
+    one = tg.MergePlan.from_params(_u32_words_ladder(logn, 1)[0], device=card)
+    calls = {"rns_u32_fwd": lambda: hr32.rns_u32_fwd(x.int(), plan, midx),
+             "rns_u32_inv": lambda: hr32.rns_u32_inv(x.int(), plan, midx),
+             "rns_u32_polymul_inv": lambda: hr32.rns_u32_polymul_inv(x.int(), x.int(), plan,
+                                                                     midx),
+             "merge_u32_fwd": lambda: hm32.merge_u32_fwd(x, one),
+             "merge_u32_inv": lambda: hm32.merge_u32_inv(x, one)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        tracing.reset()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [s for s in tracing.snapshot()["spans"] if s["name"] == "ntt.launch"]
+        assert [s["attrs"]["passes"] for s in spans] == [passes], name
+        ops = [o for o in _device_ops(prof, tmp_path) if "merge_u32" in o]
+        assert len(ops) == passes, (name, ops)
+
+
 def test_rns32_int32_traced_call_on_card(card, tmp_path):
     """One traced rns_polymul_lanes call of the u32 HE cell's shape (480
     rows of 2^15 on int32 lanes): three ntt.launch spans (forward,
-    forward, fused inverse), each with word 4, the route span's lanes
-    int32, and in the device trace six kernels of merge_u32.cu and no
-    copy, set or cast."""
-    import json
-
+    forward, fused inverse), each with word 4 and passes 1, the route
+    span's lanes int32, and in the device trace three kernels of
+    merge_u32.cu, one a transform, and no copy, set or cast."""
     plan = tg.RNSMergePlan.from_params(_u32_words_ladder(15), device=card)
     mod_idx = np.arange(480) % plan.mod_count
     a, b = (_residues(plan, 480, s, card).int() for s in (1, 2))
@@ -984,13 +1052,11 @@ def test_rns32_int32_traced_call_on_card(card, tmp_path):
         out = td.rns_polymul_lanes(a, b, plan, mod_idx)
         torch.cuda.synchronize()
     spans = tracing.snapshot()["spans"]
-    assert [s["attrs"]["word"] for s in spans if s["name"] == "ntt.launch"] == [4, 4, 4]
+    assert [(s["attrs"]["word"], s["attrs"]["passes"]) for s in spans
+            if s["name"] == "ntt.launch"] == [(4, 1)] * 3
     assert [s["attrs"]["lanes"] for s in spans if s["name"] == "ntt.route"] == ["int32"]
-    path = tmp_path / "trace.json"
-    prof.export_chrome_trace(str(path))
-    ops = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
-           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    assert len(ops) == 6 and all("merge_u32" in name for name in ops), ops
+    ops = _device_ops(prof, tmp_path)
+    assert len(ops) == 3 and all("merge_u32" in name for name in ops), ops
     assert out.dtype == torch.int32 and torch.equal(out, want)
 
 

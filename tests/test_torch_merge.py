@@ -194,15 +194,21 @@ def test_plain_versions_reduce_any_input():
 
 _SHIM = """
 #pragma once
+#include <condition_variable>
 #include <cstdint>
 #include <cstddef>
+#include <mutex>
+#include <thread>
+#include <vector>
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct EmuDim3 { unsigned x; };
-static EmuDim3 threadIdx = {0}, blockIdx = {0};
-alignas(16) static uint32_t emu_smem[1 << 16];  // the largest dynamic tiles, u32 ...
+static thread_local EmuDim3 threadIdx = {0}, blockIdx = {0};
+constexpr int kEmuSmem = 1 << 16;  // words of the largest dynamic tiles, u32 ...
+alignas(16) static uint32_t emu_smem_main[kEmuSmem];
+static thread_local uint32_t* emu_smem = emu_smem_main;
 alignas(16) static uint64_t emu_smem64[1 << 15];  // ... and u64
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
@@ -213,6 +219,7 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __cluster_dims__(...)
 #define __restrict__
 inline void __syncthreads() {}
 inline unsigned long long __umul64hi(unsigned long long a, unsigned long long b) {
@@ -227,10 +234,62 @@ template <class K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSu
 template <class F> void emu_launch(long long grid, F f) {
   for (long long b = 0; b < grid; ++b) { blockIdx.x = (unsigned)b; f(); }
 }
+// A cluster: its blocks run at once, one host thread each, each with a
+// tile of its own; sync() is the cluster barrier.
+struct EmuCluster {
+  int size, waiting = 0;
+  long gen = 0;
+  std::vector<uint32_t*> smem;
+  std::mutex m;
+  std::condition_variable cv;
+  void sync() {
+    std::unique_lock<std::mutex> lock(m);
+    const long g = gen;
+    if (++waiting == size) {
+      waiting = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lock, [&] { return gen != g; });
+    }
+  }
+};
+static thread_local EmuCluster* emu_cluster = nullptr;
+static thread_local unsigned emu_rank = 0;
+namespace cooperative_groups {
+struct cluster_group {
+  void sync() const { emu_cluster->sync(); }
+  unsigned block_rank() const { return emu_rank; }
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {  // p in this block's tile
+    return reinterpret_cast<T*>(emu_cluster->smem[r] + (reinterpret_cast<uint32_t*>(p) -
+                                                        emu_cluster->smem[emu_rank]));
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+template <class F> void emu_launch_cluster(int size, long long grid, F f) {
+  std::vector<uint32_t> tiles((size_t)size * kEmuSmem + 4);
+  uint32_t* base = tiles.data() + (-(uintptr_t)tiles.data() % 16) / 4;  // 16-byte aligned
+  for (long long b0 = 0; b0 < grid; b0 += size) {
+    EmuCluster cl;
+    cl.size = size;
+    for (int r = 0; r < size; ++r) cl.smem.push_back(base + (size_t)r * kEmuSmem);
+    std::vector<std::thread> blocks;
+    for (int r = 0; r < size; ++r)
+      blocks.emplace_back([&, r] {
+        blockIdx.x = (unsigned)(b0 + r);
+        emu_cluster = &cl;
+        emu_rank = (unsigned)r;
+        emu_smem = cl.smem[r];
+        f();
+      });
+    for (auto& t : blocks) t.join();
+  }
+}
 """
 
 # library -> launch sites in its source
-_LAUNCHES = {"merge_u64": 2, "merge_u64_large": 4, "merge_u32": 4, "fourstep": 1,
+_LAUNCHES = {"merge_u64": 2, "merge_u64_large": 4, "merge_u32": 5, "fourstep": 1,
              "kmerge": 3, "probe": 1}
 
 
@@ -238,22 +297,28 @@ def _emulated_source(name: str) -> str:
     """csrc/<name>.cu with one thread per block (each thread-strided loop
     then visits every index in order, and a stage's butterflies are
     independent), dynamic shared memory one host array, and every
-    <<<grid, kThreads, bytes, st>>> launch a loop over blocks."""
+    <<<grid, kThreads, bytes, st>>> launch a loop over blocks; the
+    blocks of a kernel declared with __cluster_dims__(n, 1, 1) run n at
+    a time, one host thread each, sharing their tiles as a cluster."""
     with open(os.path.join(CSRC, name + ".cu")) as f:
         src = f.read()
     assert "constexpr int kThreads = 256;" in src
     src = src.replace("constexpr int kThreads = 256;", "constexpr int kThreads = 1;")
     src = src.replace("extern __shared__ uint32_t smem[];", "uint32_t* smem = emu_smem;")
     src = src.replace("extern __shared__ uint64_t smem[];", "uint64_t* smem = emu_smem64;")
-    launch = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
+    clusters = dict((k, n) for n, k in re.findall(
+        r"__cluster_dims__\((\w+), 1, 1\) __launch_bounds__\([^)]*\)\s+(\w+)\(", src))
+    launch = re.compile(r"(\w+)((?:<[\w, ]+>)?)<<<(.+?), kThreads, \w+, st>>>\(")
     out, i = [], 0
     while (m := launch.search(src, i)) is not None:
         j, depth = m.end(), 1
         while depth:
             depth += {"(": 1, ")": -1}.get(src[j], 0)
             j += 1
+        how = (f"emu_launch_cluster({clusters[m.group(1)]}, " if m.group(1) in clusters
+               else "emu_launch(")
         out += [src[i:m.start()],
-                f"emu_launch({m.group(2)}, [&] {{ {m.group(1)}({src[m.end():j]}; }})"]
+                f"{how}{m.group(3)}, [&] {{ {m.group(1)}{m.group(2)}({src[m.end():j]}; }})"]
         i = j
     assert len(out) == 2 * _LAUNCHES[name], f"expected {_LAUNCHES[name]} launches"
     return "".join(out) + src[i:]
@@ -265,12 +330,13 @@ def _emulate(tmp_path_factory, name: str, flags=()) -> ctypes.CDLL:
         pytest.skip("no g++ to compile the emulated kernels")
     d = tmp_path_factory.mktemp(f"emu_{name}")
     (d / "cuda_runtime.h").write_text(_SHIM)
+    (d / "cooperative_groups.h").write_text('#pragma once\n#include "cuda_runtime.h"\n')
     (d / f"{name}_emu.cpp").write_text(_emulated_source(name))
     for header in os.listdir(CSRC):
         if header.endswith(".cuh"):
             shutil.copy(os.path.join(CSRC, header), d)
     so = d / "libemu.so"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", *flags, f"-I{d}",
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", *flags, f"-I{d}",
                     "-o", str(so), str(d / f"{name}_emu.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
@@ -634,7 +700,8 @@ def test_cuda_source_k9_emulated_every_pass_split(emulated_fourstep, log1):
     (7, tg.ReductionPolynomial.X_N_plus, 5),    # rows of 2^7: passes of 2 and 5 stages
     (9, tg.ReductionPolynomial.X_N_minus, 3),   # rows of 2^9: 4 and 5
     (13, tg.ReductionPolynomial.X_N_plus, 2),   # rows of 2^13: 3, 5 and 5
-    (14, tg.ReductionPolynomial.X_N_minus, 2),  # columns of A = 2: one pass of 1
+    (14, tg.ReductionPolynomial.X_N_minus, 2),  # a ring on two blocks: passes of 5, 5, 4
+    (15, tg.ReductionPolynomial.X_N_plus, 3),   # a ring on two blocks: passes of 5, 5, 5
     (20, tg.ReductionPolynomial.X_N_plus, 1),   # columns of A = 128: 2 and 5
 ])
 def test_cuda_source_u32_emulated_lazy_edge(emulated32, logn, poly, batch):
@@ -683,7 +750,7 @@ def test_cuda_source_large_emulated_refuses_bad_shapes(emulated_large, entry, ar
     assert rc == 1  # cudaErrorInvalidValue
 
 
-U32_EMULATED = [(logn, poly, 2) for logn in (7, 8, 12, 16, 17, 18)
+U32_EMULATED = [(logn, poly, 2) for logn in (7, 8, 12, 14, 15, 16, 17, 18)
                 for poly in (tg.ReductionPolynomial.X_N_minus,
                              tg.ReductionPolynomial.X_N_plus)] + [
     (7, tg.ReductionPolynomial.X_N_minus, 130),  # the 4-step's rows of 128: 64 a block
@@ -696,8 +763,8 @@ U32_EMULATED = [(logn, poly, 2) for logn in (7, 8, 12, 16, 17, 18)
 def test_cuda_source_u32_emulated_matches_plain(emulated32, logn, poly, batch):
     """merge_u32.cu's two entries on any u32 word, at every tile shape of
     the split rule: one launch over whole rings (7, 8, 12; logn 7 is the
-    4-step's rows), the 32 KiB two-phase tiles (16-22) and the 128 KiB
-    one (23)."""
+    4-step's rows), one over whole rings on clusters of two blocks (14,
+    15), the 32 KiB two-phase tiles (16-22) and the 128 KiB one (23)."""
     p = tg.NTTParameters(logn, poly, np.uint32)
     plan = tg.MergePlan.from_params(p, device="cpu")
     x = torch.from_numpy(np.random.default_rng(logn).integers(

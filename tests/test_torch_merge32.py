@@ -216,8 +216,8 @@ def test_route_by_ring_size():
     assert not hm32.covers(dataclasses.replace(plan, logn=26))
     assert [hm32.tpu_kernel(n) for n in (8, 16, 17, 18, 25)] == \
         ["K4", "K4", "K5", "K6", "K6"]
-    assert [hm32.split(n) for n in (8, 13, 14, 16, 17, 20, 22, 23, 25)] == \
-        [0, 0, 1, 3, 4, 7, 9, 8, 10]
+    assert [hm32.split(n) for n in (8, 13, 14, 15, 16, 17, 20, 22, 23, 25)] == \
+        [0, 0, 0, 0, 3, 4, 7, 9, 8, 10]
 
 
 @pytest.mark.parametrize("bits,path", [(20, "hopper-merge32"), (30, "hopper-merge32"),

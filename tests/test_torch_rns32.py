@@ -216,12 +216,14 @@ def _entry(lib, entry, plan, midx, shift, *xs):
     return y
 
 
-@pytest.mark.parametrize("logn,poly", [(8, PLUS), (8, MINUS), (14, MINUS), (18, PLUS)])
+@pytest.mark.parametrize("logn,poly", [(8, PLUS), (8, MINUS), (14, MINUS), (14, PLUS),
+                                       (15, PLUS), (15, MINUS), (18, PLUS)])
 def test_source_emulated_matches_plain(emu, logn, poly):
     """The three rns_u32 entries on any u32 word against the plain
     versions: one entry per ring ([2, 0, 1, 1, 0, 2]: at logn 8 a tile of
     one modulus would hold 32 rings, so neighbouring rings of other
-    moduli must not share a block) and one per two rings."""
+    moduli must not share a block; at 14-15 each ring's cluster of two
+    blocks reads its own modulus) and one per two rings."""
     plan = tg.RNSMergePlan.from_params(members(tg, logn, poly, primes(logn, 3)),
                                        device="cpu")
     for midx, shift in ((sched([2, 0, 1, 1, 0, 2]), 0), (sched([1, 2, 0]), 1)):

@@ -13,11 +13,13 @@
   test_torch_merge.py's host emulation under UBSan's alignment check,
   against the int64-lane entries and the plain versions: views aligned
   to 16 bytes and views 1-3 words past it (4 bytes each), and the int64
-  entries on views one word past it.
+  entries on views one word past it; the whole-ring kernels of logn
+  14-15 (clusters of two blocks, each block a host thread) in place.
 - The engine route widens, runs and narrows; a u64 ladder refuses int32
   lanes; the wrappers and rns_polymul_lanes, on the engine route too,
-  refuse mixed lanes; the `word` attr of ntt.launch spans and the
-  `lanes` attr of the RNS ntt.route span under a profiler.
+  refuse mixed lanes; the `word` and `passes` attrs of ntt.launch spans,
+  portbench's one_pass_share, and the `lanes` attr of the RNS ntt.route
+  span under a profiler.
 - The benchmark's he_n15_u32_polymul_stream at a CPU size: correct, and
   its control is not.
 """
@@ -158,13 +160,15 @@ def _at(x: torch.Tensor, offset: int) -> torch.Tensor:
     return v
 
 
-@pytest.mark.parametrize("logn,poly", [(8, PLUS), (14, MINUS), (15, PLUS), (18, MINUS)])
+@pytest.mark.parametrize("logn,poly", [(8, PLUS), (14, MINUS), (14, PLUS), (15, PLUS),
+                                       (15, MINUS), (18, MINUS)])
 def test_source_emulated_int32_entries(emu, capfd, logn, poly):
     """The three rns_u32_*_i32 entries on canonical residues equal the
     int64-lane entries and the plain versions, narrowed, on schedules of
     one entry per ring and per two rings, with operands and outputs at
     every 4-byte offset from a 16-byte boundary (one launch over whole
-    rings at logn 8, a column and a row launch above); the int64-lane
+    rings at logn 8, one over whole rings held by clusters of two blocks
+    at 14 and 15, a column and a row launch at 18); the int64-lane
     entries on views one word (8 bytes) past it agree too."""
     plan = ladder(logn, poly)
     for midx, shift in ((torch.tensor([2, 0, 1, 1], dtype=torch.int32), 0),
@@ -187,6 +191,33 @@ def test_source_emulated_int32_entries(emu, capfd, logn, poly):
             xs = [_at(v, 8 * j) for j, v in enumerate(ins)]
             y = _at(torch.empty((rows, plan.n), dtype=torch.int64), 8)
             assert torch.equal(_entry(emu, entry, plan, midx, shift, *xs, y=y), out), entry
+    err = capfd.readouterr().err
+    assert "misaligned" not in err, err
+
+
+@pytest.mark.parametrize("poly", [MINUS, PLUS])
+@pytest.mark.parametrize("logn", [14, 15])
+def test_source_emulated_whole_ring_in_place(emu, capfd, logn, poly):
+    """The whole-ring kernels (a cluster of two blocks a ring) with the
+    output aliasing the input, x = y, on int32 and int64 lanes, in views
+    off a 16-byte boundary too: each block reads its words of the ring
+    before the cluster barrier that precedes any write of them."""
+    plan = ladder(logn, poly)
+    midx = torch.tensor([1, 2, 0], dtype=torch.int32)
+    x, w = residues(plan, [1, 2, 0], logn), residues(plan, [1, 2, 0], logn + 2)
+    fx = hr32.rns_u32_fwd_plain(x, plan, midx)
+    fw = hr32.rns_u32_fwd_plain(w, plan, midx)
+    want = {"rns_u32_forward": (fx, (x,)),
+            "rns_u32_inverse": (hr32.rns_u32_inv_plain(x, plan, midx), (x,)),
+            "rns_u32_polymul_inverse": (hr32.rns_u32_polymul_inv_plain(fx, fw, plan, midx),
+                                        (fx, fw))}
+    for entry, (out, ins) in want.items():
+        for suffix, dtype, off in (("_i32", torch.int32, 0), ("_i32", torch.int32, 4),
+                                   ("", torch.int64, 0), ("", torch.int64, 8)):
+            xs = [_at(v.to(dtype), off) for v in ins]
+            got = _entry(emu, entry + suffix, plan, midx, 0, *xs, y=xs[0])
+            assert got.data_ptr() == xs[0].data_ptr()
+            assert torch.equal(got, out.to(dtype)), (entry, dtype, off)
     err = capfd.readouterr().err
     assert "misaligned" not in err, err
 
@@ -304,6 +335,44 @@ def test_word_attr_on_launch_spans(monkeypatch):
     assert [s["attrs"] for s in spans] == [{"kernel": hr32.FORWARD["K16"].name, "word": w}
                                            for w in (4, 8)]
     assert hr32.FORWARD["K16"].launches == 3
+
+
+def test_passes_attr_on_launch_spans(monkeypatch):
+    """Given the split's log A, a launch span's `passes` attr is the
+    passes over device memory a transform of the launch takes: 1 up to
+    logn 15 (log A 0: a whole ring on chip), 2 above; a launch given no
+    split carries no such attr."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    x = torch.zeros(4, dtype=torch.int32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for logn in (8, 13, 14, 15, 16, 25):
+            hm._launch(hr32.FORWARD["K16"], lambda *args: 0, x, log_a=hm32.split(logn))
+        hm._launch(hr32.FORWARD["K16"], lambda *args: 0, x)
+    assert [s["attrs"].get("passes") for s in tracing.snapshot()["spans"]] == \
+        [1, 1, 1, 1, 2, 2, None]
+
+
+def test_one_pass_share_reads_the_calls_launch_spans():
+    """portbench's one_pass_share: the percent of the calls' launch spans
+    with passes 1, among those that carry the attr; None where none does
+    (a program without the attr) or no call was traced (the plain
+    versions on the host launch nothing)."""
+    share = harness.module("metrics", "one_pass_share")
+
+    def snap(*launches, calls=(0, 1)):
+        return {"spans": [*({"name": "ntt.entry", "call": c, "attrs": {}} for c in calls),
+                          *({"name": "ntt.launch", "call": c, "attrs": a} for c, a in launches)]}
+
+    one, two = {"word": 4, "passes": 1}, {"word": 4, "passes": 2}
+    assert share.of(snap((0, one), (0, one), (1, one))) == 100.0
+    assert share.of(snap((0, one), (1, two), (1, {"word": 8}), (2, two))) == 50.0
+    assert share.of(snap((0, {"word": 4}))) is None
+    assert share.of(snap((0, one), calls=())) is None
+    plan = ladder(12, PLUS, 2)
+    a = residues(plan, [0, 1], 8).int()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        td.rns_polymul_lanes(a, a, plan, [0, 1])
+    assert share.read({}) is None
 
 
 def test_lanes_attr_on_the_rns_route_span():
