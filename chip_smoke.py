@@ -226,11 +226,11 @@ def old_split(entry: str, plan, midx, *xs):
     import torch
 
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
-    from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+    from gpuntt_tpu_torch.ops import kernel
 
     y = torch.empty_like(xs[0])
     table = hm32.packed_tables(plan)[int(entry != "rns_u32_forward")]
-    rc = getattr(hr32._lib(), entry + "_i32")(
+    rc = getattr(kernel.library("merge_u32"), entry + "_i32")(
         xs[0].device.index, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
         plan.logn, 2, midx.data_ptr(), midx.numel(), 0, table.data_ptr(),
         plan.consts.data_ptr(), int(plan.xnp),

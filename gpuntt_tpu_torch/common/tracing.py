@@ -3,14 +3,15 @@
 Counters are always on:
 
 - each kernel's `KernelStats`, which registers itself here: `launches`
-  (every launch through ops/hopper_merge._launch) and `plain_calls`
-  (every plain-version call through the kernel's wrapper);
+  (every launch through ops/kernel.launch) and `plain_calls` (every
+  plain-version call through the kernel's wrapper, ops/kernel.call);
 - `COUNTERS`, plain integers: `plan_to.hit` / `plan_to.move` (a plan's
   `.to(device)` in MergePlan, RNSMergePlan and FourStepPlan returned
   the plan or a cached copy / built a copy), `schedule.hit` /
-  `schedule.miss` (the RNS entries' route memo, ops/dispatch._rns_route,
-  or the RNS 4-step's hopper_rns.schedule found what an earlier call
-  derived from the schedule / derived it).
+  `schedule.miss` (ops/rns.schedule_memo, the memo of the RNS entries'
+  routes, ops/dispatch._rns_route, and of the RNS 4-step's schedule
+  copies, found what an earlier call derived from the schedule / derived
+  it).
 
 Spans are recorded only while a torch.profiler session records
 (`recording()`, one read of the profiler's enabled flag).  A span then
@@ -31,7 +32,7 @@ records, a span site reads the flag and does nothing more.
                 (attrs: path; plan, hit or move; schedule, hit or miss:
                 whether the RNS route memo held the route; lanes, the RNS
                 operand's dtype, "int32" or "int64")
-    ntt.launch  hopper_merge._launch, the one function every C entry
+    ntt.launch  ops/kernel.launch, the one function every C entry
                 passes through: the stream lookup, the call and its
                 return code (attrs: kernel; word, the bytes of the
                 operand's words in device memory, 4 or 8; on the

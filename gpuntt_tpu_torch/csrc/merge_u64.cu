@@ -89,12 +89,13 @@
 //   - Occupancy: every instance is compiled for 4 blocks an SM (64
 //     registers a thread, 32 warps; the tiles take 34-36 KiB of shared
 //     memory a block), and none spills.
-// Measured against the alternatives (PERF.md section 6): 32 columns a
-// tile took 0-4% longer; an interleaved (w, ws) copy of the row tables
-// saved 0-3% of some launches for a second copy of every table, and
-// staging a block's row twiddles in shared memory cost 10-20%; 3 blocks
-// an SM (80 registers) took 2-6% longer (utils/merge_u64_variants.patch
-// restores these variants as -D options).
+// Measured against the alternatives (their times are in CHANGES.md, in
+// the entry of the K1-K3 redesign, and summed up in PERF.md section 6):
+// 32 columns a tile took 0-4% longer; an interleaved (w, ws) copy of the
+// row tables saved 0-3% of some launches for a second copy of every
+// table, and staging a block's row twiddles in shared memory cost
+// 10-20%; 3 blocks an SM (80 registers) took 2-6% longer.  The patch
+// that restored them as -D options is in the repository's history.
 // Tensor cores, TMA and clusters are not used: the work is 64-bit
 // integer arithmetic, which tensor cores do not do.
 

@@ -109,7 +109,7 @@ from . import hopper_rns as hr
 from . import hopper_rns32 as hr32
 from .merge_ntt import MergePlan, from_lanes, merge_intt_lanes, merge_ntt_lanes, to_lanes
 from .rns import (NTTScheduleError, RNSMergePlan, checked_schedule, per_modulus,
-                  rns_intt_lanes, rns_ntt_lanes)
+                  rns_intt_lanes, rns_ntt_lanes, schedule_memo)
 
 
 @dataclass(frozen=True)
@@ -307,7 +307,7 @@ def staged_ntt_lanes(x_lanes: torch.Tensor, plan: MergePlan,
     if (not x_lanes.is_cuda or not 24 <= plan.logn <= 28 or x_lanes.dim() != 2
             or not plan.genuine_root):
         return None
-    if plan.q >= (1 << (62 if plan.is64 else 30)) or (not plan.is64 and plan.logn > 25):
+    if not (hml.COLUMNS if plan.is64 else hm32.FAMILY).admits(plan.is64, plan.q, plan.logn):
         return None
     if signed_input:
         x_lanes = (bo.reduce_signed64(x_lanes, plan.q) if plan.is64
@@ -323,7 +323,7 @@ def staged_polymul_lanes(a_lanes: torch.Tensor, b_lanes: torch.Tensor, plan: Mer
     383-408): polymul_lanes at u64 logn 24-28 on the card, or None where
     that entry returns None (off the card, u32, q >= 2^62, another logn,
     a shape that is not 2-D, factors that are no root of unity)."""
-    if (not a_lanes.is_cuda or not plan.is64 or plan.q >= (1 << 62)
+    if (not a_lanes.is_cuda or not hml.COLUMNS.admits(plan.is64, plan.q, plan.logn)
             or not 24 <= plan.logn <= 28 or a_lanes.dim() != 2 or not plan.genuine_root):
         return None
     return polymul_lanes(a_lanes, b_lanes, plan)
@@ -465,17 +465,8 @@ def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
     span = tracing.begin(tracing.ROUTE)
     try:
         plan = plan.to(x.device)
-        memo = plan._lazy.setdefault("routes", {})
         key = (x.device, x.dim(), x.shape[0], np.asarray(mod_idx, dtype=np.int64).tobytes())
-        route = memo.get(key)
-        if route is None:
-            route = _routed(plan, x, mod_idx)
-            tracing.outcome("schedule.miss", "schedule", "miss")
-            if len(memo) >= 64:
-                memo.clear()
-            memo[key] = route
-        else:
-            tracing.outcome("schedule.hit", "schedule", "hit")
+        route = schedule_memo(plan, "routes", key, lambda: _routed(plan, x, mod_idx))
         if x.dtype == torch.int32 and plan.is64:
             raise NTTDispatchError("int32 lanes hold u32 words: a u64 ladder takes int64 lanes")
         if span:

@@ -49,7 +49,7 @@ from ..params.fourstep import NTTParameters4Step
 from ..params.merge import ReductionPolynomial
 from . import barrett as bo
 from . import hopper_fourstep as hf
-from .hopper_merge_large import _pows
+from .hopper_merge_large import pows
 from .limb import from_numpy_u64, signed
 from .merge_ntt import ButterflyOps, butterfly_ops, ct_stages, gs_stages
 
@@ -167,9 +167,9 @@ class FourStepPlan:
             log1, log2 = self.n1.bit_length() - 1, self.n2.bit_length() - 1
             q, word = self.q, 64 if self.is64 else 32
             brev = bitreverse_indices(log2)
-            wf = np.stack([_pows(pow(self.root, bitreverse(i, log1), q), q, self.n2)
+            wf = np.stack([pows(pow(self.root, bitreverse(i, log1), q), q, self.n2)
                            for i in range(self.n1)])
-            wi = np.stack([_pows(pow(self.iroot, i, q), q, self.n2)[brev]
+            wi = np.stack([pows(pow(self.iroot, i, q), q, self.n2)[brev]
                            for i in range(self.n1)])
             self._lazy["w"] = tuple(
                 from_numpy_u64(t, self.device)

@@ -34,7 +34,7 @@ from ..params.fourstep import NTTParameters4Step
 from . import hopper_fourstep as hf
 from . import hopper_rns as hr
 from .fourstep import FourStepPlan, _engine, transpose_lanes
-from .rns import checked_schedule, per_modulus
+from .rns import checked_schedule, per_modulus, schedule_memo
 
 
 @dataclass(frozen=True, eq=False)
@@ -49,7 +49,8 @@ class RNSFourStepPlan:
     members: tuple  # FourStepPlans
     device: torch.device
     _moved: dict = dataclasses.field(default_factory=dict, repr=False)
-    # lazily built: "kernel" (hopper_rns' K14 plan), "schedules" (device copies)
+    # lazily built: "kernel" (hopper_rns' K14 plan), "schedules" (device copies,
+    # rns.schedule_memo)
     _lazy: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -128,17 +129,20 @@ class RNSFourStepPlan:
 
 
 def covers(plan: RNSFourStepPlan) -> bool:
-    """Plans the RNS 4-step route sends to K14: u64, logn 14-23, every
-    member covered by the single-modulus 4-step kernels (q < 2^62, a
-    genuine root, rows with a kernel)."""
-    return plan.is64 and 14 <= plan.logn <= 23 and all(hf.covers(m) for m in plan.members)
+    """Plans the RNS 4-step route sends to K14 (`hopper_rns.K14.routes`:
+    u64, logn 14-23), every member covered by the single-modulus 4-step
+    kernels (q < 2^62, a genuine root, rows with a kernel)."""
+    return (hr.K14.covers(plan.is64, max(plan.qs), plan.logn)
+            and all(hf.covers(m) for m in plan.members))
 
 
 def _kernel_route(x: torch.Tensor, plan: RNSFourStepPlan, mod_idx, inverse: bool):
     if not covers(plan):
         return None
     x2 = x.reshape(-1, plan.n).contiguous()
-    midx = hr.schedule(plan, mod_idx, x.device)
+    key = (str(x.device), np.asarray(mod_idx, dtype=np.int64).tobytes())
+    midx = schedule_memo(plan, "schedules", key, lambda: torch.from_numpy(
+        np.asarray(mod_idx, dtype=np.int32)).to(x.device))
     return hr.rns_fourstep(x2, hr.fourstep_plan(plan), midx, inverse).reshape(x.shape)
 
 

@@ -35,11 +35,12 @@ words run, as the JAX route delegates them (pallas_mxu_4step.py:155-157,
 
 Each wrapper takes a contiguous int64 tensor and a plan on the same
 device.  On a CPU tensor it runs the kernel's plain version, and only
-there; on a CUDA tensor it launches the kernel or raises.  Every launch
-adds one to its kernel's `launches`, every plain-version call through a
-wrapper one to `plain_calls`; `tracing.reset()` zeroes both.
-`fourstep_plain` composes the plain versions alone, on any device, which
-is how the kernels are checked on the card.
+there; on a CUDA tensor it launches the kernel (through ops/kernel.py)
+or raises.  Every launch adds one to its kernel's `launches`, every
+plain-version call through a wrapper one to `plain_calls`;
+`tracing.reset()` zeroes both.  `fourstep_plain` composes the plain
+versions alone, on any device, which is how the kernels are checked on
+the card.
 """
 
 from __future__ import annotations
@@ -50,21 +51,25 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from ..params.bitrev import bitreverse, bitreverse_indices
 from ..params.merge import ReductionPolynomial
 from . import barrett as bo
 from . import hopper_merge as hm
 from . import hopper_merge32 as hm32
 from . import hopper_merge_large as hml
-from .hopper_merge import KernelStats, _launch
+from . import kernel
 from .limb import from_numpy_u64
 from .merge_ntt import MergePlan, merge_intt_lanes, merge_ntt_lanes
 
 SOURCE = "gpuntt_tpu_torch/csrc/fourstep.cu"
 
-ROW_MAT_MAX = 512  # K10 / K11's row twin take rows of <= 512 words
-COL_MAX = 512      # the column kernels take n1 <= 512
+ROW_MAT_MAX = hml.ROW_MAT_MAX  # K10 (K8's entry) / K11's row twin take rows of <= 512 words
+COL_MAX = 512                  # the column kernels take n1 <= 512
+# K9 and K11's column twin, lazy butterflies (4q below the word), on whatever ring a plan splits
+COLUMNS = {True: kernel.Family(word=64, q_bits=62, takes=None, routes=(12, 24)),
+           False: kernel.Family(word=32, q_bits=30, takes=None, routes=(12, 24))}
 
 COL64 = KernelStats("fourstep_u64_col", "gpuntt_tpu/ops/pallas_mxu_4step.py:203",
                     source=SOURCE)
@@ -81,18 +86,19 @@ def rows_have_kernel(n2: int, is64: bool) -> bool:
     """Rows of n2 words have a kernel: u64 n2 <= 512 (K10) or 2^11..2^17
     (K1/K2); u32 2^7..2^25 (the u32 family)."""
     if is64:
-        return n2 <= ROW_MAT_MAX or 1 << 11 <= n2 <= 1 << 17
-    return 1 << 7 <= n2 <= 1 << 25
+        return n2 <= ROW_MAT_MAX or hm.FAMILY.takes_ring(n2.bit_length() - 1)
+    return hm32.FAMILY.takes_ring(n2.bit_length() - 1)
 
 
 def covers(plan) -> bool:
     """FourStepPlans whose transforms the 4-step route sends to the
     kernels: a genuine root at full size (order N for X^N - 1, 2N for
-    X^N + 1, as pallas_mxu_4step.py:94-97 checks), u64 with q < 2^62 or
-    u32 with q < 2^30, logn 12-24, n1 <= 512 and rows with a kernel."""
+    X^N + 1, as pallas_mxu_4step.py:94-97 checks), `COLUMNS.routes` (u64
+    with q < 2^62 or u32 with q < 2^30, logn 12-24), n1 <= 512 and rows
+    with a kernel."""
     order = 2 * plan.n if plan.poly == ReductionPolynomial.X_N_plus else plan.n
     return (pow(plan.root, order, plan.q) == 1 and plan.root * plan.iroot % plan.q == 1
-            and plan.q < 1 << (62 if plan.is64 else 30) and 12 <= plan.logn <= 24
+            and COLUMNS[plan.is64].covers(plan.is64, plan.q, plan.logn)
             and plan.n1 <= COL_MAX and rows_have_kernel(plan.n2, plan.is64))
 
 
@@ -164,20 +170,20 @@ class FourStepKernelPlan:
         tile = min(n2, (1 << (12 if is64 else 13)) >> log1)
         w_tile = 1 << ((log2 + 1) // 2)
         logw, nt = w_tile.bit_length() - 1, n2 // w_tile
-        col = hml._merge_plan(q, log1, False, pow(root, n // n1, q), pow(iroot, n // n1, q),
-                              pow(n1, q - 2, q), device, dtype)
-        rows = hml._merge_plan(q, log2, False, pow(root, n1, q), pow(iroot, n1, q), n_inv,
-                               device, dtype)
+        col = hml.sub_plan(q, log1, False, pow(root, n // n1, q), pow(iroot, n // n1, q),
+                           pow(n1, q - 2, q), device, dtype)
+        rows = hml.sub_plan(q, log2, False, pow(root, n1, q), pow(iroot, n1, q), n_inv,
+                            device, dtype)
         # forward W[i, j] = root^(br(i) j): tile w_i^t, scale w_i^(jt Tw)
-        wt_f, ws_f = hml._w_factor([pow(root, bitreverse(i, log1), q) for i in range(n1)],
-                                   w_tile, n2, q)
+        wt_f, ws_f = hml.w_factor([pow(root, bitreverse(i, log1), q) for i in range(n1)],
+                                  w_tile, n2, q)
         # inverse W[i, j] = iroot^(i br(j)); with j = jt Tw + t,
         # br(j) = br(t, log Tw) nt + br(jt, log nt): tile v_i^(br(t) nt),
         # scale v_i^br(jt), v_i = iroot^i
         bt, bs = bitreverse_indices(logw), bitreverse_indices(log2 - logw)
         inv_bases = [pow(iroot, i, q) for i in range(n1)]
-        wt_i = np.stack([hml._pows(pow(v, nt, q), q, w_tile)[bt] for v in inv_bases])
-        ws_i = np.stack([hml._pows(v, q, nt)[bs] for v in inv_bases], axis=1)
+        wt_i = np.stack([hml.pows(pow(v, nt, q), q, w_tile)[bt] for v in inv_bases])
+        ws_i = np.stack([hml.pows(v, q, nt)[bs] for v in inv_bases], axis=1)
         (wtf, wtfs), (wsf, wsfs), (wti, wtis), (wsi, wsis) = (
             _shoup_pair(t, q, word, device) for t in (wt_f, ws_f, wt_i, ws_i))
         return FourStepKernelPlan(
@@ -240,46 +246,22 @@ def row32_plain(x, plan: MergePlan, inverse: bool):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(x: torch.Tensor, n: int, device: torch.device) -> None:
-    if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != n
-            or not x.is_contiguous() or x.device != device):
-        raise NTTDispatchError(
-            f"expected a contiguous (batch, {n}) int64 tensor on {device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise NTTDeviceError(f"no fourstep kernel for {x.device}")
-
-
-def _lib():
-    from ._build import library
-
-    return library("fourstep")
-
-
 def _col(stats: KernelStats, x, kp: FourStepKernelPlan, inverse: bool, is64: bool):
-    # q < 2^62 (u64) or 2^30 (u32): the lazy butterflies hold values below
-    # 4q, which must fit the word
-    bits = 62 if is64 else 30
-    if kp.is64 != is64 or kp.n1 > COL_MAX or kp.q >= 1 << bits:
-        raise NTTDispatchError(
-            f"{stats.name} takes {'u64' if is64 else 'u32'} plans with n1 <= {COL_MAX} and "
-            f"q < 2^{bits}, got is64={kp.is64} n1={kp.n1} q={kp.q}")
-    _check(x, kp.n, kp.device)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return col_plain(x, kp, inverse)
+    family = COLUMNS[is64]
+    family.admit(stats.name, kp.is64, kp.q, kp.logn)
+    if kp.n1 > COL_MAX:
+        raise NTTDispatchError(f"{stats.name} takes plans with n1 <= {COL_MAX}, got n1={kp.n1}")
+    kernel.check(stats.name, (kp.n,), kp.device, x)
     col = kp.col
     tables = ((col.inv_table, col.inv_shoup, kp.wt_inv, kp.wt_inv_shoup, kp.ws_inv,
                kp.ws_inv_shoup) if inverse else
               (col.fwd_table, col.fwd_shoup, kp.wt_fwd, kp.wt_fwd_shoup, kp.ws_fwd,
                kp.ws_fwd_shoup))
-    entry = f"fourstep_{'u64' if is64 else 'u32'}_col_{'inv' if inverse else 'fwd'}"
-    y = torch.empty_like(x)
-    _launch(stats, getattr(_lib(), entry), x, x.data_ptr(), y.data_ptr(), x.shape[0],
-            kp.n1.bit_length() - 1, kp.n2.bit_length() - 1, kp.tile.bit_length() - 1,
-            kp.w_tile.bit_length() - 1, *(t.data_ptr() for t in tables), kp.q,
-            (1 << (64 if is64 else 32)) // kp.q)
-    return y
+    entry = f"fourstep_u{family.word}_col_{'inv' if inverse else 'fwd'}"
+    return kernel.call(stats, (x,), col_plain, (x, kp, inverse), entry, lambda: (
+        kp.n1.bit_length() - 1, kp.n2.bit_length() - 1, kp.tile.bit_length() - 1,
+        kp.w_tile.bit_length() - 1, *(t.data_ptr() for t in tables), kp.q,
+        (1 << family.word) // kp.q))
 
 
 def fourstep_u64_col(x: torch.Tensor, kp: FourStepKernelPlan, inverse: bool) -> torch.Tensor:
@@ -302,8 +284,9 @@ def fourstep_u64_row(x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.T
 def fourstep_u32_row(x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.Tensor:
     """K11's row twin on a contiguous (rows, n2) tensor, n2 = 128..512:
     merge_u32.cu's entries at logn 7-9, counted under K11's row stats."""
-    if not 7 <= plan.logn <= 9:
-        raise NTTDispatchError(f"{ROW32.name} takes rows of 128-512 words, got 2^{plan.logn}")
+    if plan.n > ROW_MAT_MAX:  # longer rows run on the u32 family under its own counts
+        raise NTTDispatchError(f"{ROW32.name} takes rows of <= {ROW_MAT_MAX} words, got "
+                               f"2^{plan.logn}")
     return (hm32.inverse if inverse else hm32.forward)(ROW32, x, plan)
 
 

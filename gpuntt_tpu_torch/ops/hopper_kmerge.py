@@ -30,14 +30,15 @@ K17 (`pallas_merge_u32`, pallas_merge.py:313) has its counterpart here:
 
 on a contiguous (batch, N) int64 tensor of u32 values, u32 plans with
 q < 2^30 (its lazy butterflies keep values below 4q < 2^32) and logn
-7-25: the bit-reversed merge NTT in canonical residues, and its inverse
-with n^-1.  No dispatch route calls it, as in
-the JAX package; its u64 twin K15 is hopper_kmerge64.py's.  Both run on
-csrc/kmerge.cu (see the note there).  On a CPU tensor a wrapper runs the
-kernel's plain version, and only there; on a CUDA tensor it launches the
-kernel or raises.  Every launch adds one to its kernel's `launches`,
-every plain-version call through a wrapper one to `plain_calls`;
-`tracing.reset()` zeroes them.
+7-25 (`FAMILY`): the bit-reversed merge NTT in canonical residues, and
+its inverse with n^-1.  No dispatch route calls it, as in the JAX
+package; its u64 twin K15 is hopper_kmerge64.py's.  Both run on
+csrc/kmerge.cu (see the note there), called through `kmerge`.  On a CPU
+tensor a wrapper runs the kernel's plain version, and only there; on a
+CUDA tensor it launches the kernel (through ops/kernel.py) or raises.
+Every launch adds one to its kernel's `launches`, every plain-version
+call through a wrapper one to `plain_calls`; `tracing.reset()` zeroes
+them.
 """
 
 from __future__ import annotations
@@ -48,18 +49,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from ..params.bitrev import bitrev_permute, bitreverse_indices
 from ..params.merge import NTTParameters, ReductionPolynomial
 from . import barrett as bo
-from .hopper_merge import KernelStats, _launch
-from .hopper_merge_large import _pows
+from . import kernel
+from .hopper_merge_large import pows
 from .limb import from_numpy_u64, signed
 from .merge_ntt import MergePlan, butterfly_ops, ct_stages, gs_stages
 
 SOURCE = "gpuntt_tpu_torch/csrc/kmerge.cu"
 LANES = 128
 LOG_LANES = 7
+# K17: lazy butterflies, 4q < 2^32; no route calls it, as in the JAX package
+FAMILY = kernel.Family(word=32, q_bits=30, takes=(7, 25), routes=None)
 
 FORWARD = KernelStats("kmerge_u32_forward", "gpuntt_tpu/ops/pallas_merge.py:218",
                       source=SOURCE)
@@ -79,13 +83,13 @@ def _w_table(root: int, q: int, A: int, xnp: bool) -> np.ndarray:
 
     if not _native.available():
         br = bitreverse_indices(A.bit_length() - 1)
-        return np.stack([_pows(pow(root, 2 * int(e) + 1 if xnp else int(e), q), q, LANES)
+        return np.stack([pows(pow(root, 2 * int(e) + 1 if xnp else int(e), q), q, LANES)
                          for e in br])
     if not xnp:
         return _native.w_table_forward(root, q, A, LANES).reshape(A, LANES)
     # psi^((2 br(a) + 1) b) = (psi^2)^(br(a) b) * psi^b
     even = _native.w_table_forward(root * root % q, q, A, LANES).reshape(A, LANES)
-    return _native.pointwise_mult(even, np.broadcast_to(_pows(root, q, LANES), (A, LANES)), q)
+    return _native.pointwise_mult(even, np.broadcast_to(pows(root, q, LANES), (A, LANES)), q)
 
 
 @dataclass(frozen=True, eq=False)
@@ -151,11 +155,11 @@ class KernelMergePlan:
         def col(r):
             # the first 2A (A) entries of the bit-reversed table of N (N/2)
             # powers of r: r^(bitrev(i, log size)) = (r^64)^bitrev(i, log len)
-            return bitrev_permute(_pows(pow(r, 64, q), q, 2 * A if xnp else A))
+            return bitrev_permute(pows(pow(r, 64, q), q, 2 * A if xnp else A))
 
         def row(r):
             # the 128-point row NTT's root: psi^(2A) or omega^A
-            return bitrev_permute(_pows(pow(r, 2 * A if xnp else A, q), q, LANES // 2))
+            return bitrev_permute(pows(pow(r, 2 * A if xnp else A, q), q, LANES // 2))
 
         return KernelMergePlan._build(
             q, logn, xnp, np.dtype(dtype) == np.uint64, n_inv, col(root), row(root),
@@ -276,33 +280,18 @@ def kmerge_plain(x: torch.Tensor, plan: KernelMergePlan, inverse: bool = False):
 # ------------------------------------------------------------------ wrappers
 
 
-def check(plan: KernelMergePlan, x: torch.Tensor, is64: bool, what: str) -> None:
-    """Raise unless `x` is a contiguous (batch, N) int64 tensor on the
-    plan's CPU or CUDA device and the plan one of `is64`."""
-    if plan.is64 != is64:
-        raise NTTDispatchError(f"{what} takes {'u64' if is64 else 'u32'} plans")
-    if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != plan.n or x.shape[0] < 1
-            or not x.is_contiguous() or x.device != plan.device):
-        raise NTTDispatchError(
-            f"expected a contiguous (batch, {plan.n}) int64 tensor on {plan.device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise NTTDeviceError(f"no {what} kernel for {x.device}")
-
-
-def launch(stats: KernelStats, entry: str, x: torch.Tensor, plan: KernelMergePlan,
+def kmerge(family: kernel.Family, stats: KernelStats, x: torch.Tensor, plan: KernelMergePlan,
            inverse: bool) -> torch.Tensor:
-    """One call of csrc/kmerge.cu's `entry` on (batch, N) lanes."""
-    from ._build import library
-
-    y = torch.empty_like(x)
-    consts = [plan.q, (1 << plan.word) // plan.q]
-    if inverse:
-        consts += [plan.n_inv, plan.n_inv_s]
-    _launch(stats, getattr(library("kmerge"), entry), x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, *(t.data_ptr() for t in plan.tables(inverse)), *consts,
-            int(plan.xnp))
-    return y
+    """One call of csrc/kmerge.cu's entry `stats.name` on a (batch, N)
+    tensor, batch >= 1, for a plan `family` takes."""
+    family.admit(stats.name, plan.is64, plan.q, plan.logn)
+    kernel.check(stats.name, (plan.n,), plan.device, x)
+    if x.shape[0] < 1:
+        raise NTTDispatchError(f"{stats.name} takes a batch of one row or more")
+    return kernel.call(stats, (x,), kmerge_plain, (x, plan, inverse), stats.name, lambda: (
+        plan.logn, *(t.data_ptr() for t in plan.tables(inverse)), plan.q,
+        (1 << plan.word) // plan.q, *((plan.n_inv, plan.n_inv_s) if inverse else ()),
+        int(plan.xnp)))
 
 
 def kmerge_u32(x: torch.Tensor, plan: KernelMergePlan, inverse: bool = False) -> torch.Tensor:
@@ -310,13 +299,4 @@ def kmerge_u32(x: torch.Tensor, plan: KernelMergePlan, inverse: bool = False) ->
     a (batch, N) tensor of u32 values, bit-reversed output order, or with
     inverse=True its inverse with n^-1; canonical output, any u32 input
     word reduced mod q first.  u32 plans with q < 2^30, logn 7-25."""
-    check(plan, x, False, "kmerge_u32")
-    if plan.q >= 1 << 30 or plan.logn > 25:
-        raise NTTDispatchError(f"kmerge_u32 takes q < 2^30 and logn 7-25, got q={plan.q} "
-                               f"logn={plan.logn}")
-    stats = INVERSE if inverse else FORWARD
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return kmerge_plain(x, plan, inverse)
-    return launch(stats, f"kmerge_u32_{'inverse' if inverse else 'forward'}", x, plan,
-                  inverse)
+    return kmerge(FAMILY, INVERSE if inverse else FORWARD, x, plan, inverse)

@@ -28,7 +28,8 @@ package's MergePlan has no counterpart of): the kernel plan is built
 from the root pair alone.
 
 On a CPU tensor the wrapper runs the kernel's plain version, and only
-there; on a CUDA tensor it launches the kernel or raises.  Every launch
+there; on a CUDA tensor it launches the kernel (hopper_kmerge.kmerge) or
+raises.  Every launch
 adds one to its kernel's `launches`, every plain-version call one to
 `plain_calls`; `tracing.reset()` zeroes them.
 """
@@ -38,8 +39,9 @@ from __future__ import annotations
 import torch
 
 from ..common.errors import NTTDispatchError
-from .hopper_kmerge import (KernelMergePlan, KernelStats, SOURCE, check, kernel_plan,
-                            kmerge_plain, launch)
+from ..common.tracing import KernelStats
+from . import kernel
+from .hopper_kmerge import SOURCE, KernelMergePlan, kernel_plan, kmerge
 from .merge_ntt import MergePlan
 
 FORWARD = KernelStats("kmerge_u64_forward", "gpuntt_tpu/ops/pallas_merge64.py:74",
@@ -47,23 +49,26 @@ FORWARD = KernelStats("kmerge_u64_forward", "gpuntt_tpu/ops/pallas_merge64.py:74
 INVERSE = KernelStats("kmerge_u64_inverse", "gpuntt_tpu/ops/pallas_merge64.py:105",
                       source=SOURCE)
 KERNELS = (FORWARD, INVERSE)
-MAX_LOGN = 24
+# lazy butterflies up to 2^62 and a canonical instance past it (Shoup products need
+# q < 2^63); the W table's size caps the ring; the "vpu" route sends every plan taken
+FAMILY = kernel.Family(word=64, q_bits=63, takes=(7, 24), routes=(7, 24))
 
 
 def route(plan: MergePlan) -> str:
     """The route of a u64 plan under a non-MXU `use_pallas` string,
     "hopper-kmerge64"; raises NTTDispatchError outside logn 7-24, for
-    q >= 2^63 and for an evaluation-twisted plan."""
-    if not 7 <= plan.logn <= MAX_LOGN:
+    q >= 2^63 and for an evaluation-twisted plan (`FAMILY.routes`)."""
+    lo, hi = FAMILY.routes
+    if not lo <= plan.logn <= hi:
         raise NTTDispatchError(
-            f'use_pallas="vpu" on u64 runs K15\'s counterpart at logn 7-{MAX_LOGN}, got '
+            f'use_pallas="vpu" on u64 runs K15\'s counterpart at logn {lo}-{hi}, got '
             f"logn={plan.logn}" + (
                 f": its (A, 128) W table and companion would take "
-                f"{2 * 8 << plan.logn} bytes per direction" if plan.logn > MAX_LOGN else
+                f"{2 * 8 << plan.logn} bytes per direction" if plan.logn > hi else
                 " (A = N / 128 >= 1)"))
-    if plan.q >= 1 << 63:
-        raise NTTDispatchError(f"K15's counterpart needs q < 2^63 (Shoup products), "
-                               f"got q={plan.q}")
+    if not FAMILY.covers(plan.is64, plan.q, plan.logn):
+        raise NTTDispatchError(f"K15's counterpart needs q < 2^{FAMILY.q_bits} (Shoup "
+                               f"products), got q={plan.q}")
     if plan.twist is not None:
         raise NTTDispatchError("K15's counterpart has no evaluation twist: its plan is "
                                "built from the root pair alone (use_pallas=\"auto\" or "
@@ -75,16 +80,7 @@ def kmerge_u64(x: torch.Tensor, plan: KernelMergePlan, inverse: bool = False) ->
     """K15's counterpart (pallas_merge2_u64): the merged NTT of each row,
     bit-reversed output order, or with inverse=True its inverse with
     n^-1; canonical output.  u64 plans with q < 2^63, logn 7-24."""
-    check(plan, x, True, "kmerge_u64")
-    if plan.q >= 1 << 63 or plan.logn > MAX_LOGN:
-        raise NTTDispatchError(f"kmerge_u64 takes q < 2^63 and logn 7-{MAX_LOGN}, got "
-                               f"q={plan.q} logn={plan.logn}")
-    stats = INVERSE if inverse else FORWARD
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return kmerge_plain(x, plan, inverse)
-    return launch(stats, f"kmerge_u64_{'inverse' if inverse else 'forward'}", x, plan,
-                  inverse)
+    return kmerge(FAMILY, INVERSE if inverse else FORWARD, x, plan, inverse)
 
 
 def merge_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:

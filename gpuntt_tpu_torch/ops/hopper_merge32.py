@@ -40,12 +40,14 @@ from __future__ import annotations
 
 import torch
 
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.tracing import KernelStats
 from . import barrett as bo
-from .hopper_merge import KernelStats, _launch
+from . import kernel
 from .merge_ntt import MergePlan, ct_stages, gs_stages
 
 SOURCE = "gpuntt_tpu_torch/csrc/merge_u32.cu"
+# lazy butterflies, 4q < 2^32; the smallest ring taken serves the 4-step's rows, unrouted
+FAMILY = kernel.Family(word=32, q_bits=30, takes=(7, 25), routes=(8, 25))
 
 
 def _stats(direction: str, tpu: str, site: str) -> KernelStats:
@@ -80,14 +82,14 @@ def split(logn: int) -> int:
 
 
 def covers(plan: MergePlan) -> bool:
-    """Plans whose transforms dispatch sends here: u32, q < 2^30, logn 8-25."""
-    return not plan.is64 and plan.q < (1 << 30) and 8 <= plan.logn <= 25
+    """Plans whose transforms dispatch sends here (`FAMILY.routes`)."""
+    return FAMILY.covers(plan.is64, plan.q, plan.logn)
 
 
 def takes(plan: MergePlan) -> bool:
     """Plans the kernels take: those `covers`, and the logn-7 rows of the
     4-step (its 128-word rows; a launch takes whole rings up to logn 15)."""
-    return not plan.is64 and plan.q < (1 << 30) and 7 <= plan.logn <= 25
+    return FAMILY.admits(plan.is64, plan.q, plan.logn)
 
 
 # ------------------------------------------------------------ plain versions
@@ -132,27 +134,6 @@ def merge_u32_inv_plain(x, plan: MergePlan):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(plan: MergePlan, x: torch.Tensor) -> None:
-    if not takes(plan):
-        raise NTTDispatchError(
-            f"merge_u32 kernels take u32 plans with q < 2^30 and logn 7-25, "
-            f"got q={plan.q} logn={plan.logn} is64={plan.is64}")
-    if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != plan.n
-            or not x.is_contiguous() or x.device != plan.device):
-        raise NTTDispatchError(
-            f"expected a contiguous (batch, {plan.n}) int64 tensor on "
-            f"{plan.device}, got {tuple(x.shape)} {x.dtype} on {x.device} "
-            f"contiguous={x.is_contiguous()}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise NTTDeviceError(f"no merge_u32 kernel for {x.device}")
-
-
-def _lib():
-    from ._build import library
-
-    return library("merge_u32")
-
-
 def packed_tables(plan) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward and inverse tables of a u32 MergePlan (or the stacked
     tables of a u32 RNSMergePlan) packed with their Shoup companions as
@@ -167,31 +148,25 @@ def packed_tables(plan) -> tuple[torch.Tensor, torch.Tensor]:
     return plan._lazy["packed32"]
 
 
+def _run(stats: KernelStats, x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.Tensor:
+    FAMILY.admit(stats.name, plan.is64, plan.q, plan.logn)
+    kernel.check(stats.name, (plan.n,), plan.device, x)
+    log_a, scale = split(plan.logn), (plan.n_inv, plan.n_inv_shoup) if inverse else ()
+    return kernel.call(stats, (x,), merge_u32_inv_plain if inverse else merge_u32_fwd_plain,
+                       (x, plan), f"merge_u32_{'inverse' if inverse else 'forward'}",
+                       lambda: (plan.logn, log_a, packed_tables(plan)[int(inverse)].data_ptr(),
+                                plan.q, (1 << 32) // plan.q, *scale, int(plan.xnp)),
+                       log_a=log_a)
+
+
 def forward(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """merge_u32_fwd with its launch counted under `stats`."""
-    _check(plan, x)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return merge_u32_fwd_plain(x, plan)
-    y, log_a = torch.empty_like(x), split(plan.logn)
-    _launch(stats, _lib().merge_u32_forward, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, log_a, packed_tables(plan)[0].data_ptr(),
-            plan.q, (1 << 32) // plan.q, int(plan.xnp), log_a=log_a)
-    return y
+    return _run(stats, x, plan, False)
 
 
 def inverse(stats: KernelStats, x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     """merge_u32_inv with its launch counted under `stats`."""
-    _check(plan, x)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return merge_u32_inv_plain(x, plan)
-    y, log_a = torch.empty_like(x), split(plan.logn)
-    _launch(stats, _lib().merge_u32_inverse, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, log_a, packed_tables(plan)[1].data_ptr(),
-            plan.q, (1 << 32) // plan.q, plan.n_inv, plan.n_inv_shoup, int(plan.xnp),
-            log_a=log_a)
-    return y
+    return _run(stats, x, plan, True)
 
 
 def merge_u32_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:

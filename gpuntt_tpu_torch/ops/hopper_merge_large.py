@@ -30,7 +30,7 @@ and K7's two kernels on one shard's B / sp columns replace col_phase_local
 K7 runs a block's C columns, and K8 its rows of B <= 512 words (4096
 words a block), as radix-8 passes in registers with lazy butterflies,
 whose values stay below 4q: their wrappers take plans with q < 2^62
-only (hopper_merge.LAZY_Q), where 4q < 2^64 (see the notes in
+only (`COLUMNS`, `ROWS`), where 4q < 2^64 (see the notes in
 csrc/merge_u64_large.cu).
 
 The rows of B = 2^11..2^17 run on hopper_merge.py's K1/K2/K3 through
@@ -50,7 +50,7 @@ Rows of more than 2^17 words recurse into a nested LargePlan (logn
 The JAX package's ceiling at 2^16 rows (a v5e VMEM limit, with the
 inverse at 2^17 delegated per direction) has no counterpart here:
 K1/K2 take 2^17 rows in both directions, which `max_row_logn` = 17
-says.
+(hopper_merge.FAMILY) says.
 
 Each wrapper takes contiguous int64 tensors of u64 bit patterns and a
 plan on the same device.  On a CPU tensor it runs the kernel's plain
@@ -59,7 +59,8 @@ raises.  Every launch adds one to its kernel's `launches`, every
 plain-version call through a wrapper one to `plain_calls`;
 `tracing.reset()` zeroes both.  `merge_u64_large_plain` composes the
 plain versions alone, on any device, which is how the kernels are
-checked on the card.
+checked on the card.  The wrappers call the kernels through
+ops/kernel.py.
 """
 
 from __future__ import annotations
@@ -71,20 +72,23 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from ..params.bitrev import bitrev_permute, bitreverse
 from ..params.merge import NTTParameters, ReductionPolynomial, _power_table
 from . import barrett as bo
 from . import hopper_merge as hm
-from .hopper_merge import KernelStats, _launch
+from . import kernel
 from .limb import from_numpy_u64
 from .merge_ntt import MergePlan, merge_intt_lanes, merge_ntt_lanes
 
 SOURCE = "gpuntt_tpu_torch/csrc/merge_u64_large.cu"
 
 A_COL = 128          # the JAX package's default column count
-ROW_MAT_MAX = 512    # K8 takes rows of B <= 512 words
-MAX_ROW_LOGN = 17    # K1-K3 take rows of 2^11..2^17 words
+# lazy butterflies, 4q < 2^64: K7 (and K7') on whatever ring its plan splits, K8 on whole rows
+COLUMNS = kernel.Family(word=64, q_bits=62, takes=None, routes=(18, 28))
+ROWS = kernel.Family(word=64, q_bits=62, takes=(1, 9), routes=None)
+ROW_MAT_MAX = 1 << ROWS.takes[1]  # K8 takes rows of B <= 512 words
 
 COLFWD = KernelStats("merge_u64_large_colfwd", "gpuntt_tpu/ops/pallas_mxu_large.py:388",
                      source=SOURCE)
@@ -102,15 +106,15 @@ LOCAL_KERNELS = (COLFWD_LOCAL, COLINV_LOCAL)
 
 
 def covers(plan: MergePlan) -> bool:
-    """Plans whose transforms dispatch sends here: u64, q < 2^62, logn
-    18-28 (with a genuine root, which dispatch checks)."""
-    return plan.is64 and plan.q < (1 << 62) and 18 <= plan.logn <= 28
+    """Plans whose transforms dispatch sends here (`COLUMNS.routes`, with
+    a genuine root, which dispatch checks)."""
+    return COLUMNS.covers(plan.is64, plan.q, plan.logn)
 
 
 # ------------------------------------------------------------------- plan
 
 
-def _pows(base: int, q: int, size: int) -> np.ndarray:
+def pows(base: int, q: int, size: int) -> np.ndarray:
     """[base^0, ..., base^(size-1)] mod q as uint64."""
     from .. import _native
 
@@ -119,23 +123,23 @@ def _pows(base: int, q: int, size: int) -> np.ndarray:
     return np.asarray(_power_table(base, q, size), dtype=np.uint64)
 
 
-def _merge_plan(q: int, logn: int, xnp: bool, root: int, iroot: int, n_inv: int,
-                device, dtype=np.uint64) -> MergePlan:
+def sub_plan(q: int, logn: int, xnp: bool, root: int, iroot: int, n_inv: int,
+             device, dtype=np.uint64) -> MergePlan:
     """A 2^logn-point merge plan from its root pair (sub-plans)."""
     size = 1 << logn if xnp else 1 << (logn - 1)
     poly = ReductionPolynomial.X_N_plus if xnp else ReductionPolynomial.X_N_minus
     return MergePlan.from_arrays(q, logn, poly, root, iroot, n_inv,
-                                 bitrev_permute(_pows(root, q, size)),
-                                 bitrev_permute(_pows(iroot, q, size)), device=device,
+                                 bitrev_permute(pows(root, q, size)),
+                                 bitrev_permute(pows(iroot, q, size)), device=device,
                                  dtype=dtype)
 
 
-def _w_factor(bases, tile: int, B: int, q: int) -> tuple[np.ndarray, np.ndarray]:
+def w_factor(bases, tile: int, B: int, q: int) -> tuple[np.ndarray, np.ndarray]:
     """W[a, jT + t] = bases[a]^(jT + t) as the (A, T) tile table
     bases[a]^t and the (B / T, A) scale table bases[a]^(jT)
     (pallas_mxu.py:179-187, without its trailing unit axis)."""
-    wt = np.stack([_pows(b, q, tile) for b in bases])
-    ws = np.stack([_pows(pow(b, tile, q), q, B // tile) for b in bases], axis=1)
+    wt = np.stack([pows(b, q, tile) for b in bases])
+    ws = np.stack([pows(pow(b, tile, q), q, B // tile) for b in bases], axis=1)
     return wt, ws
 
 
@@ -208,7 +212,7 @@ class LargePlan:
         q = p.modulus.value
         return LargePlan.from_spec(q, p.logn, p.root_of_unity, p.inverse_root_of_unity,
                                    p.poly_reduction == ReductionPolynomial.X_N_plus,
-                                   pow(p.n, q - 2, q), a_col=a_col or _route_a_col(p.logn),
+                                   pow(p.n, q - 2, q), a_col=a_col or route_a_col(p.logn),
                                    tile=tile, device=device)
 
     @staticmethod
@@ -232,7 +236,7 @@ class LargePlan:
     @staticmethod
     def from_spec(q: int, logn: int, root: int, iroot: int, xnp: bool, n_inv: int,
                   a_col: int | None = None, tile: int | None = None,
-                  max_row_logn: int = MAX_ROW_LOGN, row_kwargs: dict | None = None,
+                  max_row_logn: int = hm.FAMILY.takes[1], row_kwargs: dict | None = None,
                   col_only: bool = False, device=None) -> "LargePlan":
         """Plan for a merge NTT given its field spec, from exponent algebra
         as MXULargePlan.from_spec builds it (`root` is omega for X^N - 1,
@@ -241,8 +245,8 @@ class LargePlan:
         a nested plan only.  A `col_only` plan builds no rows (`rows` and
         `nested` None): the distributed 4-step's column phase (K7',
         parallel/fourstep_dist.py) is all it serves."""
-        if q >= 1 << 62:
-            raise ValueError("the big-ring kernels require q < 2^62")
+        if not COLUMNS.admits(True, q, logn):
+            raise ValueError(f"the big-ring kernels require q < 2^{COLUMNS.q_bits}")
         order = 2 << logn if xnp else 1 << logn
         if pow(root, order, q) != 1 or root * iroot % q != 1:
             raise ValueError("the big-ring kernels require a genuine root of unity")
@@ -258,12 +262,12 @@ class LargePlan:
         else:
             w_base = [pow(root, a, q) for a in brA]
             wi_base = [pow(iroot, a, q) for a in brA]
-        col = _merge_plan(q, logA, xnp, pow(root, B, q), pow(iroot, B, q), n_inv * B % q,
-                          device)
+        col = sub_plan(q, logA, xnp, pow(root, B, q), pow(iroot, B, q), n_inv * B % q,
+                       device)
         r_exp = 2 * A if xnp else A
         rows = None if col_only else (pow(root, r_exp, q), pow(iroot, r_exp, q))
-        return LargePlan._build(q, logn, A, B, T, col, rows, _w_factor(w_base, T, B, q),
-                                _w_factor(wi_base, T, B, q), max_row_logn, row_kwargs,
+        return LargePlan._build(q, logn, A, B, T, col, rows, w_factor(w_base, T, B, q),
+                                w_factor(wi_base, T, B, q), max_row_logn, row_kwargs,
                                 device)
 
     @staticmethod
@@ -278,8 +282,8 @@ class LargePlan:
         w_a psi, so the tile table gains psi^(b mod T) and the scale table
         psi^(T (b div T)).  The rows are those of the X^N - 1 plan of
         omega; no elementwise pre-twist runs outside the kernels."""
-        if q >= 1 << 62:
-            raise ValueError("the big-ring kernels require q < 2^62")
+        if not COLUMNS.admits(True, q, logn):
+            raise ValueError(f"the big-ring kernels require q < 2^{COLUMNS.q_bits}")
         from ..common.device import default_device
 
         device = torch.device(device) if device is not None else default_device()
@@ -292,8 +296,8 @@ class LargePlan:
                                   pow(psi, B, q), pow(ipsi, B, q), n_inv * B % q,
                                   device=device)
         return LargePlan._build(q, logn, A, B, T, col, (pow(omega, A, q), pow(iomega, A, q)),
-                                _w_factor(w_base, T, B, q), _w_factor(wi_base, T, B, q),
-                                MAX_ROW_LOGN, None, device)
+                                w_factor(w_base, T, B, q), w_factor(wi_base, T, B, q),
+                                hm.FAMILY.takes[1], None, device)
 
     @staticmethod
     def _build(q, logn, A, B, T, col, rows, w_fwd, w_inv, max_row_logn, row_kwargs, device,
@@ -304,13 +308,13 @@ class LargePlan:
         given."""
         logB = B.bit_length() - 1
         if rows is not None and nested is None and B > ROW_MAT_MAX and not (
-                11 <= logB <= min(max_row_logn, MAX_ROW_LOGN)):
+                hm.FAMILY.takes_ring(logB) and logB <= max_row_logn):
             nested = LargePlan.from_spec(q, logB, *rows, False, pow(B, q - 2, q),
                                          max_row_logn=max_row_logn, device=device,
                                          **(row_kwargs or {}))
         row_plan = None
         if rows is not None and nested is None:
-            row_plan = _merge_plan(q, logB, False, *rows, pow(B, q - 2, q), device)
+            row_plan = sub_plan(q, logB, False, *rows, pow(B, q - 2, q), device)
 
         def dev(table):
             table = np.ascontiguousarray(table, dtype=np.uint64)
@@ -353,19 +357,19 @@ class LargePlan:
         xnp = int(wtf[0, 1]) != 1
         root = int(wtf[0 if xnp else A // 2, 1])
         iroot = int(wti[0 if xnp else A // 2, 1])
-        needs_nested = (B > ROW_MAT_MAX and not 1 << 11 <= B <= 1 << MAX_ROW_LOGN
+        needs_nested = (B > ROW_MAT_MAX and not hm.FAMILY.takes_ring(B.bit_length() - 1)
                         and not col_only)
         if (needs_nested and nested is None) or (nested is not None and (
                 nested.n != B or B <= ROW_MAT_MAX or col_only)):
             raise ValueError(f"rows of {B} words do not fit the nested plan {nested}")
         if n_inv is None:
             n_inv = pow(1 << logn, q - 2, q)
-        col = _merge_plan(q, A.bit_length() - 1, xnp, pow(root, B, q), pow(iroot, B, q),
-                          n_inv * B % q, device)
+        col = sub_plan(q, A.bit_length() - 1, xnp, pow(root, B, q), pow(iroot, B, q),
+                       n_inv * B % q, device)
         r_exp = 2 * A if xnp else A
         rows = None if col_only else (pow(root, r_exp, q), pow(iroot, r_exp, q))
         return LargePlan._build(q, logn, A, B, tile, col, rows, tabs[0], tabs[1],
-                                MAX_ROW_LOGN, None, device, nested=nested)
+                                hm.FAMILY.takes[1], None, device, nested=nested)
 
     def to(self, device) -> "LargePlan":
         """This plan with every table on `device`."""
@@ -404,7 +408,7 @@ def plan_bytes(plan) -> int:
     return total
 
 
-def _route_a_col(logn: int) -> int | None:
+def route_a_col(logn: int) -> int | None:
     """The route's column count where it differs from from_spec's rule:
     A = 128 at logn 18, rows of 2^11 on K1-K3, as the JAX route's
     MXULargePlan.from_params (from_spec's 512 x 512 split there serves
@@ -418,11 +422,11 @@ def large_plan(plan: MergePlan) -> LargePlan:
     if "large" not in plan._lazy and plan.twist is not None:
         plan._lazy["large"] = LargePlan.from_eval(
             plan.q, plan.logn, plan.root, plan.iroot, *plan.twist, plan.n_inv,
-            a_col=_route_a_col(plan.logn), device=plan.device)
+            a_col=route_a_col(plan.logn), device=plan.device)
     if "large" not in plan._lazy:
         plan._lazy["large"] = LargePlan.from_spec(
             plan.q, plan.logn, plan.root, plan.iroot, plan.xnp, plan.n_inv,
-            a_col=_route_a_col(plan.logn), device=plan.device)
+            a_col=route_a_col(plan.logn), device=plan.device)
     return plan._lazy["large"]
 
 
@@ -478,47 +482,29 @@ def rowmat_plain(x, plan: MergePlan, inverse: bool):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(x: torch.Tensor, n: int, device: torch.device) -> None:
-    if (x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != n
-            or not x.is_contiguous() or x.device != device):
-        raise NTTDispatchError(
-            f"expected a contiguous (batch, {n}) int64 tensor on {device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise NTTDeviceError(f"no merge_u64_large kernel for {x.device}")
-
-
-def _lib():
-    from ._build import library
-
-    return library("merge_u64_large")
-
-
-def _col_tables(lp: LargePlan, inverse: bool):
-    """The column entries' table pointers and (inverse) c_inv with its
-    Shoup companion."""
+def _col_args(lp: LargePlan, inverse: bool) -> tuple:
+    """The column entries' arguments after the split and the shard: the
+    table pointers, log T, q, floor(2^64 / q), (inverse) c_inv with its
+    Shoup companion, and the polynomial."""
     col = lp.col
     if inverse:
         tables = (col.inv_table, col.inv_shoup, lp.wt_inv, lp.wt_inv_shoup, lp.ws_inv,
                   lp.ws_inv_shoup)
-        return tuple(t.data_ptr() for t in tables), (col.n_inv, col.n_inv_shoup)
-    tables = (col.fwd_table, col.fwd_shoup, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd,
-              lp.ws_fwd_shoup)
-    return tuple(t.data_ptr() for t in tables), ()
+        scale = (col.n_inv, col.n_inv_shoup)
+    else:
+        tables = (col.fwd_table, col.fwd_shoup, lp.wt_fwd, lp.wt_fwd_shoup, lp.ws_fwd,
+                  lp.ws_fwd_shoup)
+        scale = ()
+    return (*(t.data_ptr() for t in tables), lp.tile.bit_length() - 1, lp.q,
+            (1 << 64) // lp.q, *scale, int(col.xnp))
 
 
-def _col(stats: KernelStats, entry: str, x, lp: LargePlan, inverse: bool):
-    hm.lazy_bound(stats.name, lp.q)
-    _check(x, lp.n, lp.device)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return (colinv_plain if inverse else colfwd_plain)(x, lp)
-    tables, scale = _col_tables(lp, inverse)
-    y = torch.empty_like(x)
-    _launch(stats, getattr(_lib(), entry), x, x.data_ptr(), y.data_ptr(), x.shape[0],
-            lp.col.logn, lp.B.bit_length() - 1, *tables, lp.tile.bit_length() - 1, lp.q,
-            (1 << 64) // lp.q, *scale, int(lp.col.xnp))
-    return y
+def _col(stats: KernelStats, x, lp: LargePlan, inverse: bool):
+    COLUMNS.admit(stats.name, True, lp.q, lp.logn)
+    kernel.check(stats.name, (lp.n,), lp.device, x)
+    return kernel.call(stats, (x,), colinv_plain if inverse else colfwd_plain, (x, lp),
+                       stats.name, lambda: (lp.col.logn, lp.B.bit_length() - 1,
+                                            *_col_args(lp, inverse)))
 
 
 def col_phase_local(x: torch.Tensor, lp: LargePlan, shard: int, sp: int,
@@ -528,60 +514,40 @@ def col_phase_local(x: torch.Tensor, lp: LargePlan, shard: int, sp: int,
     W o (Mcol @ X), inverse Ginv_col @ (W^-1 o X), with W at the global
     column indices.  The shard's width must hold whole W tiles."""
     stats = COLINV_LOCAL if inverse else COLFWD_LOCAL
-    hm.lazy_bound(stats.name, lp.q)
+    COLUMNS.admit(stats.name, True, lp.q, lp.logn)
     bl = lp.B // sp if sp > 0 else 0
-    if (x.dtype != torch.int64 or x.dim() != 3 or x.shape[1:] != (lp.A, bl)
-            or bl * sp != lp.B or bl % lp.tile or not 0 <= shard < sp
-            or not x.is_contiguous() or x.device != lp.device):
+    if bl * sp != lp.B or bl % lp.tile or not 0 <= shard < sp:
         raise NTTDispatchError(
-            f"{stats.name} takes a contiguous (batch, {lp.A}, B / sp) int64 tensor on "
-            f"{lp.device} whose width holds whole tiles of {lp.tile} (B = {lp.B}, "
-            f"shard {shard} of {sp}), got {tuple(x.shape)} {x.dtype} on {x.device} "
-            f"contiguous={x.is_contiguous()}")
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return col_phase_local_plain(x, lp, shard, sp, inverse)
-    if x.device.type != "cuda":
-        raise NTTDeviceError(f"no merge_u64_large kernel for {x.device}")
-    tables, scale = _col_tables(lp, inverse)
-    y = torch.empty_like(x)
-    _launch(stats, getattr(_lib(), stats.name), x, x.data_ptr(), y.data_ptr(), x.shape[0],
-            lp.col.logn, bl.bit_length() - 1, shard, *tables, lp.tile.bit_length() - 1, lp.q,
-            (1 << 64) // lp.q, *scale, int(lp.col.xnp))
-    return y
+            f"{stats.name} takes the columns of shard 0 <= shard < sp, whose width holds "
+            f"whole tiles of {lp.tile} (B = {lp.B}), got shard {shard} of {sp}")
+    kernel.check(stats.name, (lp.A, bl), lp.device, x)
+    return kernel.call(stats, (x,), col_phase_local_plain, (x, lp, shard, sp, inverse),
+                       stats.name, lambda: (lp.col.logn, bl.bit_length() - 1, shard,
+                                            *_col_args(lp, inverse)))
 
 
 def merge_u64_large_colfwd(x: torch.Tensor, lp: LargePlan) -> torch.Tensor:
     """K7 forward on a contiguous (batch, A * B) tensor."""
-    return _col(COLFWD, "merge_u64_large_colfwd", x, lp, inverse=False)
+    return _col(COLFWD, x, lp, inverse=False)
 
 
 def merge_u64_large_colinv(x: torch.Tensor, lp: LargePlan) -> torch.Tensor:
     """K7 inverse on a contiguous (batch, A * B) tensor."""
-    return _col(COLINV, "merge_u64_large_colinv", x, lp, inverse=True)
+    return _col(COLINV, x, lp, inverse=True)
 
 
 def rowmat(stats: KernelStats, x: torch.Tensor, plan: MergePlan,
            inverse: bool) -> torch.Tensor:
     """merge_u64_large_rowmat with its launch counted under `stats` (the
     4-step's rows count under K10, hopper_fourstep.py)."""
-    # q < 2^62: K8's lazy butterflies hold values below 4q, which must fit 64 bits
-    if not (plan.is64 and plan.q < hm.LAZY_Q and 1 <= plan.logn <= 9):
-        raise NTTDispatchError(
-            f"merge_u64_large_rowmat takes u64 row plans with q < 2^62 and "
-            f"logn 1-9, got q={plan.q} logn={plan.logn} is64={plan.is64}")
-    _check(x, plan.n, plan.device)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return rowmat_plain(x, plan, inverse)
+    ROWS.admit(stats.name, plan.is64, plan.q, plan.logn)
+    kernel.check(stats.name, (plan.n,), plan.device, x)
     table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
                     else (plan.fwd_table, plan.fwd_shoup))
-    y = torch.empty_like(x)
-    _launch(stats, _lib().merge_u64_large_rowmat, x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], plan.logn, table.data_ptr(), shoup.data_ptr(), plan.q,
-            (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup, int(inverse),
-            int(plan.xnp))
-    return y
+    return kernel.call(stats, (x,), rowmat_plain, (x, plan, inverse), "merge_u64_large_rowmat",
+                       lambda: (plan.logn, table.data_ptr(), shoup.data_ptr(), plan.q,
+                                (1 << 64) // plan.q, plan.n_inv, plan.n_inv_shoup, int(inverse),
+                                int(plan.xnp)))
 
 
 def merge_u64_large_rowmat(x: torch.Tensor, plan: MergePlan, inverse: bool) -> torch.Tensor:

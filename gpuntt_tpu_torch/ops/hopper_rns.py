@@ -28,23 +28,25 @@ the rows of a 2^18 ring).  K13 is the big-ring composition of
 hopper_merge_large.py over stacked LargePlans at logn 18-23 (A = 128,
 rows of 2^11..2^16 on K12).  K14 is the 4-step's column kernel over
 stacked FourStepKernelPlans at logn 14-23, its rows on K13's row kernel
-(512 words, logn 14-16) or on K12 (2^12..2^16 words).  A schedule
-`midx` is an int32 tensor on the device with entries in [0, mod_count)
-(dispatch normalises it and caches the copy, `schedule`); the row
-kernels take one entry per ring of 2^shift rows.
+(512 words, logn 14-16) or on K12 (2^12..2^16 words).  Each family's
+limits are its `kernel.Family` record (`K12`, `K13`, `K13_ROWS`, `K14`).
+A schedule `midx` is an int32 tensor on the device with entries in [0,
+mod_count) (the routes normalise it and keep its copy,
+`rns.schedule_memo`); the row kernels take one entry per ring of
+2^shift rows.
 
 Each wrapper takes contiguous (batch, N) int64 tensors of u64 bit
 patterns on the plan's device.  On a CPU tensor it runs the kernel's
 plain version — each modulus's rows through the single-modulus kernel's
 plain version with that member's plan — and only there; on a CUDA tensor
-it launches the kernel or raises.  Every launch adds one to its kernel's
-`launches`, every plain-version call through a wrapper one to
-`plain_calls`; `tracing.reset()` zeroes both.  `rns_u64_polymul`, given
-the `Prepared` record of a plan, row count and schedule on a card
-(`prepare`), checks its operands against the record and launches K12's
-product through one C call: FORWARD counts its two forwards,
-POLYMUL_INVERSE its fused inverse, under one ntt.launch span.  The
-`*_plain` compositions run the plain versions alone, on any device,
+it launches the kernel (through ops/kernel.py) or raises.  Every
+launch adds one to its kernel's `launches`, every plain-version call
+through a wrapper one to `plain_calls`; `tracing.reset()` zeroes both.
+`rns_u64_polymul`, given the `Prepared` record of a plan, row count and
+schedule on a card (`prepare`), checks its operands against the record
+and launches K12's product through one C call: FORWARD counts its two
+forwards, POLYMUL_INVERSE its fused inverse, under one ntt.launch span.
+The `*_plain` compositions run the plain versions alone, on any device,
 which is how the kernels are checked on the card.
 """
 
@@ -54,16 +56,15 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 
-from ..common import tracing
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from . import hopper_fourstep as hf
 from . import hopper_merge as hm
 from . import hopper_merge_large as hml
-from .hopper_merge import KernelStats, _launch
-from .rns import RNSMergePlan, per_modulus
+from . import kernel
+from .rns import RNSMergePlan, per_modulus, row_schedule
 
 _REPLACES = "gpuntt_tpu/ops/pallas_mxu_rns.py:"
 FORWARD = KernelStats("rns_u64_forward", _REPLACES + "178", source=hm.SOURCE)
@@ -78,45 +79,29 @@ KERNELS = (FORWARD, INVERSE, POLYMUL_INVERSE, LARGE_COLFWD, LARGE_COLINV, LARGE_
            FOURSTEP_COL)
 
 ROW_TILE_LOG = 12  # K13's row kernel holds 2^12 words per block
-
-
-def _narrow(plan) -> bool:
-    return plan.is64 and max(plan.qs) < hm.LAZY_Q
+# K1-K3's, K7's, K8's and K9's lazy butterflies over stacked tables, every q with 4q < 2^64;
+# K13 and K14 are routed over narrower rings than K7's and K9's
+K12 = kernel.Family(word=64, q_bits=62, takes=(11, 17), routes=(12, 17))
+K13 = kernel.Family(word=64, q_bits=62, takes=None, routes=(18, 23))
+K13_ROWS = kernel.Family(word=64, q_bits=62, takes=(1, 9), routes=None)
+K14 = kernel.Family(word=64, q_bits=62, takes=None, routes=(14, 23))
 
 
 def takes(plan: RNSMergePlan) -> bool:
-    """Plans K12 takes: u64, every q < 2^62, logn 11-17."""
-    return _narrow(plan) and 11 <= plan.logn <= 17
+    """Plans K12 takes (`K12.takes`)."""
+    return K12.admits(plan.is64, max(plan.qs), plan.logn)
 
 
 def covers(plan: RNSMergePlan) -> bool:
-    """Plans whose transforms dispatch sends to K12: logn 12-17 (with a
+    """Plans whose transforms dispatch sends to K12 (`K12.routes`, with a
     genuine root for every member, which dispatch checks)."""
-    return _narrow(plan) and 12 <= plan.logn <= 17
+    return K12.covers(plan.is64, max(plan.qs), plan.logn)
 
 
 def covers_large(plan: RNSMergePlan) -> bool:
-    """Plans whose transforms dispatch sends to K13: logn 18-23, the JAX
-    route's top (gpuntt_tpu/ops/dispatch.py:560)."""
-    return _narrow(plan) and 18 <= plan.logn <= 23
-
-
-def schedule(owner, mod_idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """`mod_idx` (normalised, int64) as an int32 tensor on `device`,
-    copied once per schedule and cached on `owner` (an RNS 4-step plan): a
-    host-to-device copy from pageable memory waits for the stream, which
-    would hold the host back on every call.  Counted under tracing's
-    schedule.hit / schedule.miss."""
-    cache = owner._lazy.setdefault("schedules", {})
-    key = (str(device), np.asarray(mod_idx, dtype=np.int64).tobytes())
-    if key in cache:
-        tracing.outcome("schedule.hit", "schedule", "hit")
-        return cache[key]
-    tracing.outcome("schedule.miss", "schedule", "miss")
-    if len(cache) >= 64:
-        cache.clear()
-    cache[key] = torch.from_numpy(np.asarray(mod_idx, dtype=np.int32)).to(device)
-    return cache[key]
+    """Plans whose transforms dispatch sends to K13 (`K13.routes`, the
+    JAX route's top, gpuntt_tpu/ops/dispatch.py:560)."""
+    return K13.covers(plan.is64, max(plan.qs), plan.logn)
 
 
 # ------------------------------------------------------------------ plans
@@ -198,7 +183,7 @@ def large_plan(plan: RNSMergePlan) -> RNSColumnPlan:
     if "large" not in plan._lazy:
         plan._lazy["large"] = RNSColumnPlan.from_members([
             hml.LargePlan.from_spec(m.q, m.logn, m.root, m.iroot, m.xnp, m.n_inv,
-                                    a_col=hml._route_a_col(m.logn), device=m.device)
+                                    a_col=hml.route_a_col(m.logn), device=m.device)
             for m in plan.members])
     return plan._lazy["large"]
 
@@ -217,22 +202,18 @@ def fourstep_plan(plan) -> RNSColumnPlan:
 # ------------------------------------------------------------ plain versions
 
 
-def _row_schedule(midx: torch.Tensor, shift: int) -> torch.Tensor:
-    return midx.repeat_interleave(1 << shift) if shift else midx
-
-
 def rns_u64_fwd_plain(x, plan: RNSMergePlan, midx, shift: int = 0):
-    return per_modulus(hm.merge_u64_fwd_plain, plan.members, _row_schedule(midx, shift), x)
+    return per_modulus(hm.merge_u64_fwd_plain, plan.members, row_schedule(midx, shift), x)
 
 
 def rns_u64_inv_plain(x, plan: RNSMergePlan, midx, shift: int = 0):
-    return per_modulus(hm.merge_u64_inv_plain, plan.members, _row_schedule(midx, shift), x)
+    return per_modulus(hm.merge_u64_inv_plain, plan.members, row_schedule(midx, shift), x)
 
 
 def rns_u64_polymul_inv_plain(fa, fb, plan: RNSMergePlan, midx, shift: int = 0):
     """Each modulus's Barrett product (barrett_mul64), then its inverse."""
     return per_modulus(hm.merge_u64_polymul_inv_plain, plan.members,
-                        _row_schedule(midx, shift), fa, fb)
+                        row_schedule(midx, shift), fa, fb)
 
 
 def colfwd_plain(x, sp: RNSColumnPlan, midx):
@@ -245,7 +226,7 @@ def colinv_plain(x, sp: RNSColumnPlan, midx):
 
 def rowmat_plain(x, plan: RNSMergePlan, midx, shift: int, inverse: bool):
     return per_modulus(lambda v, mp: hml.rowmat_plain(v, mp, inverse), plan.members,
-                        _row_schedule(midx, shift), x)
+                        row_schedule(midx, shift), x)
 
 
 def col4_plain(x, sp: RNSColumnPlan, midx, inverse: bool):
@@ -255,73 +236,33 @@ def col4_plain(x, sp: RNSColumnPlan, midx, inverse: bool):
 # ------------------------------------------------------------------ wrappers
 
 
-def _check(x: torch.Tensor, n: int, device: torch.device, midx: torch.Tensor,
-           shift: int, dtypes: tuple = (torch.int64,)) -> None:
-    """Refuse an operand the kernels do not take: x must be a contiguous
-    (batch, n) tensor of one of `dtypes` on `device`, midx an int32
-    schedule there of one entry per ring of 2^shift rows."""
-    if (x.dtype not in dtypes or x.dim() != 2 or x.shape[1] != n
-            or not x.is_contiguous() or x.device != device):
-        words = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-        raise NTTDispatchError(
-            f"expected a contiguous (batch, {n}) {words} tensor on {device}, got "
-            f"{tuple(x.shape)} {x.dtype} on {x.device} contiguous={x.is_contiguous()}")
-    if (midx.dtype != torch.int32 or midx.dim() != 1 or midx.device != device
-            or midx.numel() << shift != x.shape[0]):
-        raise NTTDispatchError(
-            f"expected an int32 schedule of {x.shape[0] >> shift} entries on {device}, got "
-            f"{tuple(midx.shape)} {midx.dtype} on {midx.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise NTTDeviceError(f"no RNS kernel for {x.device}")
-
-
-def _lib(name: str):
-    from ._build import library
-
-    return library(name)
-
-
-def _k12(stats: KernelStats, plain, entry: str, plan: RNSMergePlan, midx, shift, inverse,
-         *xs):
-    # every q < 2^62: the lazy butterflies hold values below 4q < 2^64
-    hm.lazy_bound(stats.name, max(plan.qs))
-    if not takes(plan):
-        raise NTTDispatchError(
-            f"rns_u64 kernels take u64 plans with every q < 2^62 and logn 11-17, got "
-            f"logn={plan.logn} is64={plan.is64}")
-    for x in xs:
-        _check(x, plan.n, plan.device, midx, shift)
-    if xs[0].device.type == "cpu":
-        stats.plain_calls += 1
-        return plain(*xs, plan, midx, shift)
+def _k12(stats: KernelStats, plain, plan: RNSMergePlan, midx, shift, inverse, *xs):
+    K12.admit(stats.name, plan.is64, max(plan.qs), plan.logn)
+    kernel.check(stats.name, (plan.n,), plan.device, *xs, midx=midx, shift=shift)
     table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
                     else (plan.fwd_tables, plan.fwd_shoup))
-    y = torch.empty_like(xs[0])
-    _launch(stats, getattr(_lib("merge_u64"), entry), xs[0], *(x.data_ptr() for x in xs),
-            y.data_ptr(), xs[0].shape[0], plan.logn, hm.split(plan.logn), midx.data_ptr(),
-            midx.numel(), shift, table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(),
-            int(plan.xnp))
-    return y
+    return kernel.call(stats, xs, plain, (*xs, plan, midx, shift), stats.name, lambda: (
+        plan.logn, hm.split(plan.logn), midx.data_ptr(), midx.numel(), shift, table.data_ptr(),
+        shoup.data_ptr(), plan.consts.data_ptr(), int(plan.xnp)))
 
 
 def rns_u64_fwd(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor,
                 shift: int = 0) -> torch.Tensor:
     """K12 forward: row r under modulus midx[r >> shift]."""
-    return _k12(FORWARD, rns_u64_fwd_plain, "rns_u64_forward", plan, midx, shift, False, x)
+    return _k12(FORWARD, rns_u64_fwd_plain, plan, midx, shift, False, x)
 
 
 def rns_u64_inv(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor,
                 shift: int = 0) -> torch.Tensor:
     """K12 inverse, each row's n^-1 last."""
-    return _k12(INVERSE, rns_u64_inv_plain, "rns_u64_inverse", plan, midx, shift, True, x)
+    return _k12(INVERSE, rns_u64_inv_plain, plan, midx, shift, True, x)
 
 
 def rns_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor, plan: RNSMergePlan,
                         midx: torch.Tensor, shift: int = 0) -> torch.Tensor:
     """K12's fused inverse: INTT(fa o fb) per row, the Barrett product
     with the row's modulus fused into the first load."""
-    return _k12(POLYMUL_INVERSE, rns_u64_polymul_inv_plain, "rns_u64_polymul_inverse", plan,
-                midx, shift, True, fa, fb)
+    return _k12(POLYMUL_INVERSE, rns_u64_polymul_inv_plain, plan, midx, shift, True, fa, fb)
 
 
 class Prepared(NamedTuple):
@@ -339,13 +280,9 @@ class Prepared(NamedTuple):
 def prepare(plan: RNSMergePlan, midx: torch.Tensor) -> Prepared:
     """The Prepared product of `plan` (on a card) over midx.numel() rows,
     row r under modulus midx[r]; refused as the wrappers refuse a plan."""
-    hm.lazy_bound(POLYMUL_INVERSE.name, max(plan.qs))
-    if not takes(plan):
-        raise NTTDispatchError(
-            f"rns_u64 kernels take u64 plans with every q < 2^62 and logn 11-17, got "
-            f"logn={plan.logn} is64={plan.is64}")
+    K12.admit(POLYMUL_INVERSE.name, plan.is64, max(plan.qs), plan.logn)
     rows = midx.numel()
-    return Prepared(_lib("merge_u64").rns_u64_polymul, rows, plan.n, plan.device, midx,
+    return Prepared(kernel.library("merge_u64").rns_u64_polymul, rows, plan.n, plan.device, midx,
                     (rows, plan.logn, hm.split(plan.logn), midx.data_ptr(), rows, 0,
                      *(t.data_ptr() for t in (plan.fwd_tables, plan.fwd_shoup,
                                               plan.inv_tables, plan.inv_shoup, plan.consts)),
@@ -360,50 +297,42 @@ def rns_u64_polymul(a: torch.Tensor, b: torch.Tensor, prepared: Prepared) -> tor
     a, b = a.contiguous(), b.contiguous()
     if not (a.dtype == b.dtype == torch.int64 and a.shape == b.shape == (p.rows, p.n)
             and a.device == b.device == p.device):
-        for x in (a, b):
-            _check(x, p.n, p.device, p.midx, 0)
+        for x in (a, b):  # each as the forward of it would refuse it
+            kernel.check(FORWARD.name, (p.n,), p.device, x, midx=p.midx)
     spectra = torch.empty((2, p.rows, p.n), dtype=torch.int64, device=p.device)
     y = torch.empty_like(a)
     fa = spectra.data_ptr()
-    _launch(POLYMUL_INVERSE, p.fn, a, a.data_ptr(), b.data_ptr(), fa, fa + 8 * a.numel(),
-            y.data_ptr(), *p.args, kernel="rns_u64_polymul")
+    kernel.launch(POLYMUL_INVERSE, p.fn, a, a.data_ptr(), b.data_ptr(), fa, fa + 8 * a.numel(),
+                  y.data_ptr(), *p.args, kernel="rns_u64_polymul")
     FORWARD.launches += 2
     return y
 
 
-def _col13(stats: KernelStats, entry: str, x, sp: RNSColumnPlan, midx, inverse: bool):
-    # every q < 2^62: K7's lazy butterflies hold values below 4q < 2^64
-    if not _narrow(sp.col):
-        raise NTTDispatchError(f"{stats.name} takes u64 plans with every q < 2^62, got "
-                               f"{list(sp.col.qs)}")
-    lp = sp.first
-    _check(x, lp.n, sp.device, midx, 0)
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return (colinv_plain if inverse else colfwd_plain)(x, sp, midx)
-    col = sp.col
+def _col13(stats: KernelStats, x, sp: RNSColumnPlan, midx, inverse: bool):
+    col, lp = sp.col, sp.first
+    K13.admit(stats.name, col.is64, max(col.qs), lp.logn)
+    kernel.check(stats.name, (lp.n,), sp.device, x, midx=midx)
     if inverse:
         tables = (col.inv_tables, col.inv_shoup, sp.wt_inv, sp.wt_inv_shoup, sp.ws_inv,
                   sp.ws_inv_shoup)
     else:
         tables = (col.fwd_tables, col.fwd_shoup, sp.wt_fwd, sp.wt_fwd_shoup, sp.ws_fwd,
                   sp.ws_fwd_shoup)
-    y = torch.empty_like(x)
-    _launch(stats, getattr(_lib("merge_u64_large"), entry), x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], col.logn, lp.B.bit_length() - 1, midx.data_ptr(),
-            *(t.data_ptr() for t in tables), lp.tile.bit_length() - 1, col.consts.data_ptr(),
-            int(col.xnp))
-    return y
+    return kernel.call(stats, (x,), colinv_plain if inverse else colfwd_plain, (x, sp, midx),
+                       stats.name, lambda: (
+                           col.logn, lp.B.bit_length() - 1, midx.data_ptr(),
+                           *(t.data_ptr() for t in tables), lp.tile.bit_length() - 1,
+                           col.consts.data_ptr(), int(col.xnp)))
 
 
 def rns_u64_large_colfwd(x: torch.Tensor, sp: RNSColumnPlan, midx: torch.Tensor):
     """K13's column kernel forward on a contiguous (batch, A * B) tensor."""
-    return _col13(LARGE_COLFWD, "rns_u64_large_colfwd", x, sp, midx, False)
+    return _col13(LARGE_COLFWD, x, sp, midx, False)
 
 
 def rns_u64_large_colinv(x: torch.Tensor, sp: RNSColumnPlan, midx: torch.Tensor):
     """K13's column kernel inverse on a contiguous (batch, A * B) tensor."""
-    return _col13(LARGE_COLINV, "rns_u64_large_colinv", x, sp, midx, True)
+    return _col13(LARGE_COLINV, x, sp, midx, True)
 
 
 def rns_u64_large_rowmat(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor,
@@ -412,55 +341,40 @@ def rns_u64_large_rowmat(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor
     with the stacked B-point row plans: row r under modulus
     midx[r >> shift].  A block's 2^12 / B rows must lie in one ring of
     2^shift rows (they do whenever the ring has >= 2^12 words)."""
-    # every q < 2^62: K8's lazy butterflies hold values below 4q < 2^64
-    if not (_narrow(plan) and 1 <= plan.logn <= 9):
-        raise NTTDispatchError(
-            f"rns_u64_large_rowmat takes u64 row plans with every q < 2^62 and logn 1-9, "
-            f"got logn={plan.logn} is64={plan.is64}")
+    K13_ROWS.admit(LARGE_ROWMAT.name, plan.is64, max(plan.qs), plan.logn)
     if ROW_TILE_LOG - plan.logn > shift:
         raise NTTDispatchError(
             f"rows of 2^{plan.logn} words in rings of 2^{shift} rows: a block of "
             f"2^{ROW_TILE_LOG - plan.logn} rows would span two rings")
-    _check(x, plan.n, plan.device, midx, shift)
-    if x.device.type == "cpu":
-        LARGE_ROWMAT.plain_calls += 1
-        return rowmat_plain(x, plan, midx, shift, inverse)
+    kernel.check(LARGE_ROWMAT.name, (plan.n,), plan.device, x, midx=midx, shift=shift)
     table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
                     else (plan.fwd_tables, plan.fwd_shoup))
-    y = torch.empty_like(x)
-    _launch(LARGE_ROWMAT, _lib("merge_u64_large").rns_u64_large_rowmat, x, x.data_ptr(),
-            y.data_ptr(), x.shape[0], plan.logn, midx.data_ptr(), midx.numel(), shift,
-            table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(), int(inverse),
-            int(plan.xnp))
-    return y
+    return kernel.call(LARGE_ROWMAT, (x,), rowmat_plain, (x, plan, midx, shift, inverse),
+                       LARGE_ROWMAT.name, lambda: (
+                           plan.logn, midx.data_ptr(), midx.numel(), shift, table.data_ptr(),
+                           shoup.data_ptr(), plan.consts.data_ptr(), int(inverse),
+                           int(plan.xnp)))
 
 
 def rns_fourstep_u64_col(x: torch.Tensor, sp: RNSColumnPlan, midx: torch.Tensor,
                          inverse: bool) -> torch.Tensor:
     """K14 on a contiguous (batch, N) tensor in the (n2, n1) layout; the
     result in the (n1, n2) layout."""
-    kp = sp.first
-    # every q < 2^62: K9's lazy butterflies hold values below 4q < 2^64
-    if not kp.is64 or kp.n1 > hf.COL_MAX or not _narrow(sp.col):
-        raise NTTDispatchError(f"{FOURSTEP_COL.name} takes u64 plans with n1 <= "
-                               f"{hf.COL_MAX} and every q < 2^62, got is64={kp.is64} "
-                               f"n1={kp.n1} q={list(sp.col.qs)}")
-    _check(x, kp.n, sp.device, midx, 0)
-    if x.device.type == "cpu":
-        FOURSTEP_COL.plain_calls += 1
-        return col4_plain(x, sp, midx, inverse)
-    col = sp.col
+    col, kp = sp.col, sp.first
+    K14.admit(FOURSTEP_COL.name, kp.is64, max(col.qs), kp.logn)
+    if kp.n1 > hf.COL_MAX:
+        raise NTTDispatchError(f"{FOURSTEP_COL.name} takes plans with n1 <= {hf.COL_MAX}, "
+                               f"got n1={kp.n1}")
+    kernel.check(FOURSTEP_COL.name, (kp.n,), sp.device, x, midx=midx)
     tables = ((col.inv_tables, col.inv_shoup, sp.wt_inv, sp.wt_inv_shoup, sp.ws_inv,
                sp.ws_inv_shoup) if inverse else
               (col.fwd_tables, col.fwd_shoup, sp.wt_fwd, sp.wt_fwd_shoup, sp.ws_fwd,
                sp.ws_fwd_shoup))
     entry = f"rns_fourstep_u64_col_{'inv' if inverse else 'fwd'}"
-    y = torch.empty_like(x)
-    _launch(FOURSTEP_COL, getattr(_lib("fourstep"), entry), x, x.data_ptr(), y.data_ptr(),
-            x.shape[0], kp.n1.bit_length() - 1, kp.n2.bit_length() - 1,
-            kp.tile.bit_length() - 1, kp.w_tile.bit_length() - 1, midx.data_ptr(),
-            *(t.data_ptr() for t in tables), col.consts.data_ptr())
-    return y
+    return kernel.call(FOURSTEP_COL, (x,), col4_plain, (x, sp, midx, inverse), entry, lambda: (
+        kp.n1.bit_length() - 1, kp.n2.bit_length() - 1, kp.tile.bit_length() - 1,
+        kp.w_tile.bit_length() - 1, midx.data_ptr(), *(t.data_ptr() for t in tables),
+        col.consts.data_ptr()))
 
 
 # --------------------------------------------------------------- composition
@@ -485,7 +399,7 @@ PLAIN_STEPS = _Steps(rns_u64_fwd_plain, rns_u64_inv_plain, rns_u64_polymul_inv_p
 def _rows(r, plan: RNSMergePlan, midx, shift: int, inverse: bool, steps: _Steps):
     """The rows of a composition, 2^shift per ring: K13's row kernel up to
     512 words, K12 above."""
-    if plan.logn <= 9:
+    if K13_ROWS.takes_ring(plan.logn):
         return steps.rowmat(r, plan, midx, shift, inverse)
     return (steps.inv if inverse else steps.fwd)(r, plan, midx, shift)
 

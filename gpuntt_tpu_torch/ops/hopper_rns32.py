@@ -30,15 +30,15 @@ Each wrapper takes contiguous (batch, N) tensors of u32 values on the
 plan's device, all int64 lanes or all int32 lanes (4-byte words, for
 ladders held as 32-bit words: every q < 2^30, so residues fit a
 non-negative int32), and an int32 schedule `midx` on that device with
-one entry in [0, mod_count) per ring of 2^shift rows
-(hopper_rns.schedule caches it); the output has the operands' dtype.  On
+one entry in [0, mod_count) per ring of 2^shift rows (dispatch's
+route keeps it, rns.schedule_memo); the output has the operands' dtype.  On
 int32 lanes the kernels read and write 4-byte words themselves (the
 rns_u32_*_i32 entries of merge_u32.cu): no pass widens or narrows them.
 On a CPU tensor a wrapper runs the kernel's plain version — each
 modulus's rows through hopper_merge32's plain versions with that
 member's plan, int32 lanes widened for them and the result narrowed —
-and only there; on a CUDA tensor it launches the kernel or raises.
-Every launch adds one to its kernel's `launches`, every plain-version
+and only there; on a CUDA tensor it launches the kernel (through
+ops/kernel.py) or raises.  Every launch adds one to its kernel's `launches`, every plain-version
 call through a wrapper one to `plain_calls`; `tracing.reset()` zeroes
 both.  The `*_plain` functions run the plain versions alone, on any
 device, which is how the kernels are checked on the card.
@@ -49,11 +49,14 @@ from __future__ import annotations
 import torch
 
 from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from . import barrett as bo
 from . import hopper_merge32 as hm32
-from .hopper_merge import KernelStats, _launch
-from .hopper_rns import _check, _row_schedule
-from .rns import RNSMergePlan, per_modulus
+from . import kernel
+from .rns import RNSMergePlan, per_modulus, row_schedule
+
+# the u32 family's lazy butterflies over stacked tables, every q with 4q < 2^32
+FAMILY = kernel.Family(word=32, q_bits=30, takes=(8, 25), routes=(8, 25))
 
 
 def _stats(direction: str, tpu: str, site: str) -> KernelStats:
@@ -83,11 +86,10 @@ def tpu_kernel(logn: int) -> str:
 
 
 def covers(plan: RNSMergePlan) -> bool:
-    """Plans whose transforms dispatch sends here: u32, every q < 2^30,
-    logn 8-25, with the stacked tables (dispatch checks the genuine
-    root of every member)."""
-    return (not plan.is64 and max(plan.qs) < 1 << 30 and 8 <= plan.logn <= 25
-            and plan.fwd_tables is not None)
+    """Plans whose transforms dispatch sends here: `FAMILY.routes`, with
+    the stacked tables (dispatch checks the genuine root of every
+    member)."""
+    return FAMILY.covers(plan.is64, max(plan.qs), plan.logn) and plan.fwd_tables is not None
 
 
 # ------------------------------------------------------------ plain versions
@@ -96,7 +98,7 @@ def covers(plan: RNSMergePlan) -> bool:
 def _per_modulus(fn, plan: RNSMergePlan, midx, shift: int, *xs):
     """fn on each modulus's rows, on int64 lanes: int32 operands are
     widened for it and the result narrowed back to int32."""
-    out = per_modulus(fn, plan.members, _row_schedule(midx, shift), *(x.long() for x in xs))
+    out = per_modulus(fn, plan.members, row_schedule(midx, shift), *(x.long() for x in xs))
     return out.to(xs[0].dtype)
 
 
@@ -121,38 +123,23 @@ def rns_u32_polymul_inv_plain(fa, fb, plan: RNSMergePlan, midx, shift: int = 0):
 # ------------------------------------------------------------------ wrappers
 
 
-def _lib():
-    from ._build import library
-
-    return library("merge_u32")
-
-
 # the lanes the kernels take, and the suffix of their C entries
 WORDS = {torch.int64: "", torch.int32: "_i32"}
-_DTYPES = tuple(WORDS)
 
 
 def _run(family: dict, plain, entry: str, plan: RNSMergePlan, midx, shift: int,
          inverse: bool, *xs):
-    if not covers(plan):
-        raise NTTDispatchError(
-            f"rns_u32 kernels take u32 plans with stacked tables, every q < 2^30 and logn "
-            f"8-25, got logn={plan.logn} is64={plan.is64} qs={plan.qs}")
-    for x in xs:
-        _check(x, plan.n, plan.device, midx, shift, _DTYPES)
-        if x.dtype != xs[0].dtype:
-            raise NTTDispatchError(f"operands of one dtype, got {[v.dtype for v in xs]}")
     stats = family[tpu_kernel(plan.logn)]
-    if xs[0].device.type == "cpu":
-        stats.plain_calls += 1
-        return plain(*xs, plan, midx, shift)
-    y, log_a = torch.empty_like(xs[0]), hm32.split(plan.logn)
-    _launch(stats, getattr(_lib(), entry + WORDS[xs[0].dtype]), xs[0],
-            *(x.data_ptr() for x in xs), y.data_ptr(),
-            xs[0].shape[0], plan.logn, log_a, midx.data_ptr(), midx.numel(),
-            shift, hm32.packed_tables(plan)[int(inverse)].data_ptr(), plan.consts.data_ptr(),
-            int(plan.xnp), log_a=log_a)
-    return y
+    FAMILY.admit(stats.name, plan.is64, max(plan.qs), plan.logn)
+    if plan.fwd_tables is None:
+        raise NTTDispatchError(f"{stats.name} takes plans with stacked tables")
+    kernel.check(stats.name, (plan.n,), plan.device, *xs, dtypes=tuple(WORDS), midx=midx,
+                 shift=shift)
+    log_a = hm32.split(plan.logn)
+    return kernel.call(stats, xs, plain, (*xs, plan, midx, shift), entry + WORDS[xs[0].dtype],
+                       lambda: (plan.logn, log_a, midx.data_ptr(), midx.numel(), shift,
+                                hm32.packed_tables(plan)[int(inverse)].data_ptr(),
+                                plan.consts.data_ptr(), int(plan.xnp)), log_a=log_a)
 
 
 def rns_u32_fwd(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor,

@@ -102,8 +102,9 @@ class MergePlan:
     def bigring(self) -> bool:
         """Every transform of this plan takes the big-ring kernels (the
         route "hopper-merge-large"), so it needs no N-entry table."""
-        return (self.is64 and self.q < (1 << 62) and 18 <= self.logn <= 28
-                and self.genuine_root)
+        from .hopper_merge_large import covers
+
+        return covers(self) and self.genuine_root
 
     @staticmethod
     def from_params(p: NTTParameters, device=None,

@@ -79,7 +79,8 @@ class RNSMergePlan:
     device: torch.device
     params: tuple | None = None
     _moved: dict = dataclasses.field(default_factory=dict, repr=False)
-    # lazily built: "large" (hopper_rns' K13 plan), "routes" (dispatch's route memo)
+    # lazily built: "large" (hopper_rns' K13 plan), "routes" (dispatch's route memo,
+    # schedule_memo)
     _lazy: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -245,6 +246,32 @@ def checked_schedule(mod_idx, mod_count: int, rows: int) -> np.ndarray:
     if len(mod_idx) != rows:
         raise NTTScheduleError(f"a schedule of {len(mod_idx)} entries for {rows} rows")
     return mod_idx
+
+
+def row_schedule(midx: torch.Tensor, shift: int) -> torch.Tensor:
+    """A schedule of one entry per ring of 2^shift rows as one entry per
+    row."""
+    return midx.repeat_interleave(1 << shift) if shift else midx
+
+
+def schedule_memo(owner, slot: str, key, derive):
+    """What derive() gives for `key`, kept in owner._lazy[slot] (owner an
+    RNS plan on its device): derived once per key, so that the schedule's
+    check and its host-to-device copy, which waits for the stream, are
+    not repeated on every call; 64 keys at most, the memo cleared when
+    full.  The lookup counts under tracing's schedule.hit /
+    schedule.miss (a miss once derive() has returned)."""
+    memo = owner._lazy.setdefault(slot, {})
+    value = memo.get(key)
+    if value is None:
+        value = derive()
+        tracing.outcome("schedule.miss", "schedule", "miss")
+        if len(memo) >= 64:
+            memo.clear()
+        memo[key] = value
+    else:
+        tracing.outcome("schedule.hit", "schedule", "hit")
+    return value
 
 
 def rns_ntt_lanes(x: torch.Tensor, plan: RNSMergePlan, mod_idx) -> torch.Tensor:

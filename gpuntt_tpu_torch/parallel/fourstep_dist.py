@@ -70,9 +70,9 @@ COLMAT_TILE = 128  # K7''s W tile: any shard width of whole tiles takes it
 def _sub_plan(plan: FourStepPlan, nloc: int) -> MergePlan:
     """The nloc-point X^nloc - 1 merge plan of root^(N / nloc), n_inv = 1."""
     q, k = plan.q, plan.n // nloc
-    return hml._merge_plan(q, nloc.bit_length() - 1, False, pow(plan.root, k, q),
-                           pow(plan.iroot, k, q), 1, plan.device,
-                           np.uint64 if plan.is64 else np.uint32)
+    return hml.sub_plan(q, nloc.bit_length() - 1, False, pow(plan.root, k, q),
+                        pow(plan.iroot, k, q), 1, plan.device,
+                        np.uint64 if plan.is64 else np.uint32)
 
 
 def _colmat(plan: FourStepPlan) -> hml.LargePlan | None:
@@ -80,7 +80,7 @@ def _colmat(plan: FourStepPlan) -> hml.LargePlan | None:
     column phase at X^N - 1 with A = n1 IS the 4-step's column NTT then W,
     and n_inv = n2^-1 leaves the inverse column unscaled."""
     q = plan.q
-    if not (plan.is64 and q < 1 << 62 and 8 <= plan.n1 <= 512
+    if not (hml.COLUMNS.admits(plan.is64, q, plan.logn) and 8 <= plan.n1 <= 512
             and plan.poly == ReductionPolynomial.X_N_minus
             and pow(plan.root, plan.n, q) == 1 and plan.root * plan.iroot % q == 1):
         return None
@@ -92,8 +92,8 @@ def _colmat(plan: FourStepPlan) -> hml.LargePlan | None:
 def _w_columns(plan: FourStepPlan, root: int, j0: int, width: int) -> np.ndarray:
     """Columns j0 .. j0 + width - 1 of W[i, j] = root^(br(i) j), (n1, width)."""
     log1 = plan.n1.bit_length() - 1
-    return np.stack([hml._pows(pow(root, bitreverse(i, log1), plan.q), plan.q,
-                               j0 + width)[j0:] for i in range(plan.n1)])
+    return np.stack([hml.pows(pow(root, bitreverse(i, log1), plan.q), plan.q,
+                              j0 + width)[j0:] for i in range(plan.n1)])
 
 
 def _numpy(a) -> np.ndarray:

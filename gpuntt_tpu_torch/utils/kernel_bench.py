@@ -421,7 +421,7 @@ def _variant_libs(names) -> dict:
 
 
 def _variant_call(lib, w_mode: str, x, kp, inverse: bool, pairs: dict):
-    """One call of a variant's entry, as hopper_kmerge.launch makes it;
+    """One call of a variant's entry, as hopper_kmerge.kmerge makes it;
     `pairs` caches the "pair" layout's contiguous tables."""
     col, cols, wk, row, rows = kp.tables(inverse)
     ws = []

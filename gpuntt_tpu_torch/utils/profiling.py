@@ -26,9 +26,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..common.errors import NTTDeviceError, NTTDispatchError
+from ..common.errors import NTTDispatchError
+from ..common.tracing import KernelStats
 from ..ops import barrett as bo
-from ..ops.hopper_merge import KernelStats, _launch
+from ..ops import kernel
 from ..ops.limb import M32, from_numpy_u64, signed
 from .timing import time_cuda
 
@@ -103,12 +104,6 @@ def shoup_chain_plain(x: torch.Tensor, w: int, q: int, depth: int,
     return x
 
 
-def _lib():
-    from ..ops._build import library
-
-    return library("probe")
-
-
 def shoup_chain(x: torch.Tensor, w: int, q: int, depth: int, is64: bool) -> torch.Tensor:
     """The probe: shoup_chain_plain's chain in registers, one launch, on
     a contiguous 1-D int64 tensor (u64 words, or u32 values) on the card;
@@ -118,19 +113,9 @@ def shoup_chain(x: torch.Tensor, w: int, q: int, depth: int, is64: bool) -> torc
     if not 0 < w < q or q >= (1 << (63 if is64 else 31)):
         raise NTTDispatchError(f"{stats.name} takes 0 < w < q < 2^{63 if is64 else 31}, "
                                f"got w={w} q={q}")
-    if x.dtype != torch.int64 or x.dim() != 1 or not x.is_contiguous():
-        raise NTTDispatchError(f"expected a contiguous 1-D int64 tensor, got "
-                               f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        stats.plain_calls += 1
-        return shoup_chain_plain(x, w, q, depth, is64)
-    if x.device.type != "cuda":
-        raise NTTDeviceError(f"no probe kernel for {x.device}")
-    y = torch.empty_like(x)
-    entry = _lib().shoup_chain_u64 if is64 else _lib().shoup_chain_u32
-    _launch(stats, entry, x, x.data_ptr(), y.data_ptr(), x.numel(), depth, w,
-            companion(w, q, is64), q)
-    return y
+    kernel.check(stats.name, (), x.device, x)
+    return kernel.call(stats, (x,), shoup_chain_plain, (x, w, q, depth, is64), stats.name,
+                       lambda: (depth, w, companion(w, q, is64), q))
 
 
 # Defaults sized for the card: one launch must last long enough that the

@@ -32,9 +32,10 @@ import gpuntt_tpu as jg
 import gpuntt_tpu_torch as tg
 from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import dispatch as td
-from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
 from gpuntt_tpu_torch.ops import hopper_rns32 as hr32
+from gpuntt_tpu_torch.ops import kernel
+from gpuntt_tpu_torch.ops.rns import row_schedule
 from portbench import harness
 from portbench.reference import modpoly, primes
 from test_torch_merge import _emulate  # the host emulation of csrc/
@@ -174,7 +175,7 @@ def test_source_emulated_int32_entries(emu, capfd, logn, poly):
     for midx, shift in ((torch.tensor([2, 0, 1, 1], dtype=torch.int32), 0),
                         (torch.tensor([1, 2], dtype=torch.int32), 1)):
         rows = midx.numel() << shift
-        sched = hr32._row_schedule(midx, shift).numpy()
+        sched = row_schedule(midx, shift).numpy()
         x, w = residues(plan, sched, logn), residues(plan, sched, logn + 1)
         fx = hr32.rns_u32_fwd_plain(x, plan, midx, shift)
         fw = hr32.rns_u32_fwd_plain(w, plan, midx, shift)
@@ -329,8 +330,8 @@ def test_word_attr_on_launch_spans(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for dtype in (torch.int32, torch.int64):
-            hm._launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=dtype))
-    hm._launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=torch.int32))
+            kernel.launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=dtype))
+    kernel.launch(hr32.FORWARD["K16"], lambda *args: 0, torch.zeros(4, dtype=torch.int32))
     spans = tracing.snapshot()["spans"]
     assert [s["attrs"] for s in spans] == [{"kernel": hr32.FORWARD["K16"].name, "word": w}
                                            for w in (4, 8)]
@@ -346,8 +347,8 @@ def test_passes_attr_on_launch_spans(monkeypatch):
     x = torch.zeros(4, dtype=torch.int32)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for logn in (8, 13, 14, 15, 16, 25):
-            hm._launch(hr32.FORWARD["K16"], lambda *args: 0, x, log_a=hm32.split(logn))
-        hm._launch(hr32.FORWARD["K16"], lambda *args: 0, x)
+            kernel.launch(hr32.FORWARD["K16"], lambda *args: 0, x, log_a=hm32.split(logn))
+        kernel.launch(hr32.FORWARD["K16"], lambda *args: 0, x)
     assert [s["attrs"].get("passes") for s in tracing.snapshot()["spans"]] == \
         [1, 1, 1, 1, 2, 2, None]
 

@@ -25,6 +25,7 @@ from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_rns as hr
+from gpuntt_tpu_torch.ops import kernel
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64
 from test_torch_merge import _emulate  # the host emulation of csrc/
 
@@ -222,7 +223,7 @@ class _Stream:
 def emulated_prepare(emu, monkeypatch):
     """hopper_rns.prepare bound to the emulated library (card 0, any stream)."""
     lib = types.SimpleNamespace(rns_u64_polymul=lambda dev, *args: emu.rns_u64_polymul(0, *args))
-    monkeypatch.setattr(hr, "_lib", lambda name: lib)
+    monkeypatch.setattr(kernel, "library", lambda name: lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     return hr.prepare
 

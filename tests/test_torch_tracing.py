@@ -23,6 +23,7 @@ from gpuntt_tpu_torch.common import tracing
 from gpuntt_tpu_torch.ops import dispatch as td
 from gpuntt_tpu_torch.ops import hopper_merge as hm
 from gpuntt_tpu_torch.ops import hopper_rns as hr
+from gpuntt_tpu_torch.ops import kernel
 from gpuntt_tpu_torch.ops.limb import from_numpy_u64
 
 from portbench import harness
@@ -194,9 +195,9 @@ def test_launch_span_comes_from_launch(monkeypatch):
 
     x = torch.zeros(4, dtype=torch.int64)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        hm._launch(hm.FORWARD, fn, x, 1, 2)
+        kernel.launch(hm.FORWARD, fn, x, 1, 2)
         with pytest.raises(tg.NTTDeviceError):
-            hm._launch(hm.INVERSE, lambda *args: 700, x)
+            kernel.launch(hm.INVERSE, lambda *args: 700, x)
     spans = tracing.snapshot()["spans"]
     assert [(s["name"], s["attrs"], s["parent"]) for s in spans] == [
         ("ntt.launch", {"kernel": hm.FORWARD.name, "word": 8}, None),
