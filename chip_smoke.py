@@ -53,7 +53,11 @@ at once) and runs, on the card:
 13. CUDA-event times of each kernel and of its plain version, at the
    shape its path gave it, and of the big-ring and 4-step transforms
    end to end;
-14-17. the u64 RNS path (K12, K13, K14; `rns_phase`);
+14-17. the u64 RNS path (K12, K13, K14; `rns_phase`), with K12 at the
+   u64 HE cell's call, 2^15 x 240 on portbench's 15-prime ladder (a
+   whole ring on a cluster of eight blocks): every row against the plain
+   versions, the same outputs at the split of two launches a transform
+   (log A 7), and both splits' CUDA-event times;
 18-21. the u32 RNS path on the stacked u32 kernels (`rns32_phase`): u32
    2^16 x 128 on a ladder of 8 30-bit primes, X^N + 1, cyclic — ntt_rns,
    intt_rns, rns_polymul and RNSPolynomialMultiplier through the public
@@ -218,9 +222,10 @@ def device_kernels(fn) -> list:
 
 
 def old_split(entry: str, plan, midx, *xs):
-    """merge_u32.cu's int32-lane RNS entry `entry` at logn 15 with the split
-    it took before whole rings went on chip (log A 2: a column launch and a
-    row launch a transform), called directly on the current stream."""
+    """The RNS entry `entry` at logn 15 with the split it took before whole
+    rings went on chip, a column launch and a row launch a transform,
+    called directly on the current stream: merge_u64.cu's (log A 7) for a
+    u64 ladder, merge_u32.cu's on int32 lanes (log A 2) for a u32 one."""
     import ctypes
 
     import torch
@@ -228,15 +233,22 @@ def old_split(entry: str, plan, midx, *xs):
     from gpuntt_tpu_torch.ops import hopper_merge32 as hm32
     from gpuntt_tpu_torch.ops import kernel
 
+    inverse = not entry.endswith("_forward")
+    if plan.is64:
+        lib, name, log_a = "merge_u64", entry, 7
+        tables = ((plan.inv_tables, plan.inv_shoup) if inverse
+                  else (plan.fwd_tables, plan.fwd_shoup))
+    else:
+        lib, name, log_a = "merge_u32", entry + "_i32", 2
+        tables = (hm32.packed_tables(plan)[int(inverse)],)
     y = torch.empty_like(xs[0])
-    table = hm32.packed_tables(plan)[int(entry != "rns_u32_forward")]
-    rc = getattr(kernel.library("merge_u32"), entry + "_i32")(
+    rc = getattr(kernel.library(lib), name)(
         xs[0].device.index, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
-        plan.logn, 2, midx.data_ptr(), midx.numel(), 0, table.data_ptr(),
+        plan.logn, log_a, midx.data_ptr(), midx.numel(), 0, *(t.data_ptr() for t in tables),
         plan.consts.data_ptr(), int(plan.xnp),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc:
-        raise AssertionError(f"{entry}_i32 at log A 2: cudaError_t {rc}")
+        raise AssertionError(f"{name} at log A {log_a}: cudaError_t {rc}")
     return y
 
 
@@ -471,7 +483,50 @@ def rns_phase(dev, rng, reset, launches, err, times, bounds) -> None:
         four[logn] = (plan4, sp4, x, m8, cyc8, batch)
         del outs, pairs
 
+    # -- the u64 HE cell's call: 240 rows of 2^15 (8 ciphertext pairs) under
+    # portbench's he_std128_n15 ladder, 15 primes of 59 bits, X^N + 1,
+    # cyclic, on the whole-ring kernel (a ring on a cluster of eight
+    # blocks): the same outputs at the split of two launches a transform
+    # (log A 7).  The device trace's one kernel a transform is a card test
+    # (test_u64_launches_and_passes_per_transform_on_card): a profiler
+    # session here left the u32 section's session below without kernels.
+    cfg = json.loads((ROOT / "portbench" / "configs" / "he_std128_n15.json").read_text())
+    he = [g.NTTParameters(cfg["logn"], PLUS, np.uint64, factors=g.NTTFactors(
+        g.Modulus64(q), *g.ntt_root_pair(q, cfg["logn"]))) for q in cfg["primes"]]
+    plan15 = g.RNSMergePlan.from_params(he, device=dev)
+    cyc15 = np.arange(240) % len(he)
+    a15 = from_numpy_u64(residues(plan15.qs, cyc15, plan15.n), dev)
+    b15 = from_numpy_u64(residues(plan15.qs, cyc15, plan15.n), dev)
+    midx15 = torch.tensor(cyc15, dtype=torch.int32, device=dev)
+    cell15 = f"RNS u64 2^{cfg['logn']}x240 L15"
+    reset()
+    p15 = td.rns_polymul_lanes(a15, b15, plan15, cyc15)
+    run = counted()
+    check(run == {FWD: 2, PINV: 1}, f"{cell15} rns_polymul_lanes launched K12's product ({run})")
+    f15, fb15 = hr.rns_u64_fwd(a15, plan15, midx15), hr.rns_u64_fwd(b15, plan15, midx15)
+    same(FWD, f15, hr.rns_u64_fwd_plain(a15, plan15, midx15), f"{cell15} {FWD}, all rows,")
+    same(INV, hr.rns_u64_inv(f15, plan15, midx15), hr.rns_u64_inv_plain(f15, plan15, midx15),
+         f"{cell15} {INV}, all rows,")
+    same(PINV, p15, hr.rns_u64_polymul_inv_plain(f15, fb15, plan15, midx15),
+         f"{cell15} rns_polymul_lanes, all rows,")
+    steps15 = ((FWD, "rns_u64_forward", (a15,), lambda: hr.rns_u64_fwd(a15, plan15, midx15)),
+               (INV, "rns_u64_inverse", (f15,), lambda: hr.rns_u64_inv(f15, plan15, midx15)),
+               (PINV, "rns_u64_polymul_inverse", (f15, fb15),
+                lambda: hr.rns_u64_polymul_inv(f15, fb15, plan15, midx15)))
+    for name, entry, xs, fn in steps15:
+        check(torch.equal(old_split(entry, plan15, midx15, *xs), fn()),
+              f"{name} at {cell15} == itself at log A 7 (two launches)")
+
     # -- times: each RNS kernel at its cell (plain, kernel, kernel, plain), end to end
+    print(f"bound {cell15} per transform: {bound_ms(240, 15, 1, 16)}, fused inverse: "
+          f"{bound_ms(240, 15, 2, 16)}")
+    for name, entry, xs, fn in steps15:
+        e2e(f"{name} {cell15}", fn)
+        e2e(f"{name} at log A 7 (two launches) {cell15}",
+            lambda entry=entry, xs=xs: old_split(entry, plan15, midx15, *xs))
+    e2e(f"rns_polymul_lanes {cell15} end to end",
+        lambda: td.rns_polymul_lanes(a15, b15, plan15, cyc15))
+    del a15, b15, f15, fb15, p15
     cell = "RNS u64 2^16x64 L8"
     k12 = timed(FWD, lambda: hr.rns_u64_fwd(a, plan, midx),
                 lambda: hr.rns_u64_fwd_plain(a, plan, midx), bound_ms(64, 16, 1, 16), cell)

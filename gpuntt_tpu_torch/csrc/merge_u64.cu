@@ -29,12 +29,58 @@
 // card multiplies 64 x 64 -> 128 natively (__umul64hi), so the transform
 // is the reference's merge network of Shoup butterflies.
 //
-// Two launches through device memory.  A ring of N = 2^16 u64 is 512 KiB,
-// more than the 227 KB of shared memory a block can hold, so the ring is
-// viewed as an (A, B) matrix, element j at (j / B, j % B), with the
-// route's split B = 2^max(ceil(logn / 2), 7) (hopper_merge.split):
-// (log A, log B) = (4, 7), (5, 7), (6, 7), (7, 7), (7, 8), (8, 8), (8, 9)
-// at logn 11-17.
+// One launch a transform up to logn 15 (the route's split log A 0,
+// hopper_merge.split), two above.
+//
+// Whole rings, logn 11-15 (ring).  A ring of N = 2^15 u64 is 256 KiB, more
+// than the 227 KB of shared memory a block can hold, but not more than a
+// thread-block cluster holds: the ring lies on a cluster of
+// C = 2^max(logn - 12, 0) blocks (one plain block at logn 11-12, clusters
+// of 2, 4 and 8 at 13, 14 and 15), block c holding words [c T, (c + 1) T)
+// of it, T = N / C <= 2^12 (32 KiB of shared memory and its padding).
+// The ring's first r stages (r = 3 at logn 12 and 15, 2 at 11 and 14, 1
+// at 13: every stage that pairs words of two blocks, and the logn mod 3
+// stages a radix-8 network leaves over) are one pass whose items (2^r
+// words N / 2^r apart) span the cluster: forward, it reads x from device
+// memory and writes each word to the tile of the block that owns it,
+// through distributed shared memory (mapa and st.shared::cluster); one
+// cluster barrier later, stages r .. logn - 1 are full radix-8 passes
+// local to each block, and the tile goes out canonical, the lanes of a
+// warp on adjacent words.  The inverse mirrors it: the Barrett product
+// (or the reduce) on the first load, 16 bytes a lane, the local passes
+// from stage logn - 1 down, a cluster barrier, then stages r - 1 .. 0
+// reading every tile of the cluster and storing y times n^-1.  A cluster
+// barrier before a peer's tile is first written (forward) or after it is
+// last read (inverse), and one between the two phases: two a launch.  So
+// a transform reads and writes the batch once, where two launches did it
+// twice; the cost is the words of the first pass that cross the cluster
+// (7/8 of them at logn 15, 3/4 at 14, 1/2 at 13).
+//   What bounds it is not the bytes but the instructions.  At the u64 HE
+// product's call (240 rings of 2^15 under 15 moduli, an H100 at 700 W) a
+// forward moves 126 MB (0.038 ms at 3.35 TB/s) and takes ~0.144 ms.  Its
+// SASS issues ~300 instructions a word (~135 of them IMAD: 8.5 Shoup
+// products a word), ~0.072 ms at one instruction a clock on every
+// scheduler: the kernel runs at about half its issue bound, as the two
+// launches did, so one pass over device memory in place of two saves
+// ~6% (a forward 0.152 -> 0.144 ms, the product 0.486 -> 0.455 ms).
+// With a part taken out (outputs wrong): every butterfly, -52%; every
+// twiddle load, -6%; distributed shared memory, -10%.  The design holds
+// the instructions down: each thread's items of a pass are written out
+// (16 words a pass in flight, no loop), the cluster's peers are reached
+// by 32-bit shared::cluster addresses, a pass reads its ring's constants
+// where it uses them, and the forward's tile leaves through 8-byte
+// stores on adjacent words.  A cluster of 4 blocks of 2^13 words (72
+// KiB, 3 blocks an SM, 80 registers), which moves 3/4 of the words
+// across the cluster, was no faster: the product took +1.9% and -0.9% in
+// two turns, +52% with its four items a pass written out (PERF.md
+// section 6).
+//
+// Rows and columns, logn 16-17.  A ring of N = 2^16 u64 is 512 KiB, so the
+// ring is viewed as an (A, B) matrix, element j at (j / B, j % B), with
+// B = 2^max(ceil(logn / 2), 7): (log A, log B) = (8, 8), (8, 9) at logn
+// 16-17, the route's split there.  The entries also take this split at
+// logn 11-15 ((4, 7), (5, 7), (6, 7), (7, 7), (7, 8)), the route's before
+// whole rings, so that the two can be compared on the card.
 //   - Columns: the first log A stages pair elements B * t apart, an
 //     A-point network down each column; stage l, group i reads table
 //     entry i, offset by 2^l for X^N + 1.  A block takes C adjacent
@@ -47,9 +93,8 @@
 //     A block takes 2^12 words of whole rows of one ring (the whole ring
 //     at logn 11).
 // The inverse runs the Gentleman-Sande network the other way: rows
-// first, then columns, then n^-1.  Two launches a transform: one launch
-// over a cluster's distributed shared memory would halve the bytes, and
-// is not tried here.
+// first, then columns, then n^-1.  Two launches a transform: the ring does
+// not fit a cluster of 8 blocks at 4 an SM.
 //
 // Bound: each launch reads and writes the batch once (at 2^16 x 128, 64
 // MiB each way: 0.040 ms at 3.35 TB/s).  Its log A or log B / 2 Shoup
@@ -88,7 +133,9 @@
 //     block; 8-byte accesses otherwise).
 //   - Occupancy: every instance is compiled for 4 blocks an SM (64
 //     registers a thread, 32 warps; the tiles take 34-36 KiB of shared
-//     memory a block), and none spills.
+//     memory a block).  No row or column instance spills; six of the
+//     thirty whole-ring ones (logn 11-14) spill 4-16 bytes, none at logn
+//     15.
 // Measured against the alternatives (their times are in CHANGES.md, in
 // the entry of the K1-K3 redesign, and summed up in PERF.md section 6):
 // 32 columns a tile took 0-4% longer; an interleaved (w, ws) copy of the
@@ -96,9 +143,13 @@
 // table, and staging a block's row twiddles in shared memory cost
 // 10-20%; 3 blocks an SM (80 registers) took 2-6% longer.  The patch
 // that restored them as -D options is in the repository's history.
-// Tensor cores, TMA and clusters are not used: the work is 64-bit
-// integer arithmetic, which tensor cores do not do.
+// Tensor cores and TMA are not used: the work is 64-bit integer
+// arithmetic, which tensor cores do not do; clusters only for whole
+// rings, for their shared memory.  The whole-ring kernel's cluster size
+// depends on the ring, so it is launched with cudaLaunchKernelEx and a
+// cluster attribute rather than a compile-time __cluster_dims__.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -110,10 +161,14 @@
 namespace merge_u64 {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kRadix = 3;                               // radix-8 passes
 constexpr int kLogColTile = 12;                         // 2^12 words (32 KiB)
 constexpr int kLogRowTile = 12;                         // 2^12 words (32 KiB + padding)
+constexpr int kLogRingTile = 12;                        // a whole-ring block's words
+constexpr int kLogWhole = 15;                           // whole rings up to 2^15 words
 constexpr int kRowPad = 3;                              // one spare tile word after every 8
 constexpr int kMinBlocks = 4;                           // blocks an SM: 64 registers, no spill
 
@@ -323,11 +378,255 @@ rows(const uint64_t* a, const uint64_t* b, uint64_t* y, F fs, int xnp) {
                                               GlobalTw{f.tw, f.tws}});
 }
 
-// Shapes the kernels cover: the route's split at logn 11-17, and grids
-// within 2^31 blocks (the row grid is the larger, at most 2^5 a ring).
+// A whole ring of 2^kLogN words on a cluster of 2^kLogC blocks, block c
+// holding words [c T, (c + 1) T) in its padded tile, T = 2^kLogT.  The
+// cross pass runs the ring's stages 0 .. kR0 - 1, every stage that pairs
+// words of two blocks and the logn mod 3 stages that a radix-8 network
+// leaves over (all three where none is), so that every other pass is a
+// full radix-8 pass local to a block.  Its items (2^kR0 words N / 2^kR0
+// apart) have 2^kSub words in each block's tile.
+template <int kLogN>
+struct Whole {
+  static constexpr int kLogC = kLogN > kLogRingTile ? kLogN - kLogRingTile : 0;
+  static constexpr int kLogT = kLogN - kLogC;
+  static constexpr int kR0 = kLogN % kRadix >= kLogC && kLogN % kRadix ? kLogN % kRadix : kRadix;
+  static constexpr int kSub = kR0 - kLogC;
+  static constexpr int kQ = kLogN - kR0;  // log2 of the cross items' stride
+  static constexpr int kBytes = 8 * ((1 << kLogT) + ((1 << kLogT) >> kRowPad));
+  // every pass gives each thread the same number of items (written out)
+  static_assert(kSub >= 0 && (kLogN - kR0) % kRadix == 0, "");
+  static_assert((1 << (kLogT - kRadix)) % kThreads == 0, "");
+  static_assert(kBytes <= 48 * 1024, "");  // no opt-in to more dynamic shared memory
+};
+
+// A word of the tile of block `rank` of the cluster, through distributed
+// shared memory.  On the card a 32-bit shared::cluster address (mapa), so
+// that an item's eight addresses take eight registers, not sixteen; in a
+// host emulation the mapped pointer.
+struct PeerWord {
+#ifdef __CUDA_ARCH__
+  uint32_t a;
+  __device__ __forceinline__ PeerWord(const cg::cluster_group&, const uint64_t* local, int rank) {
+    asm("mapa.shared::cluster.u32 %0, %1, %2;"
+        : "=r"(a)
+        : "r"((uint32_t)__cvta_generic_to_shared(local)), "r"(rank));
+  }
+  __device__ __forceinline__ uint64_t get() const {
+    uint64_t v;
+    asm volatile("ld.shared::cluster.u64 %0, [%1];" : "=l"(v) : "r"(a));
+    return v;
+  }
+  __device__ __forceinline__ void set(uint64_t v) const {
+    asm volatile("st.shared::cluster.u64 [%0], %1;" ::"r"(a), "l"(v));
+  }
+#else
+  uint64_t* p;
+  __device__ __forceinline__ PeerWord(const cg::cluster_group& cluster, uint64_t* local,
+                                      int rank)
+      : p(cluster.map_shared_rank(local, rank)) {}
+  __device__ __forceinline__ uint64_t get() const { return *p; }
+  __device__ __forceinline__ void set(uint64_t v) const { *p = v; }
+#endif
+};
+
+// The passes of a block of a whole ring.  Block c of the cluster of ring
+// r holds words [c T, (c + 1) T) of it; a (and b) and y are the kernel's
+// operands, the ring's first word r N past them.  The cross pass's item k
+// of block c is the ring's item c T / 2^kR0 + k: word kk at ring word
+// kg + kk N / 2^kR0, in the tile of block kk >> kSub.  A local pass of
+// stages kL0 .. kL0 + 2 (kL0 >= kR0) runs on the block's own tile, its
+// items as those of a row pass over a row of T words at row c of a (C, T)
+// view: words p + kk S of the tile, S = 2^(logn - kL0 - 3), heap index
+// (c << (kL0 - log C)) + i0 at stage kL0, offset by 2^kL0 for X^N + 1.  A
+// thread's items of a pass (16 words from logn 12 on) are written out, so
+// that their loads are in flight together.  Only what every pass reads is
+// held (the table, its companion and q); r, c and a pass's own constants
+// (the reduce's or the product's, n^-1) are read again where they are used
+// (blockIdx, fs.at), so that no register holds them through the passes.
+template <int kLogN, bool kFwd, RowIn kFrom, class F>
+struct RingPasses {
+  using S = Whole<kLogN>;
+  const uint64_t* a;
+  const uint64_t* b;
+  uint64_t* y;
+  F fs;
+  int xnp;
+  bool wide;  // the inverse: the block's words of a (and b) start 16-byte aligned
+  uint64_t* s;
+  const uint64_t* tws_;
+  const uint64_t* tw_;
+  uint64_t q;
+
+  __device__ __forceinline__ static size_t ring() { return blockIdx.x >> S::kLogC; }
+  __device__ __forceinline__ static int c() { return blockIdx.x & ((1 << S::kLogC) - 1); }
+  // The ring's first word, and the block's first, past the operands'.
+  __device__ __forceinline__ static size_t off() { return ring() << kLogN; }
+  __device__ __forceinline__ static size_t blk() { return off() + ((size_t)c() << S::kLogT); }
+  __device__ __forceinline__ Lazy64 ar() const { return Lazy64{q, 2 * q}; }
+  __device__ __forceinline__ GlobalTw tw() const { return GlobalTw{tw_, tws_}; }
+
+  // The cross pass's word kk of the item at ring word kg, in its block's
+  // tile: this block's own at logn <= 12 (one block a ring).
+  __device__ __forceinline__ uint64_t* cross_word(int kk, int kg) const {
+    return s + radix::padded<kRowPad>(((kk & ((1 << S::kSub) - 1)) << S::kQ) + kg);
+  }
+  __device__ __forceinline__ uint64_t cross_get(const cg::cluster_group& cluster, int kk,
+                                                int kg) const {
+    if constexpr (S::kLogC == 0) return *cross_word(kk, kg);
+    return PeerWord(cluster, cross_word(kk, kg), kk >> S::kSub).get();
+  }
+  __device__ __forceinline__ void cross_set(const cg::cluster_group& cluster, int kk, int kg,
+                                            uint64_t v) const {
+    if constexpr (S::kLogC == 0)
+      *cross_word(kk, kg) = v;
+    else
+      PeerWord(cluster, cross_word(kk, kg), kk >> S::kSub).set(v);
+  }
+
+  // Stages 0 .. kR0 - 1.  Forward: x (any u64, reduced below 2q) to the
+  // tiles; inverse: the tiles to y, times n^-1.
+  __device__ __forceinline__ void cross(const cg::cluster_group& cluster) const {
+    constexpr int kR = S::kR0, kN = 1 << kR;
+    const Ring f = fs.at(ring());
+    const uint64_t* x = a + off();
+    uint64_t* out = y + off();
+#pragma unroll
+    for (int j = 0; j < (1 << (S::kLogT - kR)) / kThreads; ++j) {
+      const int kg = (c() << (S::kLogT - kR)) + threadIdx.x + j * kThreads;
+      uint64_t v[kN];
+#pragma unroll
+      for (int kk = 0; kk < kN; ++kk)
+        v[kk] = kFwd ? shoup_mul_lazy(__ldg(x + kg + (kk << S::kQ)), 1, f.one_s, q)
+                     : cross_get(cluster, kk, kg);
+      radix::network<kR, kFwd>(v, xnp, ar(), tw());
+#pragma unroll
+      for (int kk = 0; kk < kN; ++kk) {
+        if (kFwd)
+          cross_set(cluster, kk, kg, v[kk]);
+        else
+          out[kg + (kk << S::kQ)] = shoup_mul(v[kk], f.n_inv, f.n_inv_s, q);
+      }
+    }
+  }
+
+  // A local pass.  kIn (the inverse's first): the block's words of a (and
+  // b) in, 16 bytes a time where `wide` (the items' words are adjacent
+  // there, S = 1), reduced below 2q (kReduce) or their Barrett product
+  // (kProduct); the others read the tile.  Every local pass writes the tile.
+  template <int kL0, bool kIn>
+  __device__ __forceinline__ void local() const {
+    constexpr int kR = kRadix, kN = 1 << kR, kLogS = kLogN - kL0 - kR, kS = 1 << kLogS;
+    static_assert(kL0 >= S::kR0 && kLogS >= 0 && (!kIn || kLogS == 0), "");
+    const int cw = c() << S::kLogT;  // the block's first word in the ring
+#pragma unroll
+    for (int j = 0; j < (1 << (S::kLogT - kR)) / kThreads; ++j) {
+      const int k = threadIdx.x + j * kThreads;
+      const int i0 = k >> kLogS, p = (i0 << (kLogS + kR)) + (k & (kS - 1));
+      uint64_t v[kN];
+      if constexpr (kIn) {
+        const Ring f = fs.at(ring());
+        const auto in = [&](uint64_t u, uint64_t w) {
+          return kFrom == kProduct ? barrett_mul(u, w, q, f.bit, f.mu)
+                                   : shoup_mul_lazy(u, 1, f.one_s, q);
+        };
+        const uint64_t* x = a + blk() + p;
+        const uint64_t* z = b + blk() + p;
+        if (wide) {
+#pragma unroll
+          for (int h = 0; h < kN / 2; ++h) {
+            const ulonglong2 u = reinterpret_cast<const ulonglong2*>(x)[h];
+            const ulonglong2 w2 = kFrom == kProduct ? reinterpret_cast<const ulonglong2*>(z)[h] : u;
+            v[2 * h] = in(u.x, w2.x);
+            v[2 * h + 1] = in(u.y, w2.y);
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kN; ++kk) v[kk] = in(x[kk], kFrom == kProduct ? z[kk] : 0);
+        }
+      } else {
+        const uint64_t* t = s + radix::padded<kRowPad>(p);
+#pragma unroll
+        for (int kk = 0; kk < kN; ++kk) v[kk] = t[radix::padded_step<kRowPad>(kk, kS)];
+      }
+      radix::network<kR, kFwd>(v, (xnp << kL0) + ((cw + p) >> (kLogN - kL0)), ar(), tw());
+      uint64_t* t = s + radix::padded<kRowPad>(p);
+#pragma unroll
+      for (int kk = 0; kk < kN; ++kk) t[radix::padded_step<kRowPad>(kk, kS)] = v[kk];
+    }
+  }
+
+  // The forward's output: the tile's canonical words to the block's words
+  // of y, the lanes of a warp on adjacent words (no bank conflict, every
+  // store a run of 256 bytes).
+  __device__ __forceinline__ void tile_out() const {
+    uint64_t* out = y + blk();
+#pragma unroll 4
+    for (int j = 0; j < (1 << S::kLogT) / kThreads; ++j) {
+      const int w = threadIdx.x + j * kThreads;
+      out[w] = canon4(s[radix::padded<kRowPad>(w)], ar());
+    }
+  }
+};
+
+// The forward's local passes from stage kL0 on, then the tile out; a
+// barrier between two.
+template <int kLogN, int kL0, class P>
+__device__ __forceinline__ void forward_local(const P& p) {
+  p.template local<kL0, false>();
+  __syncthreads();
+  if constexpr (kL0 + kRadix < kLogN)
+    forward_local<kLogN, kL0 + kRadix>(p);
+  else
+    p.tile_out();
+}
+
+// The inverse's local passes of stages kTop - 1 down to kR0, the first of
+// them reading the input; a barrier between two.
+template <int kTop, int kR0, bool kFirst, class P>
+__device__ __forceinline__ void inverse_local(const P& p) {
+  p.template local<kTop - kRadix, kFirst>();
+  if constexpr (kTop - kRadix > kR0) {
+    __syncthreads();
+    inverse_local<kTop - kRadix, kR0, false>(p);
+  }
+}
+
+// Whole rings, either direction (see the note at the top).  Block =
+// (ring, c), a cluster of 2^kLogC blocks a ring.  Forward: a -> y, any
+// u64 reduced on load, canonical on store; inverse: a (kReduce) or a o b
+// (kProduct) -> y, times n^-1.  a may equal y: every word is read before
+// the cluster barrier that precedes its write.
+template <int kLogN, bool kFwd, RowIn kFrom, class F>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+ring(const uint64_t* a, const uint64_t* b, uint64_t* y, F fs, int xnp) {
+  extern __shared__ uint64_t smem[];
+  using P = RingPasses<kLogN, kFwd, kFrom, F>;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const Ring f = fs.at(P::ring());
+  const bool wide = aligned16(a + P::blk()) && (kFrom != kProduct || aligned16(b + P::blk()));
+  const P p{a, b, y, fs, xnp, wide, smem, f.tws, f.tw, f.q};
+  if (kFwd) {
+    cluster.sync();  // every tile of the cluster is there to be written
+    p.cross(cluster);
+    cluster.sync();
+    forward_local<kLogN, P::S::kR0>(p);
+  } else {
+    inverse_local<kLogN, P::S::kR0, true>(p);
+    cluster.sync();
+    p.cross(cluster);
+    cluster.sync();  // the peers read this block's tile until here
+  }
+}
+
+// Whether a transform of this split is one launch (ring).
+bool whole(int logn, int logA) { return logA == 0 && logn <= kLogWhole; }
+
+// Shapes the kernels cover: logn 11-17 at the split of rows and columns,
+// logn 11-15 whole (log A 0), and grids within 2^31 blocks (at most 2^5 a
+// ring).
 bool shape_ok(long long batch, int logn, int logA) {
-  return logn >= 11 && logn <= 17 && logA == logn - log_b(logn) && batch > 0 &&
-         batch < (1LL << 26);
+  return logn >= 11 && logn <= 17 && (logA == logn - log_b(logn) || whole(logn, logA)) &&
+         batch > 0 && batch < (1LL << 26);
 }
 
 int launch_status() {
@@ -365,6 +664,29 @@ int row_launch(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batc
   return launch_status();
 }
 
+// The whole-ring launch of either direction: a (and b) -> y, a cluster of
+// 2^kLogC blocks a ring.
+template <int kLogN, bool kFwd, RowIn kFrom, class F>
+int ring_launch(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, F f,
+                int xnp, cudaStream_t st) {
+  using S = Whole<kLogN>;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1u << S::kLogC;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch << S::kLogC));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = S::kBytes;
+  cfg.stream = st;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const auto k = ring<kLogN, kFwd, kFrom, F>;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k, a, b, y, f, xnp);
+  return e == cudaSuccess ? launch_status() : (int)e;
+}
+
 // fn(std::integral_constant<int, logn>) for the instance of `logn`.
 template <class Fn>
 int on_logn(int logn, Fn fn) {
@@ -380,26 +702,31 @@ int on_logn(int logn, Fn fn) {
   return (int)cudaErrorInvalidValue;
 }
 
+// logA 0 (logn <= 15): one whole-ring launch; otherwise columns, then rows.
 template <class F>
-int forward(const uint64_t* x, uint64_t* y, long long batch, int logn, F f, int xnp,
+int forward(const uint64_t* x, uint64_t* y, long long batch, int logn, int logA, F f, int xnp,
             cudaStream_t st) {
   return on_logn(logn, [&](auto n) {
     constexpr int kLogN = decltype(n)::value;
+    if constexpr (kLogN <= kLogWhole)
+      if (logA == 0) return ring_launch<kLogN, true, kReduce>(x, x, y, batch, f, xnp, st);
     if (int rc = col_launch<kLogN, true>(x, y, batch, f, xnp, st)) return rc;
     return row_launch<kLogN, true, kSame>(y, y, y, batch, f, xnp, st);
   });
 }
 
-// kMul: INTT(a o b); otherwise INTT(a) (b unused).
+// kMul: INTT(a o b); otherwise INTT(a) (b unused).  logA 0 (logn <= 15):
+// one whole-ring launch; otherwise rows, then columns.
 template <bool kMul, class F>
 int inverse(const uint64_t* a, const uint64_t* b, uint64_t* y, long long batch, int logn,
-            F f, int xnp, cudaStream_t st) {
+            int logA, F f, int xnp, cudaStream_t st) {
   return on_logn(logn, [&](auto n) {
     constexpr int kLogN = decltype(n)::value;
+    constexpr RowIn kFrom = kMul ? kProduct : kReduce;
     const uint64_t* bb = kMul ? b : a;
-    if (int rc = row_launch<kLogN, false, kMul ? kProduct : kReduce>(a, bb, y, batch, f, xnp,
-                                                                     st))
-      return rc;
+    if constexpr (kLogN <= kLogWhole)
+      if (logA == 0) return ring_launch<kLogN, false, kFrom>(a, bb, y, batch, f, xnp, st);
+    if (int rc = row_launch<kLogN, false, kFrom>(a, bb, y, batch, f, xnp, st)) return rc;
     return col_launch<kLogN, false>(y, y, batch, f, xnp, st);
   });
 }
@@ -432,7 +759,7 @@ int merge_u64_forward(int device, const uint64_t* x, uint64_t* y, long long batc
                       int logA, const uint64_t* tw, const uint64_t* tws, uint64_t q,
                       uint64_t one_s, int xnp, void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return forward(x, y, batch, logn, one_modulus(tw, tws, q, one_s), xnp,
+  return forward(x, y, batch, logn, logA, one_modulus(tw, tws, q, one_s), xnp,
                  (cudaStream_t)stream);
 }
 
@@ -441,7 +768,7 @@ int merge_u64_inverse(int device, const uint64_t* x, uint64_t* y, long long batc
                       uint64_t one_s, uint64_t n_inv, uint64_t n_inv_s, int xnp,
                       void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<false>(x, nullptr, y, batch, logn,
+  return inverse<false>(x, nullptr, y, batch, logn, logA,
                         one_modulus(tw, tws, q, one_s, n_inv, n_inv_s), xnp,
                         (cudaStream_t)stream);
 }
@@ -452,7 +779,7 @@ int merge_u64_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb
                               uint64_t mu, uint64_t n_inv, uint64_t n_inv_s, int xnp,
                               void* stream) {
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<true>(fa, fb, y, batch, logn,
+  return inverse<true>(fa, fb, y, batch, logn, logA,
                        one_modulus(tw, tws, q, 0, n_inv, n_inv_s, bit, mu), xnp,
                        (cudaStream_t)stream);
 }
@@ -463,7 +790,7 @@ int rns_u64_forward(int device, const uint64_t* x, uint64_t* y, long long batch,
                     void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return forward(x, y, batch, logn, rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
+  return forward(x, y, batch, logn, logA, rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
                  (cudaStream_t)stream);
 }
 
@@ -473,7 +800,7 @@ int rns_u64_inverse(int device, const uint64_t* x, uint64_t* y, long long batch,
                     void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<false>(x, nullptr, y, batch, logn,
+  return inverse<false>(x, nullptr, y, batch, logn, logA,
                         rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
                         (cudaStream_t)stream);
 }
@@ -485,14 +812,15 @@ int rns_u64_polymul_inverse(int device, const uint64_t* fa, const uint64_t* fb, 
                             void* stream) {
   if (!schedule_ok(batch, entries, shift)) return (int)cudaErrorInvalidValue;
   if (int rc = begin(device, batch, logn, logA)) return rc;
-  return inverse<true>(fa, fb, y, batch, logn,
+  return inverse<true>(fa, fb, y, batch, logn, logA,
                        rns(mod_idx, shift, logn, tw, tws, consts, xnp), xnp,
                        (cudaStream_t)stream);
 }
 
 // K12's product in one call: rns_u64_forward on a (a -> fa) and on b
-// (b -> fb), then rns_u64_polymul_inverse (fa, fb -> y), the same six
-// launches in that order.  fa and fb are the caller's scratch spectra.
+// (b -> fb), then rns_u64_polymul_inverse (fa, fb -> y), the same
+// launches in that order (three at log A 0, six otherwise).  fa and fb
+// are the caller's scratch spectra.
 int rns_u64_polymul(int device, const uint64_t* a, const uint64_t* b, uint64_t* fa,
                     uint64_t* fb, uint64_t* y, long long batch, int logn, int logA,
                     const int* mod_idx, long long entries, int shift, const uint64_t* fwd_tw,
@@ -502,9 +830,9 @@ int rns_u64_polymul(int device, const uint64_t* a, const uint64_t* b, uint64_t* 
   if (int rc = begin(device, batch, logn, logA)) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
   const Stacked fwd = rns(mod_idx, shift, logn, fwd_tw, fwd_tws, consts, xnp);
-  if (int rc = forward(a, fa, batch, logn, fwd, xnp, st)) return rc;
-  if (int rc = forward(b, fb, batch, logn, fwd, xnp, st)) return rc;
-  return inverse<true>(fa, fb, y, batch, logn,
+  if (int rc = forward(a, fa, batch, logn, logA, fwd, xnp, st)) return rc;
+  if (int rc = forward(b, fb, batch, logn, logA, fwd, xnp, st)) return rc;
+  return inverse<true>(fa, fb, y, batch, logn, logA,
                        rns(mod_idx, shift, logn, inv_tw, inv_tws, consts, xnp), xnp, st);
 }
 

@@ -80,8 +80,8 @@ schedule (its contents, so an array changed in place is routed anew) and
 kept on the plan: the checked schedule, its copy on the device and, for
 K12 on a card, the product's launch prepared once
 (`hopper_rns.prepare`), so that rns_polymul_lanes there is the operands'
-checks, two allocations and one C call of six launches
-(`hopper_rns.rns_u64_polymul`).
+checks, two allocations and one C call of three launches (six above
+logn 15; `hopper_rns.rns_u64_polymul`).
 
 Spans (common/tracing.py, recorded only under torch.profiler): each
 `*_lanes` entry of both families is an ntt.entry span and holds one

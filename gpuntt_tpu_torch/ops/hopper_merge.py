@@ -11,13 +11,17 @@ Pallas kernels:
 Each wrapper takes a contiguous (batch, N) int64 tensor of u64 bit
 patterns and a MergePlan on the same device.  On a CPU tensor it runs
 the kernel's plain version, and only there; on a CUDA tensor it
-launches the kernel or raises.  Each kernel is two launches: the ring
-is viewed as an (A, B) matrix, the first log A butterfly stages run
-down its columns and the last log B along its rows (see the note in
-merge_u64.cu).  The plain versions run the same merge network split at
-the same stage, in the engine's torch ops, so a mismatch can be traced
-to a phase; they run on any device, which is how the kernels are
-checked on the card.
+launches the kernel or raises.  A transform is one launch up to logn 15
+and two above (`split`; see the note in merge_u64.cu).  Up to logn 15 a
+whole ring lies in shared memory: one block's tile up to logn 12, the
+tiles of a thread-block cluster of 2, 4 or 8 blocks at logn 13, 14 and
+15, the ring's first stages crossing the cluster through distributed
+shared memory.  Above, the ring is viewed as an (A, B)
+matrix, the first log A butterfly stages run down its columns and the
+last log B along its rows, each phase a launch.  The plain versions run
+the same merge network split at the same stage, in the engine's torch
+ops, so a mismatch can be traced to a phase; they run on any device,
+which is how the kernels are checked on the card.
 
 The kernels take logn 11-17 and dispatch routes rings of 2^12..2^17 to
 them (`FAMILY`, read by `covers`, as the JAX package's "mxu" route
@@ -53,9 +57,12 @@ KERNELS = (FORWARD, INVERSE, POLYMUL_INVERSE)
 
 
 def split(logn: int) -> int:
-    """log A of the (A, B) view: B = 2^max(ceil(logn / 2), 7), as the
-    TPU kernels factor the ring (pallas_mxu.py:337)."""
-    return logn - min(logn, max((logn + 1) // 2, 7))
+    """log A of the (A, B) view (merge_u64.cu): 0 up to logn 15, where a
+    whole ring of 8-byte words fits on chip (one block's tile up to logn
+    12, a cluster of 2-8 blocks' tiles at 13-15), so a transform is one
+    launch and one pass over device memory; above, B = 2^max(ceil(logn /
+    2), 7), as the TPU kernels factor the ring (pallas_mxu.py:337)."""
+    return 0 if logn <= 15 else logn - max((logn + 1) // 2, 7)
 
 
 def covers(plan: MergePlan) -> bool:
@@ -130,7 +137,7 @@ def merge_u64_fwd(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     return kernel.call(FORWARD, (x,), merge_u64_fwd_plain, (x, plan), "merge_u64_forward",
                        lambda: (plan.logn, split(plan.logn), plan.fwd_table.data_ptr(),
                                 plan.fwd_shoup.data_ptr(), plan.q, _one_s(plan.q),
-                                int(plan.xnp)))
+                                int(plan.xnp)), log_a=split(plan.logn))
 
 
 def merge_u64_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
@@ -139,7 +146,8 @@ def merge_u64_inv(x: torch.Tensor, plan: MergePlan) -> torch.Tensor:
     return kernel.call(INVERSE, (x,), merge_u64_inv_plain, (x, plan), "merge_u64_inverse",
                        lambda: (plan.logn, split(plan.logn), plan.inv_table.data_ptr(),
                                 plan.inv_shoup.data_ptr(), plan.q, _one_s(plan.q),
-                                plan.n_inv, plan.n_inv_shoup, int(plan.xnp)))
+                                plan.n_inv, plan.n_inv_shoup, int(plan.xnp)),
+                       log_a=split(plan.logn))
 
 
 def merge_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor,
@@ -151,4 +159,5 @@ def merge_u64_polymul_inv(fa: torch.Tensor, fb: torch.Tensor,
                        "merge_u64_polymul_inverse",
                        lambda: (plan.logn, split(plan.logn), plan.inv_table.data_ptr(),
                                 plan.inv_shoup.data_ptr(), plan.q, plan.bit, plan.mu,
-                                plan.n_inv, plan.n_inv_shoup, int(plan.xnp)))
+                                plan.n_inv, plan.n_inv_shoup, int(plan.xnp)),
+                       log_a=split(plan.logn))

@@ -241,9 +241,10 @@ def _k12(stats: KernelStats, plain, plan: RNSMergePlan, midx, shift, inverse, *x
     kernel.check(stats.name, (plan.n,), plan.device, *xs, midx=midx, shift=shift)
     table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
                     else (plan.fwd_tables, plan.fwd_shoup))
+    log_a = hm.split(plan.logn)
     return kernel.call(stats, xs, plain, (*xs, plan, midx, shift), stats.name, lambda: (
-        plan.logn, hm.split(plan.logn), midx.data_ptr(), midx.numel(), shift, table.data_ptr(),
-        shoup.data_ptr(), plan.consts.data_ptr(), int(plan.xnp)))
+        plan.logn, log_a, midx.data_ptr(), midx.numel(), shift, table.data_ptr(),
+        shoup.data_ptr(), plan.consts.data_ptr(), int(plan.xnp)), log_a=log_a)
 
 
 def rns_u64_fwd(x: torch.Tensor, plan: RNSMergePlan, midx: torch.Tensor,
@@ -290,9 +291,10 @@ def prepare(plan: RNSMergePlan, midx: torch.Tensor) -> Prepared:
 
 
 def rns_u64_polymul(a: torch.Tensor, b: torch.Tensor, prepared: Prepared) -> torch.Tensor:
-    """INTT(NTT(a) o NTT(b)) per row of (rows, N) operands, the same six
-    launches as rns_u64_fwd twice and rns_u64_polymul_inv, in one C call;
-    an operand the wrappers would refuse raises their error."""
+    """INTT(NTT(a) o NTT(b)) per row of (rows, N) operands, the same
+    kernel launches as rns_u64_fwd twice and rns_u64_polymul_inv (three up
+    to logn 15, six above), in one C call; an operand the wrappers would
+    refuse raises their error."""
     p = prepared
     a, b = a.contiguous(), b.contiguous()
     if not (a.dtype == b.dtype == torch.int64 and a.shape == b.shape == (p.rows, p.n)
@@ -303,7 +305,7 @@ def rns_u64_polymul(a: torch.Tensor, b: torch.Tensor, prepared: Prepared) -> tor
     y = torch.empty_like(a)
     fa = spectra.data_ptr()
     kernel.launch(POLYMUL_INVERSE, p.fn, a, a.data_ptr(), b.data_ptr(), fa, fa + 8 * a.numel(),
-                  y.data_ptr(), *p.args, kernel="rns_u64_polymul")
+                  y.data_ptr(), *p.args, kernel="rns_u64_polymul", log_a=p.args[2])
     FORWARD.launches += 2
     return y
 

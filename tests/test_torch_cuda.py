@@ -20,7 +20,10 @@ u32 RNS kernels on int32 and int64 lanes); the u32 RNS entries on int32
 lanes against int64 lanes, and one traced int32 call's spans and device
 operations; the whole-ring u32 kernels at logn 14-15 (a cluster of two
 blocks a ring) on the 30-prime ladder at batches 1-480, and the device
-kernels and the `passes` span attr of a u32 transform at logn 14-16.
+kernels and the `passes` span attr of a u32 transform at logn 14-16; the
+whole-ring u64 kernels at logn 11-15 (K12 on clusters of 1-8 blocks), the
+device kernels and the `passes` attr of a u64 transform at logn 13-16, and
+one traced u64 HE call's span and device operations.
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -1058,6 +1061,103 @@ def test_rns32_int32_traced_call_on_card(card, tmp_path):
     ops = _device_ops(prof, tmp_path)
     assert len(ops) == 3 and all("merge_u32" in name for name in ops), ops
     assert out.dtype == torch.int32 and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("schedule", ["one entry", "per ring"])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", range(11, 16))
+def test_rns_u64_whole_ring_matches_plain_on_card(card, logn, poly, schedule):
+    """K12's whole-ring kernel (one plain block a ring at logn 11-12, a
+    cluster of 2, 4 or 8 blocks at 13, 14, 15): forward, inverse and fused
+    inverse on any u64 word against their plain versions, ladder 3, under
+    one schedule entry for all four rows or one a ring; then on operands
+    and outputs that start at an odd word (8-byte aligned, not 16), the
+    fused inverse with one operand aligned and one not."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(logn, poly), device=card)
+    midx, shift = ((torch.tensor([1], dtype=torch.int32, device=card), 2)
+                   if schedule == "one entry" else
+                   (torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=card), 0))
+    x = _words((4, plan.n), True, logn + 40, card)
+    fx = hr.rns_u64_fwd(x, plan, midx, shift)
+    fb = hr.rns_u64_fwd_plain(x.flip(0).contiguous(), plan, midx, shift)
+    assert torch.equal(fx, hr.rns_u64_fwd_plain(x, plan, midx, shift))
+    assert torch.equal(hr.rns_u64_inv(x, plan, midx, shift),
+                       hr.rns_u64_inv_plain(x, plan, midx, shift))
+    px = hr.rns_u64_polymul_inv_plain(fx, fb, plan, midx, shift)
+    assert torch.equal(hr.rns_u64_polymul_inv(fx, fb, plan, midx, shift), px)
+
+    def odd(v):
+        flat = torch.zeros(v.numel() + 2, dtype=torch.int64, device=card)
+        start = 1 if flat.data_ptr() % 16 == 0 else 0
+        o = flat[start:start + v.numel()].view(v.shape)
+        o.copy_(v)
+        assert o.data_ptr() % 16 == 8 and o.is_contiguous()
+        return o
+
+    assert torch.equal(hr.rns_u64_fwd(odd(x), plan, midx, shift), fx)
+    assert torch.equal(hr.rns_u64_inv(odd(x), plan, midx, shift),
+                       hr.rns_u64_inv_plain(x, plan, midx, shift))
+    assert torch.equal(hr.rns_u64_polymul_inv(fx, odd(fb), plan, midx, shift), px)
+    assert torch.equal(hr.rns_u64_polymul_inv(odd(fx), odd(fb), plan, midx, shift), px)
+
+
+@pytest.mark.parametrize("logn,passes", [(13, 1), (15, 1), (16, 2)])
+def test_u64_launches_and_passes_per_transform_on_card(card, tmp_path, logn, passes):
+    """Under the profiler, each u64 transform (K12's forward, inverse and
+    fused inverse, and K1-K3) is `passes` kernels of merge_u64.cu on the
+    card, one a pass over device memory, and its ntt.launch span's
+    `passes` attr reads the same."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(logn, tg.ReductionPolynomial.X_N_plus),
+                                       device=card)
+    midx = torch.tensor([2, 0, 1], dtype=torch.int32, device=card)
+    x = _words((3, plan.n), True, logn, card)
+    one = tg.MergePlan.from_params(_rns_members(logn, tg.ReductionPolynomial.X_N_plus, 1)[0],
+                                   device=card)
+    calls = {"rns_u64_fwd": lambda: hr.rns_u64_fwd(x, plan, midx),
+             "rns_u64_inv": lambda: hr.rns_u64_inv(x, plan, midx),
+             "rns_u64_polymul_inv": lambda: hr.rns_u64_polymul_inv(x, x, plan, midx),
+             "merge_u64_fwd": lambda: hm.merge_u64_fwd(x, one),
+             "merge_u64_inv": lambda: hm.merge_u64_inv(x, one),
+             "merge_u64_polymul_inv": lambda: hm.merge_u64_polymul_inv(x, x, one)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        tracing.reset()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [s for s in tracing.snapshot()["spans"] if s["name"] == "ntt.launch"]
+        assert [s["attrs"]["passes"] for s in spans] == [passes], name
+        ops = [o for o in _device_ops(prof, tmp_path) if "merge_u64" in o]
+        assert len(ops) == passes, (name, ops)
+
+
+def test_rns_u64_traced_call_on_card(card, tmp_path):
+    """One traced rns_polymul_lanes call of the u64 HE cell's shape (240
+    rows of 2^15, ladder 15, X^N + 1): one ntt.launch span (K12's product
+    in one C call) with word 8 and passes 1, and in the device trace three
+    kernels of merge_u64.cu, one a transform, and no copy, set or cast."""
+    plan = tg.RNSMergePlan.from_params(_rns_members(15, tg.ReductionPolynomial.X_N_plus, 15),
+                                       device=card)
+    mod_idx = np.arange(240) % plan.mod_count
+    midx = torch.tensor(mod_idx, dtype=torch.int32, device=card)
+    a, b = (_residues(plan, 240, s, card) for s in (1, 2))
+    want = hr.rns_u64_polymul_inv(hr.rns_u64_fwd(a, plan, midx), hr.rns_u64_fwd(b, plan, midx),
+                                  plan, midx)
+    td.rns_polymul_lanes(a, b, plan, mod_idx)
+    torch.cuda.synchronize()
+    tracing.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = td.rns_polymul_lanes(a, b, plan, mod_idx)
+        torch.cuda.synchronize()
+    spans = tracing.snapshot()["spans"]
+    assert [(s["attrs"]["kernel"], s["attrs"]["word"], s["attrs"]["passes"]) for s in spans
+            if s["name"] == "ntt.launch"] == [("rns_u64_polymul", 8, 1)]
+    ops = _device_ops(prof, tmp_path)
+    assert len(ops) == 3 and all("merge_u64" in o and "::ring<" in o for o in ops), ops
+    assert out.dtype == torch.int64 and torch.equal(out, want)
 
 
 # ------------------------------------------------------- the distributed path

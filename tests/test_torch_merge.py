@@ -13,7 +13,9 @@
   constructs they use (one thread per block, blocks in order, dynamic
   shared memory a host array), against the plain versions: u64 at logn
   11-17 (K1-K3 and K12 at every pass split, at the pool prime and the
-  largest NTT prime below 2^62), the big-ring column and row kernels at
+  largest NTT prime below 2^62; the whole-ring kernel on clusters of 2-8
+  blocks at logn 13-15 also in place and against the old split of two
+  launches), the big-ring column and row kernels at
   small splits (A = 4..512, B = 8..2048, a nested plan), u32 at every
   tile shape of its split rule (logn 8-23); and merge_u64.cu and
   merge_u64_large.cu under UBSan's alignment check on operands that
@@ -209,7 +211,8 @@ static thread_local EmuDim3 threadIdx = {0}, blockIdx = {0};
 constexpr int kEmuSmem = 1 << 16;  // words of the largest dynamic tiles, u32 ...
 alignas(16) static uint32_t emu_smem_main[kEmuSmem];
 static thread_local uint32_t* emu_smem = emu_smem_main;
-alignas(16) static uint64_t emu_smem64[1 << 15];  // ... and u64
+alignas(16) static uint64_t emu_smem64_main[1 << 15];  // ... and u64
+static thread_local uint64_t* emu_smem64 = emu_smem64_main;
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -281,10 +284,37 @@ template <class F> void emu_launch_cluster(int size, long long grid, F f) {
         emu_cluster = &cl;
         emu_rank = (unsigned)r;
         emu_smem = cl.smem[r];
+        emu_smem64 = reinterpret_cast<uint64_t*>(cl.smem[r]);
         f();
       });
     for (auto& t : blocks) t.join();
   }
+}
+// A launch with a cluster size given at run time (cudaLaunchKernelEx and
+// its cluster attribute): blocks run clusterDim.x at a time, as above.
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...), A&&... a) {
+  if (c->numAttrs != 1 || c->attrs[0].id != cudaLaunchAttributeClusterDimension ||
+      c->gridDim.x % c->attrs[0].val.clusterDim.x || c->dynamicSmemBytes > 4 * kEmuSmem)
+    return cudaErrorInvalidValue;
+  emu_launch_cluster((int)c->attrs[0].val.clusterDim.x, c->gridDim.x, [&] { k(a...); });
+  return cudaSuccess;
 }
 """
 
@@ -298,8 +328,9 @@ def _emulated_source(name: str) -> str:
     then visits every index in order, and a stage's butterflies are
     independent), dynamic shared memory one host array, and every
     <<<grid, kThreads, bytes, st>>> launch a loop over blocks; the
-    blocks of a kernel declared with __cluster_dims__(n, 1, 1) run n at
-    a time, one host thread each, sharing their tiles as a cluster."""
+    blocks of a kernel declared with __cluster_dims__(n, 1, 1), or
+    launched by cudaLaunchKernelEx with a cluster of n, run n at a time,
+    one host thread each, sharing their tiles as a cluster."""
     with open(os.path.join(CSRC, name + ".cu")) as f:
         src = f.read()
     assert "constexpr int kThreads = 256;" in src
@@ -396,11 +427,18 @@ def test_cuda_source_emulated_refuses_bad_shapes(emulated):
                                     plan.fwd_table.data_ptr(), plan.fwd_shoup.data_ptr(),
                                     plan.q, 1, 1, None)
     assert rc == 1  # cudaErrorInvalidValue: logn 10 has no tile shape
+    p = tg.NTTParameters(16, tg.ReductionPolynomial.X_N_plus, np.uint64)
+    plan = tg.MergePlan.from_params(p, device="cpu")
+    x = torch.zeros((1, p.n), dtype=torch.int64)
+    rc = emulated.merge_u64_forward(0, x.data_ptr(), x.data_ptr(), 1, 16, 0,
+                                    plan.fwd_table.data_ptr(), plan.fwd_shoup.data_ptr(),
+                                    plan.q, 1, 1, None)
+    assert rc == 1  # a whole ring of 2^16 words fits no cluster at 4 blocks an SM
 
 
-def _k1_emulated(lib, entry, plan, *xs, y=None):
+def _k1_emulated(lib, entry, plan, *xs, y=None, log_a=None):
     """merge_u64.cu's one-modulus entry `entry` through the emulation, into
-    y (a fresh tensor by default)."""
+    y (a fresh tensor by default), at the route's split or at `log_a`."""
     inverse = entry != "merge_u64_forward"
     table, shoup = ((plan.inv_table, plan.inv_shoup) if inverse
                     else (plan.fwd_table, plan.fwd_shoup))
@@ -410,22 +448,25 @@ def _k1_emulated(lib, entry, plan, *xs, y=None):
               "merge_u64_polymul_inverse": (plan.q, plan.bit, plan.mu, plan.n_inv,
                                             plan.n_inv_shoup)}[entry]
     y = torch.empty_like(xs[0]) if y is None else y
+    la = hm.split(plan.logn) if log_a is None else log_a
     assert getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
-                               plan.logn, hm.split(plan.logn), table.data_ptr(),
-                               shoup.data_ptr(), *consts, int(plan.xnp), None) == 0, entry
+                               plan.logn, la, table.data_ptr(), shoup.data_ptr(), *consts,
+                               int(plan.xnp), None) == 0, entry
     return y
 
 
-def _k12_emulated(lib, entry, plan, midx, *xs, y=None):
+def _k12_emulated(lib, entry, plan, midx, *xs, y=None, log_a=None):
     """merge_u64.cu's RNS entry `entry` (one schedule entry a ring) through
-    the emulation, into y (a fresh tensor by default)."""
+    the emulation, into y (a fresh tensor by default), at the route's split
+    or at `log_a`."""
     inverse = entry != "rns_u64_forward"
     table, shoup = ((plan.inv_tables, plan.inv_shoup) if inverse
                     else (plan.fwd_tables, plan.fwd_shoup))
     y = torch.empty_like(xs[0]) if y is None else y
+    la = hm.split(plan.logn) if log_a is None else log_a
     assert getattr(lib, entry)(0, *(x.data_ptr() for x in xs), y.data_ptr(), xs[0].shape[0],
-                               plan.logn, hm.split(plan.logn), midx.data_ptr(), midx.numel(),
-                               0, table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(),
+                               plan.logn, la, midx.data_ptr(), midx.numel(), 0,
+                               table.data_ptr(), shoup.data_ptr(), plan.consts.data_ptr(),
                                int(plan.xnp), None) == 0, entry
     return y
 
@@ -462,6 +503,58 @@ def test_cuda_source_merge_u64_emulated_every_pass_split(emulated, logn):
         assert torch.equal(
             _k12_emulated(emulated, "rns_u64_polymul_inverse", ladder, midx, fx, fb),
             hr.rns_u64_polymul_inv_plain(fx, fb, ladder, midx)), poly
+
+
+def test_u64_split_rule():
+    """One launch a transform (log A 0) up to logn 15, where a whole ring
+    of 8-byte words fits a cluster's tiles; the TPU kernels' (A, B)
+    factoring above."""
+    assert [hm.split(n) for n in range(11, 18)] == [0, 0, 0, 0, 0, 8, 8]
+
+
+@pytest.mark.parametrize("poly", [tg.ReductionPolynomial.X_N_minus,
+                                  tg.ReductionPolynomial.X_N_plus])
+@pytest.mark.parametrize("logn", [13, 14, 15])
+def test_cuda_source_merge_u64_emulated_whole_ring(emulated, logn, poly):
+    """The whole-ring kernel on clusters of 2, 4 and 8 blocks (logn 13,
+    14, 15): K1-K3 on any u64 word at the pool prime and at the largest
+    NTT prime below 2^62 (the lazy butterflies' 4q edge), and K12 on a
+    ladder of the two, a ring of each; every entry against its plain
+    version, in place (the output the input's own tensor), and equal to
+    the same entry at the split of two launches a transform (log A of the
+    (A, B) view, B = 2^max(ceil(logn / 2), 7))."""
+    old = logn - max((logn + 1) // 2, 7)
+    x = to_lanes(np.random.default_rng(logn + 20).integers(0, 1 << 64, size=(2, 1 << logn),
+                                                            dtype=np.uint64), True)
+    ms = [tg.NTTParameters(logn, poly, np.uint64),
+          _factored(logn, poly, np.uint64, largest_ntt_prime(62, 17))]
+    for p in ms:
+        plan = tg.MergePlan.from_params(p, device="cpu")
+        fx = _k1_emulated(emulated, "merge_u64_forward", plan, x)
+        assert torch.equal(fx, hm.merge_u64_fwd_plain(x, plan)), plan.q
+        ix = hm.merge_u64_inv_plain(x, plan)
+        fb = fx.flip(0).contiguous()
+        px = hm.merge_u64_polymul_inv_plain(fx, fb, plan)
+        for entry, xs, want in (("merge_u64_forward", (x,), fx), ("merge_u64_inverse", (x,), ix),
+                                ("merge_u64_polymul_inverse", (fx, fb), px)):
+            z = [v.clone() for v in xs]
+            assert torch.equal(_k1_emulated(emulated, entry, plan, *z, y=z[0]), want), entry
+            assert torch.equal(z[0], want), entry
+            assert torch.equal(_k1_emulated(emulated, entry, plan, *xs, log_a=old), want), entry
+    ladder = tg.RNSMergePlan.from_params(ms, device="cpu")
+    midx = torch.tensor([1, 0], dtype=torch.int32)
+    fx = _k12_emulated(emulated, "rns_u64_forward", ladder, midx, x)
+    assert torch.equal(fx, hr.rns_u64_fwd_plain(x, ladder, midx))
+    fb = hr.rns_u64_fwd_plain(x.flip(0).contiguous(), ladder, midx)
+    for entry, xs, want in (
+            ("rns_u64_forward", (x,), fx),
+            ("rns_u64_inverse", (x,), hr.rns_u64_inv_plain(x, ladder, midx)),
+            ("rns_u64_polymul_inverse", (fx, fb),
+             hr.rns_u64_polymul_inv_plain(fx, fb, ladder, midx))):
+        z = [v.clone() for v in xs]
+        assert torch.equal(_k12_emulated(emulated, entry, ladder, midx, *z, y=z[0]), want), entry
+        assert torch.equal(_k12_emulated(emulated, entry, ladder, midx, *xs, log_a=old),
+                           want), entry
 
 
 @pytest.fixture(scope="module")

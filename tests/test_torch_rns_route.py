@@ -244,7 +244,7 @@ def test_prepared_call_through_the_emulation(emulated_prepare):
     assert (hr.FORWARD.plain_calls, hr.POLYMUL_INVERSE.plain_calls) == (0, 0)
     spans = tracing.snapshot()["spans"]
     assert [(s["name"], s["attrs"]) for s in spans] == [
-        ("ntt.launch", {"kernel": "rns_u64_polymul", "word": 8})] * 2
+        ("ntt.launch", {"kernel": "rns_u64_polymul", "word": 8, "passes": 1})] * 2
 
 
 @pytest.mark.parametrize("case", ["dtype", "width", "device", "b rows", "b width", "b dtype"])
