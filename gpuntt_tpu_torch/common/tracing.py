@@ -31,7 +31,10 @@ records, a span site reads the flag and does nothing more.
                 the schedule's check and device copy, the route decision
                 (attrs: path; plan, hit or move; schedule, hit or miss:
                 whether the RNS route memo held the route; lanes, the RNS
-                operand's dtype, "int32" or "int64")
+                operand's dtype, "int32" or "int64"; on the big-ring
+                route "hopper-merge-large" passes, the passes over device
+                memory the transform takes, LargePlan.passes, which is
+                also its launches: 2 at logn 18-22, 3 at 23-28)
     ntt.launch  ops/kernel.launch, the one function every C entry
                 passes through: the stream lookup, the call and its
                 return code (attrs: kernel; word, the bytes of the

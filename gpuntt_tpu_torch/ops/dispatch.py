@@ -86,7 +86,9 @@ logn 15; `hopper_rns.rns_u64_polymul`).
 Spans (common/tracing.py, recorded only under torch.profiler): each
 `*_lanes` entry of both families is an ntt.entry span and holds one
 ntt.route span (`_route`, `_polymul_route`, `_rns_route`) around the
-plan's move, the schedule's check and copy and the route decision.
+plan's move, the schedule's check and copy and the route decision; on
+the big-ring route `_route`'s span also notes the transform's passes
+over device memory.
 """
 
 from __future__ import annotations
@@ -196,13 +198,17 @@ def _as_batch(x):
 
 def _route(plan: MergePlan, x2: torch.Tensor, use_pallas):
     """The ntt.route span of ntt_lanes and intt_lanes: the plan on the
-    device of the (batch, N) tensor x2, and x2's route."""
+    device of the (batch, N) tensor x2, and x2's route; on the big-ring
+    route the span notes the passes over device memory the transform
+    takes (`LargePlan.passes`)."""
     span = tracing.begin(tracing.ROUTE)
     try:
         plan = plan.to(x2.device)
         path = _chosen_path(plan, x2.shape, use_pallas)
         if span:
             span.attrs["path"] = path
+            if path == "hopper-merge-large":
+                span.attrs["passes"] = hml.large_plan(plan).passes
     finally:
         if span:
             span.end()

@@ -47,6 +47,13 @@ Rows of more than 2^17 words recurse into a nested LargePlan (logn
     27     512  2^18   nested logn 18, A = B = 512: K7 and K8
     28     512  2^19   nested logn 19, 128 x 2^12: K7 and K1/K2
 
+A transform takes `LargePlan.passes` passes over device memory: one for
+the columns, then the rows' own (K8's whole rows one, K1/K2's one up to
+rows of 2^15 and two above, a nested plan its own passes).  That is 2
+at logn 18-22 and 3 at logn 23-28: at 27, the outer columns, the nested
+columns and K8's rows.  Each pass is one launch, so the count equals
+the transform's launches; the route's ntt.route span notes it.
+
 The JAX package's ceiling at 2^16 rows (a v5e VMEM limit, with the
 inverse at 2^17 delegated per direction) has no counterpart here:
 K1/K2 take 2^17 rows in both directions, which `max_row_logn` = 17
@@ -195,6 +202,19 @@ class LargePlan:
         if self.nested is not None:
             return "nested"
         return "K8" if self.B <= ROW_MAT_MAX else "K1"
+
+    @property
+    def passes(self) -> int:
+        """The passes over device memory a transform of this plan takes:
+        one for the columns (K7), then the rows': one for K8's whole rows,
+        K1's (`hm.split`: one up to rows of 2^15, two above), or the
+        nested plan's.  One pass is one launch, so this is also the
+        transform's launches."""
+        if self.nested is not None:
+            return 1 + self.nested.passes
+        if self.row_kernel == "K8":
+            return 2
+        return 3 if hm.split(self.B.bit_length() - 1) else 2
 
     @property
     def fuses_product(self) -> bool:

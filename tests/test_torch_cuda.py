@@ -23,7 +23,10 @@ blocks a ring) on the 30-prime ladder at batches 1-480, and the device
 kernels and the `passes` span attr of a u32 transform at logn 14-16; the
 whole-ring u64 kernels at logn 11-15 (K12 on clusters of 1-8 blocks), the
 device kernels and the `passes` attr of a u64 transform at logn 13-16, and
-one traced u64 HE call's span and device operations.
+one traced u64 HE call's span and device operations; the benchmark's
+2^27 ZK transforms through ntt_lanes / intt_lanes (the nested big ring)
+against the plain composition, their route span's `passes` (3) and their
+three device kernels.
 Exact equality throughout.
 
 This file imports neither jax nor gpuntt_tpu, so it also runs where
@@ -1158,6 +1161,65 @@ def test_rns_u64_traced_call_on_card(card, tmp_path):
     ops = _device_ops(prof, tmp_path)
     assert len(ops) == 3 and all("merge_u64" in o and "::ring<" in o for o in ops), ops
     assert out.dtype == torch.int64 and torch.equal(out, want)
+
+
+# ------------------------------------------------- the 2^27 ZK transform
+
+
+def _zk_n27(card):
+    """A plan of the benchmark's 2^27 ZK configuration (its 59-bit prime,
+    X^N - 1) on the card, and one operand of 1 GiB."""
+    from portbench import harness
+    from portbench.reference import primes
+
+    cfg = harness.config("zk_u64_n27")
+    q, logn = cfg["q"], cfg["logn"]
+    p = tg.NTTParameters(logn, tg.ReductionPolynomial.X_N_minus, np.uint64,
+                         factors=tg.NTTFactors(tg.Modulus64(q), *primes.root_pair(q, logn)))
+    gen = torch.Generator(device=card).manual_seed(27)
+    x = torch.randint(0, q, (1, p.n), generator=gen, dtype=torch.int64, device=card)
+    return tg.MergePlan.from_params(p, device=card), x
+
+
+def test_zk_n27_transforms_match_plain_on_card(card):
+    """The ZK cell's transforms at 2^27 through ntt_lanes / intt_lanes: the
+    nested big ring (K7 at A = 512 twice, then K8: three launches a
+    direction) against the plain versions' composition on the card, and
+    the round trip."""
+    plan, x = _zk_n27(card)
+    lp = hml.large_plan(plan)
+    tracing.reset()
+    fx = tg.ntt_lanes(x, plan)
+    ix = tg.intt_lanes(x, plan)
+    torch.cuda.synchronize()
+    assert _large_counts() == {hml.COLFWD.name: (2, 0), hml.COLINV.name: (2, 0),
+                               hml.ROWMAT.name: (2, 0)}
+    assert torch.equal(fx, hml.merge_u64_large_plain(x, lp))
+    assert torch.equal(ix, hml.merge_u64_large_plain(x, lp, inverse=True))
+    del ix
+    assert torch.equal(tg.intt_lanes(fx, plan), x)
+
+
+def test_zk_n27_spans_carry_three_passes_on_card(card, tmp_path):
+    """Under the profiler, a 2^27 transform's route span reads passes 3,
+    its three launch spans are K7, K7, K8 forward (K8, K7, K7 inverse),
+    and its device trace is those three kernels of merge_u64_large.cu."""
+    plan, x = _zk_n27(card)
+    fx = tg.ntt_lanes(x, plan)  # the big-ring plan is built at the first call
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for fn, y, ks in ((tg.ntt_lanes, x, (hml.COLFWD, hml.COLFWD, hml.ROWMAT)),
+                      (tg.intt_lanes, fx, (hml.ROWMAT, hml.COLINV, hml.COLINV))):
+        torch.cuda.synchronize()
+        tracing.reset()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(y, plan)
+            torch.cuda.synchronize()
+        spans = tracing.snapshot()["spans"]
+        assert [s["attrs"]["passes"] for s in spans if s["name"] == "ntt.route"] == [3]
+        assert [s["attrs"]["kernel"] for s in spans
+                if s["name"] == "ntt.launch"] == [k.name for k in ks]
+        ops = _device_ops(prof, tmp_path)
+        assert len(ops) == 3 and all("merge_u64_large::" in o for o in ops), ops
 
 
 # ------------------------------------------------------- the distributed path
