@@ -70,9 +70,11 @@ at once) and runs, on the card:
    portbench's 30-prime ladder of 30 bits, against the plain versions,
    the int64 lanes narrowed and, two rows, NTTCPU, one kernel a
    transform in the device trace, and the same outputs at the split of
-   two launches a transform (log A 2); the kernels' (each instance's,
-   the int32 bounds on 4-byte words), the entries' and the old split's
-   CUDA-event times;
+   two launches a transform (log A 2); there the product is the fused
+   launch (rns_u32_polymul, one kernel a product), equal bit for bit to
+   the two forwards and the fused inverse; the kernels' (each instance's,
+   the int32 bounds on 4-byte words), the entries', the three launches'
+   and the old split's CUDA-event times;
 22-25. the distributed path (`dist_phase`) at world size 1 on NCCL (a
    HashStore, no network): the dist 4-step at u64 and u32 2^24 x 1
    (256 x 65536; u64 on K7' and K1/K2) against the single-chip
@@ -633,6 +635,7 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     same, timed, e2e = recorders(err, times, bounds)
 
     F16, I16, P16 = (d["K16"].name for d in (hr32.FORWARD, hr32.INVERSE, hr32.POLYMUL_INVERSE))
+    PF = hr32.POLYMUL.name  # the fused product, one launch at logn 14-15
     F6, I6, P6 = (d["K6"].name for d in (hr32.FORWARD, hr32.INVERSE, hr32.POLYMUL_INVERSE))
 
     # -- 18. the headline: u32 2^16 x 128, X^N + 1, ladder 8 of 30-bit primes, cyclic
@@ -777,30 +780,40 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     f30 = td.ntt_rns_lanes(a30, plan30, cyc30)
     b30_back = td.intt_rns_lanes(f30, plan30, cyc30)
     run = counted()
-    check(run == {F16: 3, I16: 1, P16: 1} and p30.dtype == f30.dtype == torch.int32,
-          f"{cell30} rns_polymul_lanes, ntt_rns_lanes and intt_rns_lanes launched the "
-          f"int32 instance, int32 out ({run})")
-    launches.update({f"{k}_i32": v for k, v in run.items()})
+    check(run == {F16: 1, I16: 1, PF: 1} and p30.dtype == f30.dtype == torch.int32,
+          f"{cell30} rns_polymul_lanes (the fused product, one launch), ntt_rns_lanes and "
+          f"intt_rns_lanes launched the int32 instance, int32 out ({run})")
+    launches.update({f"{k}_i32": run.get(k, 0) for k in (F16, I16, P16, PF)})
     fa30_plain = hr32.rns_u32_fwd_plain(a30, plan30, midx30)
     fb30_plain = hr32.rns_u32_fwd_plain(b30, plan30, midx30)
     same(f"{F16}_i32", f30, fa30_plain, f"{cell30} ntt_rns_lanes, all rows,")
     same(f"{I16}_i32", b30_back, hr32.rns_u32_inv_plain(f30, plan30, midx30),
          f"{cell30} intt_rns_lanes, all rows,")
     check(torch.equal(b30_back, a30), f"{cell30} intt(ntt(a)) == a")
-    same(f"{P16}_i32", p30, hr32.rns_u32_polymul_inv_plain(fa30_plain, fb30_plain, plan30,
-                                                            midx30),
-         f"{cell30} rns_polymul_lanes, all rows,")
+    want30 = hr32.rns_u32_polymul_inv_plain(fa30_plain, fb30_plain, plan30, midx30)
+    same(f"{PF}_i32", p30, want30, f"{cell30} rns_polymul_lanes (fused), all rows,")
+    three30 = hr32.rns_u32_polymul_inv(hr32.rns_u32_fwd(a30, plan30, midx30),
+                                       hr32.rns_u32_fwd(b30, plan30, midx30), plan30, midx30)
+    same(f"{P16}_i32", three30, want30, f"{cell30} two forwards and the fused inverse")
+    check(torch.equal(p30, three30), f"{cell30} fused product == the three launches, bit for bit")
+    reset()
     p30_64 = td.rns_polymul_lanes(a30.long(), b30.long(), plan30, cyc30)
-    check(p30_64.dtype == torch.int64 and torch.equal(p30_64.int(), p30),
-          f"{cell30} product == the int64 lanes' narrowed")
-    # one kernel a transform (a whole ring on a cluster of two blocks), and
-    # the same outputs at the split of two launches a transform (log A 2)
-    for name, fn in ((F16, lambda: hr32.rns_u32_fwd(a30, plan30, midx30)),
-                     (I16, lambda: hr32.rns_u32_inv(f30, plan30, midx30)),
-                     (P16, lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30))):
+    run = counted()
+    check(run == {PF: 1} and p30_64.dtype == torch.int64 and torch.equal(p30_64.int(), p30),
+          f"{cell30} product on int64 lanes: the fused launch, == the int32 lanes' ({run})")
+    launches[PF] = run[PF]
+    same(PF, p30_64, want30.long(), f"{cell30} int64 lanes, fused product, all rows,")
+    # one kernel a transform (a whole ring on a cluster of two blocks) and one
+    # a product (a row pair on a cluster of four), and the same outputs at
+    # the split of two launches a transform (log A 2)
+    prepared30 = hr32.prepare(plan30, midx30)
+    for name, kind, fn in (
+            (F16, "cluster_ring", lambda: hr32.rns_u32_fwd(a30, plan30, midx30)),
+            (I16, "cluster_ring", lambda: hr32.rns_u32_inv(f30, plan30, midx30)),
+            (P16, "cluster_ring", lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30)),
+            (PF, "cluster_product", lambda: hr32.rns_u32_polymul(a30, b30, prepared30))):
         ops = device_kernels(fn)
-        check(len(ops) == 1 and "cluster_ring" in ops[0],
-              f"{name}_i32 at {cell30}: one kernel a transform ({ops})")
+        check(len(ops) == 1 and kind in ops[0], f"{name}_i32 at {cell30}: one kernel ({ops})")
     check(torch.equal(old_split("rns_u32_forward", plan30, midx30, a30), f30) and
           torch.equal(old_split("rns_u32_polymul_inverse", plan30, midx30, f30, f30),
                       hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30)),
@@ -810,7 +823,7 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
         check(np.array_equal(u32(p30[r]), gen.intt(gen.mult(gen.ntt(a30_np[r]),
                                                             gen.ntt(b30_np[r])))),
               f"{cell30} product row {r} == NTTCPU of member {r % 30}")
-    del fa30_plain, fb30_plain, b30_back, p30_64
+    del fa30_plain, fb30_plain, b30_back, p30_64, three30, want30
 
     # -- 21. times: each kernel at its cell (plain, kernel, kernel, plain), end to end
     timed(F16, lambda: hr32.rns_u32_fwd(a, plan, midx),
@@ -865,6 +878,19 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
     timed(f"{P16}_i32", lambda: hr32.rns_u32_polymul_inv(f30, f30, plan30, midx30),
           lambda: hr32.rns_u32_polymul_inv_plain(f30, f30, plan30, midx30),
           bound_ms(480, 15, 2, 3, 4), cell30)
+
+    def product_plain(a, b):
+        return hr32.rns_u32_polymul_inv_plain(hr32.rns_u32_fwd_plain(a, plan30, midx30),
+                                              hr32.rns_u32_fwd_plain(b, plan30, midx30),
+                                              plan30, midx30)
+
+    # the fused product (reads a and b, writes the product: 189 MB on int32
+    # lanes) and the three launches it replaces, at the u32 HE cell's call
+    timed(f"{PF}_i32", lambda: hr32.rns_u32_polymul(a30, b30, prepared30),
+          lambda: product_plain(a30, b30), bound_ms(480, 15, 2, 9, 4), cell30, repeats=2)
+    e2e(f"{F16}_i32 twice and {P16}_i32 (three launches, 441 MB) {cell30}",
+        lambda: hr32.rns_u32_polymul_inv(hr32.rns_u32_fwd(a30, plan30, midx30),
+                                          hr32.rns_u32_fwd(b30, plan30, midx30), plan30, midx30))
     for what, fn in (
             (f"{F16}_i32 at log A 2 (two launches)",
              lambda: old_split("rns_u32_forward", plan30, midx30, a30)),
@@ -873,7 +899,10 @@ def rns32_phase(dev, rng, reset, launches, err, times, bounds) -> None:
             (f"{P16}_i32 at log A 2 (two launches)",
              lambda: old_split("rns_u32_polymul_inverse", plan30, midx30, f30, f30))):
         e2e(f"{what} {cell30}", fn)
-    a30_64, f30_64 = a30.long(), f30.long()
+    a30_64, b30_64, f30_64 = a30.long(), b30.long(), f30.long()
+    timed(PF, lambda: hr32.rns_u32_polymul(a30_64, b30_64, prepared30),
+          lambda: product_plain(a30_64, b30_64), bound_ms(480, 15, 2, 9), cell30 + " int64",
+          repeats=2)
     for what, fn in (
             (f"{F16} on int64 lanes", lambda: hr32.rns_u32_fwd(a30_64, plan30, midx30)),
             (f"{P16} on int64 lanes",

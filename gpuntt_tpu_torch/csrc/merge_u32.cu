@@ -23,6 +23,9 @@
 //   rns_u32_polymul_inverse <- _rns32_inv_kernel with the Barrett product
 //                              fused into its first load (the JAX package
 //                              leaves the product unfused)
+//   rns_u32_polymul         <- _rns32_fwd_kernel twice, then the fused
+//                              inverse, in one launch at logn 14-15
+//                              (cluster_product; no TPU kernel fuses them)
 // Each kernel is a template over where a ring's constants come from
 // (merge_u32.cuh): the launch's arguments for one modulus, or for RNS the
 // ring's schedule entry, which picks its modulus's rows of the stacked
@@ -87,6 +90,32 @@
 // takes 0.131 ms, of which the twiddle table's reads (8 bytes an entry,
 // the modulus's whole table a ring, each lane its own subtree in the last
 // pass) are about 30%, distributed shared memory 5%.
+//
+// The fused product at logn 14-15 (cluster_product).  INTT(NTT(a) o
+// NTT(b)) of a row pair in one launch, on a cluster of 2^(logn - 13)
+// blocks (four at 2^15), block c holding 2^13 words of each ring (row c
+// of each ring's (kC, N/kC) view, 66 KiB padded, two blocks an SM): both
+// spectra stay on chip, so a call reads a and b once and writes the
+// product once, 189 MB at 2^15 x 480 on 4-byte words (0.056 ms at 3.35
+// TB/s), where the three launches move 441 MB.  The forwards run as
+// cluster_ring's, one loop body taking a's items, then b's (pass2):
+// stages 0-4 from device memory into the cluster's tiles, a cluster
+// barrier, stages 5-9, then the last pass, which leaves canonical
+// residues in the tile.  Each thread then takes the items whose words it
+// has just stored, reads the Barrett product of a's and b's, and runs the
+// inverse's stages logn - 1 .. 10, with no barrier; then stages 9-5, a
+// cluster barrier, and stages 4-0 into y with n^-1, as cluster_ring's
+// inverse.  A thread runs a's item and b's item of one twiddle subtree
+// back to back, so b's twiddle reads hit L1.  Alternatives measured at
+// 2^15 x 480 on int32 lanes (H100, 700 W), against 0.367 ms for this one
+// and 0.436 for the three launches: a cluster of two blocks, each holding
+// half of both rings (132 KiB, one block an SM), 0.565; both rings' words
+// as pairs in registers (one twiddle read for both) through the
+// forwards' last stages, the product and the inverse's first, with the
+// forwards' passes unrolled per ring, 0.665: 64 words an item left no
+// registers to prefetch twiddles, and twice the code (12,552
+// instructions, ~200 KB) slowed every pass.  Clusters of four leave 8 of
+// the 132 SMs without a block (124 used).
 //
 // What bounds a launch, and the design.  A transform at 2^20 x 16 must
 // read and write its batch once, 256 MiB of int64 lanes (0.080 ms at
@@ -167,6 +196,7 @@ constexpr int kPad = 5;            // one spare tile word after every 2^kPad
 constexpr int kBlocks = 2;         // blocks an SM holds (128 registers a thread)
 constexpr int kCluster = 2;        // blocks a ring takes from 2^kLogCluster words on
 constexpr int kLogCluster = 14;    // log2 words of the least ring a cluster holds
+constexpr int kLogPart = 13;       // log2 words of each ring a block of the fused product holds
 
 // Words of a padded tile that holds 2^logw words.
 __host__ __device__ inline int padded_words(int logw) {
@@ -217,17 +247,20 @@ struct ColGeo {
   }
 };
 
-// The items of a pass over a whole ring held by a cluster: those of
-// a ring's row pass (logA 0), block c taking the c-th share of them.
-struct CrossGeo {
+// The items of a pass over a whole ring held by a cluster of kC blocks:
+// those of a ring's row pass (logA 0), block c taking the c-th share of
+// them.
+template <int kC>
+struct Cross {
   RowGeo ring;
   int c;
-  __device__ __forceinline__ int items(int r) const { return ring.items(r) / kCluster; }
+  __device__ __forceinline__ int items(int r) const { return ring.items(r) / kC; }
   template <int kR>
   __device__ __forceinline__ Item item(int k, int l0) const {
     return ring.template item<kR>(k + c * items(kR), l0);
   }
 };
+using CrossGeo = Cross<kCluster>;
 
 // The tile in shared memory, padded (radix::padded).
 struct Tile {
@@ -282,6 +315,75 @@ __device__ __forceinline__ Halves halves(const cg::cluster_group& cluster, uint3
   uint32_t* peer = cluster.map_shared_rank(smem, c ^ 1);
   return c ? Halves{peer, smem} : Halves{smem, peer};
 }
+
+// A ring in the padded tiles of a cluster of kC blocks (the fused
+// product's): part r, its words [r N/kC, (r + 1) N/kC), in block r's tile
+// t[r].  An item of the ring's stages 0 .. 4 (32 words N/32 apart) has
+// 32/kC words in each part, at the same offsets.
+template <int kC>
+struct Parts {
+  uint32_t* t[kC];
+  template <int kN>
+  __device__ __forceinline__ void get(const Item& it, uint32_t (&v)[kN]) const {
+    constexpr int m = kN / kC;
+#pragma unroll
+    for (int r = 0; r < kC; ++r) {
+      const uint32_t* s = t[r] + radix::padded<kPad>(it.p);
+#pragma unroll
+      for (int kk = 0; kk < m; ++kk) v[r * m + kk] = s[radix::padded_step<kPad>(kk, it.S)];
+    }
+  }
+  template <int kN>
+  __device__ __forceinline__ void put(const Item& it, const uint32_t (&v)[kN]) const {
+    constexpr int m = kN / kC;
+#pragma unroll
+    for (int r = 0; r < kC; ++r) {
+      uint32_t* s = t[r] + radix::padded<kPad>(it.p);
+#pragma unroll
+      for (int kk = 0; kk < m; ++kk) s[radix::padded_step<kPad>(kk, it.S)] = v[r * m + kk];
+    }
+  }
+};
+
+// The parts of a ring in cluster `cluster`'s tiles, `at` words into each
+// (block c's own tile smem).
+template <int kC>
+__device__ __forceinline__ Parts<kC> parts(const cg::cluster_group& cluster, uint32_t* smem,
+                                           int c, int at) {
+  Parts<kC> p;
+#pragma unroll
+  for (int r = 0; r < kC; ++r) p.t[r] = (r == c ? smem : cluster.map_shared_rank(smem, r)) + at;
+  return p;
+}
+
+// The fused product's tile words: its forwards' last pass stores
+// canonical residues (the forward's store) into the tile (Canon); its
+// inverse's first pass reads the Barrett product of a's words and b's,
+// `b` words further, reduced (the fused inverse's load) (Product).
+struct Canon {
+  uint32_t* s;
+  Lazy ar;
+  template <int kN>
+  __device__ __forceinline__ void put(const Item& it, const uint32_t (&v)[kN]) const {
+    uint32_t* p = s + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) p[radix::padded_step<kPad>(kk, it.S)] = ar.canon(v[kk]);
+  }
+};
+struct Product {
+  const uint32_t* s;
+  int b;
+  Ring f;
+  template <int kN>
+  __device__ __forceinline__ void get(const Item& it, uint32_t (&v)[kN]) const {
+    const uint32_t* p = s + radix::padded<kPad>(it.p);
+#pragma unroll
+    for (int kk = 0; kk < kN; ++kk) {
+      const int o = radix::padded_step<kPad>(kk, it.S);
+      v[kk] = reduce_any(barrett_mul(p[o], p[o + b], f.q, f.bit, f.mu), f.q, f.one_s);
+    }
+  }
+};
 
 // Whether a 16-byte access at p is aligned.
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -411,6 +513,26 @@ __device__ __forceinline__ void pass_r(int r, const Geo& geo, int l0, const Src&
     case 3: pass<3, kFwd>(geo, l0, src, dst, tw, ar); break;
     case 4: pass<4, kFwd>(geo, l0, src, dst, tw, ar); break;
     default: pass<5, kFwd>(geo, l0, src, dst, tw, ar); break;
+  }
+}
+
+// A pass over the items of two rings, a's then b's, one loop body for
+// both (the fused product's forwards): src(r) and dst(r) are ring r's
+// source and destination.  Where a ring's items are a multiple of
+// kThreads, each thread takes the same items of both rings, one after
+// the other, and the second reads its twiddles where the first left them
+// (L1).
+template <int kR, bool kFwd, class Geo, class Src, class Dst, class Tw>
+__device__ __forceinline__ void pass2(const Geo& geo, int l0, const Src& src, const Dst& dst,
+                                      const Tw& tw, const Lazy& ar) {
+  const int items = geo.items(kR);
+  for (int j = threadIdx.x; j < 2 * items; j += kThreads) {
+    const int r = j >= items;
+    const Item it = geo.template item<kR>(r ? j - items : j, l0);
+    uint32_t v[1 << kR];
+    src(r).get(it, v);
+    radix::network<kR, kFwd>(v, it.G, ar, tw);
+    dst(r).put(it, v);
   }
 }
 
@@ -597,6 +719,54 @@ cluster_ring(const W* x, const W* b, W* y, int logn, F fs, int xnp) {
   }
 }
 
+// The fused product at logn 14-15 (rns_u32_polymul; see the note at the
+// top): INTT(NTT(a) o NTT(b)) of one row pair a cluster of kC =
+// 2^(logn - kLogPart) blocks, block c holding part c, 2^kLogPart words,
+// of both rings in its tile (a's, then b's), row c of each ring's
+// (kC, N/kC) view, whose local stage l is the ring's l + log kC.  Each
+// forward pass runs both rings' items through one loop body (pass2); the
+// forwards' last pass leaves canonical residues in the tile, and the
+// inverse's first pass, on the same items, reads their product; the
+// inverse ends as cluster_ring's does, n^-1 on store.  y may alias a or
+// b: every word of both is read before the cluster barrier that precedes
+// any store.
+template <int kC, class W, class F>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+cluster_product(const W* a, const W* b, W* y, int logn, F fwd, F inv, int xnp) {
+  extern __shared__ uint32_t smem[];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank(), logC = logn - kLogPart;
+  const int at_b = padded_words(kLogPart);  // b's part, after a's in each tile
+  const int last = logn - 2 * kRadix;       // stages in the pass of 10 .. logn - 1
+  const size_t ring = blockIdx.x / kC, off = ring << logn;
+  const Ring f = fwd.at(ring);
+  const Cross<kC> cross{RowGeo{0, logn, 0, 1, xnp}, c};
+  const RowGeo local{logC, kLogPart, c, 1, xnp};
+  const GlobalTw ftw{f.tw}, itw{inv.at(ring).tw};
+  const Lazy ar{f.q, 2 * f.q};
+  const auto in = [&](int r) { return In<false, W>{(r ? b : a) + off, nullptr, f, 1}; };
+  const auto peers = [&](int r) { return parts<kC>(cluster, smem, c, r ? at_b : 0); };
+  const auto tile = [&](int r) { return Tile{smem + (r ? at_b : 0)}; };
+  const auto canon = [&](int r) { return Canon{smem + (r ? at_b : 0), ar}; };
+  cluster.sync();  // the peers' tiles are there to be written
+  pass2<kRadix, true>(cross, 0, in, peers, ftw, ar);
+  cluster.sync();
+  pass2<kRadix, true>(local, kRadix - logC, tile, tile, ftw, ar);
+  __syncthreads();
+  if (last == kRadix)  // five stages at logn 15, four at 14
+    pass2<kRadix, true>(local, 2 * kRadix - logC, tile, canon, ftw, ar);
+  else
+    pass2<kRadix - 1, true>(local, 2 * kRadix - logC, tile, canon, ftw, ar);
+  // a ring's items are a multiple of kThreads: each thread's items below
+  // are those whose words it stored above, so no barrier
+  pass_r<false>(last, local, 2 * kRadix - logC, Product{smem, at_b, f}, tile(0), itw, ar);
+  __syncthreads();
+  pass<kRadix, false>(local, kRadix - logC, tile(0), tile(0), itw, ar);
+  cluster.sync();
+  pass<kRadix, false>(cross, 0, peers(0), Out<false, W>{y + off, f, 1}, itw, ar);
+  cluster.sync();  // the peers read this block's tile until here
+}
+
 // log2 words of a block's tile for rows of 2^logB words.
 int tile_log(int logB) { return logB > kLogTile ? logB : kLogTile; }
 
@@ -662,6 +832,31 @@ int ring_launch(const W* x, const W* b, W* y, long long batch, int logn, F f, in
   cluster_ring<kFwd, kMul, W, F><<<(int)(batch * kCluster), kThreads, bytes, st>>>(
       x, b, y, logn, f, xnp);
   return launch_status();
+}
+
+// The fused product on clusters of kC blocks, each block's tile a part of
+// 2^kLogPart words of each ring: launched by cudaLaunchKernelEx with a
+// cluster attribute, the cluster's size being a template argument.
+template <int kC, class W, class F>
+int product_launch(const W* a, const W* b, W* y, long long batch, int logn, F fwd, F inv,
+                   int xnp, cudaStream_t st) {
+  const int bytes = 8 * padded_words(kLogPart);
+  const auto k = cluster_product<kC, W, F>;
+  if (int rc = fit_smem(k, bytes)) return rc;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kC;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(batch * kC));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k, a, b, y, logn, fwd, inv, xnp);
+  return e == cudaSuccess ? launch_status() : (int)e;
 }
 
 // Check the shape and select the card; 0 or a cudaError_t.
@@ -752,6 +947,24 @@ int rns_inverse(int device, const W* a, const W* b, W* y, long long batch, int l
                        xnp, (cudaStream_t)stream);
 }
 
+// INTT(NTT(a) o NTT(b)) in one launch (cluster_product), only where a
+// transform runs on the clusters (logn 14-15, logA 0); fwd_tw and inv_tw
+// are the stacked packed forward and inverse tables.
+template <class W>
+int rns_product(int device, const W* a, const W* b, W* y, long long batch, int logn, int logA,
+                const int* mod_idx, long long entries, int shift, const uint64_t* fwd_tw,
+                const uint64_t* inv_tw, const uint64_t* consts, int xnp, void* stream) {
+  if (!schedule_ok(batch, entries, shift) || !clustered(logn, logA))
+    return (int)cudaErrorInvalidValue;
+  if (int rc = begin(device, batch, logn, logA)) return rc;
+  if ((batch << (logn - kLogPart)) >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const Stacked fwd = rns(mod_idx, shift, logn, fwd_tw, consts, xnp);
+  const Stacked inv = rns(mod_idx, shift, logn, inv_tw, consts, xnp);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (logn - kLogPart == 2) return product_launch<4>(a, b, y, batch, logn, fwd, inv, xnp, st);
+  return product_launch<2>(a, b, y, batch, logn, fwd, inv, xnp, st);
+}
+
 }  // namespace
 }  // namespace merge_u32
 
@@ -772,7 +985,10 @@ using namespace merge_u32;
 // moduli (ring i uses modulus mod_idx[i >> shift], every entry in
 // [0, mod_count)), the stacked (mod_count, table) packed tables and the
 // (mod_count, 6) constants of ops/rns.py's RNSMergePlan; each has a twin,
-// rns_u32_*_i32, with the same arguments on int32 lanes.
+// rns_u32_*_i32, with the same arguments on int32 lanes.  rns_u32_polymul
+// takes both the forward and the inverse packed tables, and only the
+// shapes whose transforms run on the clusters (logn 14-15, log A 0); y
+// may equal a or b there too.
 extern "C" {
 
 int merge_u32_forward(int device, const uint64_t* x, uint64_t* y, long long batch,
@@ -835,6 +1051,22 @@ int rns_u32_polymul_inverse_i32(int device, const uint32_t* fa, const uint32_t* 
                                 void* stream) {
   return rns_inverse<true>(device, fa, fb, y, batch, logn, logA, mod_idx, entries, shift, tw,
                            consts, xnp, stream);
+}
+
+int rns_u32_polymul(int device, const uint64_t* a, const uint64_t* b, uint64_t* y,
+                    long long batch, int logn, int logA, const int* mod_idx, long long entries,
+                    int shift, const uint64_t* fwd_tw, const uint64_t* inv_tw,
+                    const uint64_t* consts, int xnp, void* stream) {
+  return rns_product(device, a, b, y, batch, logn, logA, mod_idx, entries, shift, fwd_tw, inv_tw,
+                     consts, xnp, stream);
+}
+
+int rns_u32_polymul_i32(int device, const uint32_t* a, const uint32_t* b, uint32_t* y,
+                        long long batch, int logn, int logA, const int* mod_idx,
+                        long long entries, int shift, const uint64_t* fwd_tw,
+                        const uint64_t* inv_tw, const uint64_t* consts, int xnp, void* stream) {
+  return rns_product(device, a, b, y, batch, logn, logA, mod_idx, entries, shift, fwd_tw, inv_tw,
+                     consts, xnp, stream);
 }
 
 }  // extern "C"

@@ -74,6 +74,8 @@ _ENTRIES = {
                                _p] for e in ("forward", "inverse") for w in ("", "_i32")},
         **{f"rns_u32_polymul_inverse{w}": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32,
                                            _p, _p, _i32, _p] for w in ("", "_i32")},
+        **{f"rns_u32_polymul{w}": [_i32, _p, _p, _p, _i64, _i32, _i32, _p, _i64, _i32, _p, _p,
+                                   _p, _i32, _p] for w in ("", "_i32")},
     },
     "fourstep": {
         **{f"fourstep_{w}_col_{d}": [_i32, _p, _p, _i64, _i32, _i32, _i32, _i32, _p, _p, _p,

@@ -64,7 +64,9 @@ all have a genuine root:
   K13 ("hopper-rns-large"), both in hopper_rns.py;
 - u32, every q < 2^30, logn 8-25 -> the stacked u32 kernels of
   hopper_rns32.py ("hopper-rns32", K16's counterpart), which the JAX
-  package leaves to XLA; the polymul fuses its product into the inverse;
+  package leaves to XLA; the polymul fuses its product into the inverse,
+  and on a card at logn 14-15 both forwards and the inverse too (one
+  launch, `hopper_rns32.rns_u32_polymul`);
 - everything else (other logn, wide q) -> the engine of ops/rns.py.
 
 A schedule of one entry serves every row; any other length that is not
@@ -77,11 +79,13 @@ result.  A u64 ladder given int32 lanes, or a product given operands
 of two dtypes, raises NTTDispatchError.  The
 route (`_rns_route`) is derived once per device plan, row count and
 schedule (its contents, so an array changed in place is routed anew) and
-kept on the plan: the checked schedule, its copy on the device and, for
-K12 on a card, the product's launch prepared once
-(`hopper_rns.prepare`), so that rns_polymul_lanes there is the operands'
-checks, two allocations and one C call of three launches (six above
-logn 15; `hopper_rns.rns_u64_polymul`).
+kept on the plan: the checked schedule, its copy on the device and, on
+a card, the product's C call prepared once (`_prepared`: K12's,
+`hopper_rns.prepare`, and the u32 product at logn 14-15,
+`hopper_rns32.prepare`), so that rns_polymul_lanes there is the
+operands' checks, the allocations and one C call: K12's three launches
+(six above logn 15; `hopper_rns.rns_u64_polymul`), or the u32 product's
+one (`hopper_rns32.rns_u32_polymul`).
 
 Spans (common/tracing.py, recorded only under torch.profiler): each
 `*_lanes` entry of both families is an ntt.entry span and holds one
@@ -433,10 +437,13 @@ def _rns_kernel_path(plan: RNSMergePlan, x_shape) -> str:
 
 
 # path -> (forward, inverse, fused polymul inverse) on contiguous (batch, N)
-# lane tensors and an int32 schedule on the card
+# lane tensors and an int32 schedule on the card, and the product's one C
+# call on its prepared record
 _RNS_KERNELS = {
-    "hopper-rns": (hr.rns_u64_fwd, hr.rns_u64_inv, hr.rns_u64_polymul_inv),
-    "hopper-rns32": (hr32.rns_u32_fwd, hr32.rns_u32_inv, hr32.rns_u32_polymul_inv),
+    "hopper-rns": (hr.rns_u64_fwd, hr.rns_u64_inv, hr.rns_u64_polymul_inv,
+                   hr.rns_u64_polymul),
+    "hopper-rns32": (hr32.rns_u32_fwd, hr32.rns_u32_inv, hr32.rns_u32_polymul_inv,
+                     hr32.rns_u32_polymul),
 }
 
 
@@ -447,7 +454,21 @@ class _RNSRoute(NamedTuple):
     mod_idx: np.ndarray  # the checked schedule, one entry a row
     path: str
     midx: torch.Tensor | None  # its int32 copy on the device, on a kernel route
-    k12: hr.Prepared | None  # K12's product on a card ("hopper-rns"), else None
+    product: hr.Prepared | hr32.Prepared | None  # the product's prepared C call (_prepared)
+
+
+def _prepared(plan: RNSMergePlan, path: str, midx: torch.Tensor, device: torch.device):
+    """The product prepared once per route where one C call serves it on a
+    card: K12's ("hopper-rns"), and the fused u32 product where a ring
+    fits a cluster ("hopper-rns32", `hopper_rns32.fuses`: logn 14-15);
+    None elsewhere, where the product is the route's three calls."""
+    if device.type != "cuda":
+        return None
+    if path == "hopper-rns":
+        return hr.prepare(plan, midx)
+    if path == "hopper-rns32" and hr32.fuses(plan):
+        return hr32.prepare(plan, midx)
+    return None
 
 
 def _routed(plan: RNSMergePlan, x: torch.Tensor, mod_idx) -> _RNSRoute:
@@ -457,8 +478,7 @@ def _routed(plan: RNSMergePlan, x: torch.Tensor, mod_idx) -> _RNSRoute:
         return _RNSRoute(mod_idx, path, None, None)
     # a host-to-device copy from pageable memory waits for the stream: once per schedule
     midx = torch.from_numpy(mod_idx.astype(np.int32)).to(x.device)
-    k12 = hr.prepare(plan, midx) if path == "hopper-rns" and x.is_cuda else None
-    return _RNSRoute(mod_idx, path, midx, k12)
+    return _RNSRoute(mod_idx, path, midx, _prepared(plan, path, midx, x.device))
 
 
 def _rns_route(plan: RNSMergePlan, x: torch.Tensor, mod_idx):
@@ -628,14 +648,15 @@ def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
     schedule read as ntt_rns_lanes reads it.  On the kernel routes: two
     forward transforms and the inverse with the product fused into its
     first load (K12's fused inverse and its u32 twin, on the rows of a
-    big ring for K13); on the engine: forward, rns_pointwise_mult_lanes,
+    big ring for K13), and on a card at logn 14-15 of a u32 ladder all of
+    it in one launch; on the engine: forward, rns_pointwise_mult_lanes,
     inverse.  Outputs are bit-identical either way.  Operands of two
     dtypes raise NTTDispatchError, on every route."""
-    plan, (mod_idx, path, midx, k12) = _rns_route(plan, a, mod_idx)
+    plan, (mod_idx, path, midx, product) = _rns_route(plan, a, mod_idx)
     if a.dtype != b.dtype:
         raise NTTDispatchError(f"operands of one dtype, got {a.dtype} and {b.dtype}")
-    if k12 is not None:
-        return hr.rns_u64_polymul(a, b, k12)
+    if product is not None:
+        return _RNS_KERNELS[path][3](a, b, product)
     if path == "engine":
         return _on_int64(lambda u, v: rns_intt_lanes(rns_pointwise_mult_lanes(
             rns_ntt_lanes(u, plan, mod_idx), rns_ntt_lanes(v, plan, mod_idx), plan, mod_idx),
@@ -645,7 +666,7 @@ def rns_polymul_lanes(a: torch.Tensor, b: torch.Tensor, plan: RNSMergePlan,
         sp = hr.large_plan(plan)
         return hr.rns_u64_large_polymul_inv(hr.rns_u64_large(a, sp, midx),
                                             hr.rns_u64_large(b, sp, midx), sp, midx)
-    fwd, _, polymul_inv = _RNS_KERNELS[path]
+    fwd, _, polymul_inv, _ = _RNS_KERNELS[path]
     return polymul_inv(fwd(a, plan, midx), fwd(b, plan, midx), plan, midx)
 
 

@@ -15,6 +15,8 @@ second time for RNS; no separate source exists:
                                 fused into its first load (the JAX
                                 package leaves the product unfused; the
                                 outputs are identical)
+    rns_u32_polymul          both forwards, the product and the inverse
+                                in one launch, at logn 14-15 (`PRODUCT`)
 
 One stacked family serves u32 ladders at logn 8-25 with every q < 2^30.
 The JAX package runs K16 up to logn 17 (pallas_mxu32.py:93) and splits a
@@ -25,6 +27,10 @@ at logn 8-17, under K6 at 18-25.  A transform is one launch and one pass
 over device memory up to logn 15 and two above (hopper_merge32.split);
 below logn 14 a row block holds only rings of one schedule entry, and
 at logn 14-15 a cluster of two blocks holds one ring (csrc/merge_u32.cu).
+There a product on a card is one launch (`rns_u32_polymul`, prepared
+once per plan, row count and schedule by `prepare`): a cluster holds a
+row pair, both spectra stay on chip, and a call reads a and b once and
+writes the product once.
 
 Each wrapper takes contiguous (batch, N) tensors of u32 values on the
 plan's device, all int64 lanes or all int32 lanes (4-byte words, for
@@ -45,6 +51,8 @@ device, which is how the kernels are checked on the card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -77,7 +85,12 @@ POLYMUL_INVERSE = {
     "K16": _stats("polymul_inverse", "K16", _K16 + "857"),
     "K6": _stats("polymul_inverse", "K6", _K6 + "383 (per modulus; rows: :178)"),
 }
-KERNELS = tuple(d[k] for k in ("K16", "K6") for d in (FORWARD, INVERSE, POLYMUL_INVERSE))
+# both forwards, the product and the inverse in one launch (no TPU kernel fuses them)
+POLYMUL = _stats("polymul", "K16", _K16 + "846 twice, then :857, with the product")
+KERNELS = (*(d[k] for k in ("K16", "K6") for d in (FORWARD, INVERSE, POLYMUL_INVERSE)),
+           POLYMUL)
+# the fused product's rings: those a transform holds on a cluster (merge_u32.cu's `clustered`)
+PRODUCT = kernel.Family(word=32, q_bits=30, takes=(14, 15), routes=(14, 15))
 
 
 def tpu_kernel(logn: int) -> str:
@@ -90,6 +103,11 @@ def covers(plan: RNSMergePlan) -> bool:
     the stacked tables (dispatch checks the genuine root of every
     member)."""
     return FAMILY.covers(plan.is64, max(plan.qs), plan.logn) and plan.fwd_tables is not None
+
+
+def fuses(plan: RNSMergePlan) -> bool:
+    """Plans whose product on a card is one launch (`PRODUCT.routes`)."""
+    return covers(plan) and PRODUCT.covers(plan.is64, max(plan.qs), plan.logn)
 
 
 # ------------------------------------------------------------ plain versions
@@ -160,3 +178,46 @@ def rns_u32_polymul_inv(fa: torch.Tensor, fb: torch.Tensor, plan: RNSMergePlan,
     fused into the first load."""
     return _run(POLYMUL_INVERSE, rns_u32_polymul_inv_plain, "rns_u32_polymul_inverse", plan,
                 midx, shift, True, fa, fb)
+
+
+class Prepared(NamedTuple):
+    """The fused product for one plan, row count and schedule on a card:
+    the C entries, by lanes, and their arguments that do not change from
+    call to call."""
+
+    fns: dict           # lanes dtype -> merge_u32.cu's rns_u32_polymul or its _i32 twin
+    rows: int
+    n: int
+    device: torch.device
+    midx: torch.Tensor  # the schedule on the card, kept alive for its pointer in `args`
+    args: tuple         # batch, logn, logA, schedule, entries, shift, tables, consts, xnp
+
+
+def prepare(plan: RNSMergePlan, midx: torch.Tensor) -> Prepared:
+    """The Prepared product of `plan` (on a card) over midx.numel() rows,
+    row r under modulus midx[r]; refused as the wrappers refuse a plan,
+    and outside `PRODUCT`'s rings."""
+    PRODUCT.admit(POLYMUL.name, plan.is64, max(plan.qs), plan.logn)
+    lib = kernel.library("merge_u32")
+    rows = midx.numel()
+    return Prepared({dtype: getattr(lib, "rns_u32_polymul" + w) for dtype, w in WORDS.items()},
+                    rows, plan.n, plan.device, midx,
+                    (rows, plan.logn, hm32.split(plan.logn), midx.data_ptr(), rows, 0,
+                     *(t.data_ptr() for t in hm32.packed_tables(plan)), plan.consts.data_ptr(),
+                     int(plan.xnp)))
+
+
+def rns_u32_polymul(a: torch.Tensor, b: torch.Tensor, prepared: Prepared) -> torch.Tensor:
+    """INTT(NTT(a) o NTT(b)) per row of (rows, N) operands, int64 or int32
+    lanes, in one launch (merge_u32.cu's rns_u32_polymul or its _i32
+    twin), counted under POLYMUL; an operand the wrappers would refuse
+    raises their error."""
+    p = prepared
+    a, b = a.contiguous(), b.contiguous()
+    if not (a.dtype == b.dtype and a.dtype in p.fns and a.shape == b.shape == (p.rows, p.n)
+            and a.device == b.device == p.device):
+        kernel.check(POLYMUL.name, (p.n,), p.device, a, b, dtypes=tuple(WORDS), midx=p.midx)
+    y = torch.empty_like(a)
+    kernel.launch(POLYMUL, p.fns[a.dtype], a, a.data_ptr(), b.data_ptr(), y.data_ptr(), *p.args,
+                  kernel="rns_u32_polymul" + WORDS[a.dtype], log_a=p.args[2])
+    return y

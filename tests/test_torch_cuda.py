@@ -820,7 +820,8 @@ def test_rns32_kernels_match_plain_on_card(card, logn, poly, schedule):
     per-modulus function above) forward, inverse and fused polymul
     inverse on any u32 word, with one schedule entry per row and per ring
     of two rows; then ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes
-    through dispatch, which launch them and no plain version."""
+    through dispatch, which launch them (at logn 14-15 the product as its
+    one fused launch) and no plain version."""
     plan = tg.RNSMergePlan.from_params(_u32_ladder(logn, poly), device=card)
     order = [m % plan.mod_count for m in SCHEDULES[schedule]]
     midx = torch.tensor(order, dtype=torch.int32, device=card)
@@ -845,7 +846,8 @@ def test_rns32_kernels_match_plain_on_card(card, logn, poly, schedule):
     assert torch.equal(td.intt_rns_lanes(fx, plan, order), x)
     px = td.rns_polymul_lanes(x, x.flip(0), plan, order)
     torch.cuda.synchronize()
-    assert _rns32_counts() == {fwd: (3, 0), inv: (1, 0), pinv: (1, 0)}
+    assert _rns32_counts() == ({fwd: (1, 0), inv: (1, 0), hr32.POLYMUL.name: (1, 0)}
+                               if hr32.fuses(plan) else {fwd: (3, 0), inv: (1, 0), pinv: (1, 0)})
     assert torch.equal(px, hr32.rns_u32_polymul_inv_plain(
         fx, hr32.rns_u32_fwd_plain(x.flip(0).contiguous(), plan, midx), plan, midx))
 
@@ -920,8 +922,8 @@ def test_rns32_int32_lanes_on_card(card, logn, rows):
     """A ladder of 30 primes of 30 bits (the u32 HE deployment's shape):
     ntt_rns_lanes, intt_rns_lanes and rns_polymul_lanes on int32 lanes
     equal the int64 lanes' results narrowed, bit for bit, through the
-    4-byte-word kernels (K16 up to logn 17, K6's function at 18) and no
-    plain version."""
+    4-byte-word kernels (K16 up to logn 17, K6's function at 18; the
+    product at logn 14-15 in one fused launch) and no plain version."""
     plan = tg.RNSMergePlan.from_params(_u32_words_ladder(logn), device=card)
     mod_idx = np.arange(rows) % plan.mod_count
     a, b = _residues(plan, rows, logn, card), _residues(plan, rows, logn + 1, card)
@@ -933,8 +935,8 @@ def test_rns32_int32_lanes_on_card(card, logn, rows):
     got = td.rns_polymul_lanes(a32, b32, plan, mod_idx)
     torch.cuda.synchronize()
     k = hr32.tpu_kernel(logn)
-    assert _rns32_counts() == {hr32.FORWARD[k].name: (2, 0),
-                               hr32.POLYMUL_INVERSE[k].name: (1, 0)}
+    assert _rns32_counts() == ({hr32.POLYMUL.name: (1, 0)} if hr32.fuses(plan) else
+                               {hr32.FORWARD[k].name: (2, 0), hr32.POLYMUL_INVERSE[k].name: (1, 0)})
     assert got.dtype == torch.int32
     assert torch.equal(got, td.rns_polymul_lanes(a, b, plan, mod_idx).int())
 
@@ -1043,10 +1045,10 @@ def test_u32_launches_and_passes_per_transform_on_card(card, tmp_path, logn, pas
 
 def test_rns32_int32_traced_call_on_card(card, tmp_path):
     """One traced rns_polymul_lanes call of the u32 HE cell's shape (480
-    rows of 2^15 on int32 lanes): three ntt.launch spans (forward,
-    forward, fused inverse), each with word 4 and passes 1, the route
-    span's lanes int32, and in the device trace three kernels of
-    merge_u32.cu, one a transform, and no copy, set or cast."""
+    rows of 2^15 on int32 lanes): one ntt.launch span (the fused product,
+    rns_u32_polymul_i32) with word 4 and passes 1, the route span's lanes
+    int32, and in the device trace one kernel of merge_u32.cu, and no
+    copy, set or cast."""
     plan = tg.RNSMergePlan.from_params(_u32_words_ladder(15), device=card)
     mod_idx = np.arange(480) % plan.mod_count
     a, b = (_residues(plan, 480, s, card).int() for s in (1, 2))
@@ -1058,12 +1060,61 @@ def test_rns32_int32_traced_call_on_card(card, tmp_path):
         out = td.rns_polymul_lanes(a, b, plan, mod_idx)
         torch.cuda.synchronize()
     spans = tracing.snapshot()["spans"]
-    assert [(s["attrs"]["word"], s["attrs"]["passes"]) for s in spans
-            if s["name"] == "ntt.launch"] == [(4, 1)] * 3
+    assert [s["attrs"] for s in spans if s["name"] == "ntt.launch"] == [
+        {"kernel": "rns_u32_polymul_i32", "word": 4, "passes": 1}]
     assert [s["attrs"]["lanes"] for s in spans if s["name"] == "ntt.route"] == ["int32"]
     ops = _device_ops(prof, tmp_path)
-    assert len(ops) == 3 and all("merge_u32" in name for name in ops), ops
+    assert len(ops) == 1 and "merge_u32" in ops[0], ops
     assert out.dtype == torch.int32 and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("schedule", ["one entry", "per ring"])
+@pytest.mark.parametrize("poly", POLYS)
+@pytest.mark.parametrize("logn", [14, 15])
+def test_rns32_fused_product_matches_plain_on_card(card, logn, poly, schedule):
+    """The fused u32 product (rns_u32_polymul and its _i32 twin: both
+    forwards, the product and the inverse in one launch, a row pair on a
+    cluster of 2^(logn - 13) blocks) on any u32 word, int64 and int32
+    lanes, ladder 3, four rows under one schedule entry or one a ring,
+    equals the plain versions and the three launches bit for bit; so do
+    operands and outputs 4, 8 and 12 bytes past a 16-byte boundary
+    (int32) or 8 (int64), and the output in place over a."""
+    import ctypes
+
+    from gpuntt_tpu_torch.ops import kernel
+
+    plan = tg.RNSMergePlan.from_params(_u32_ladder(logn, poly), device=card)
+    midx, shift = ((torch.tensor([1], dtype=torch.int32, device=card), 2)
+                   if schedule == "one entry" else
+                   (torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=card), 0))
+    rows = torch.arange(4, device=card) >> shift
+    sched = midx[rows].long().cpu().numpy()
+    prepared = hr32.prepare(plan, midx[rows])
+    lib = kernel.library("merge_u32")
+    fwd, inv = hm32.packed_tables(plan)
+    wa, wb = (_words((4, plan.n), False, logn + s, card) for s in (60, 61))
+    for dtype, offsets in ((torch.int64, (8,)), (torch.int32, (4, 8, 12))):
+        a, b = wa.to(dtype), wb.to(dtype)  # int32 lanes: every 32-bit pattern
+        ua, ub = a.long() & 0xFFFFFFFF, b.long() & 0xFFFFFFFF
+        want = hr32.rns_u32_polymul_inv_plain(hr32.rns_u32_fwd_plain(ua, plan, midx, shift),
+                                              hr32.rns_u32_fwd_plain(ub, plan, midx, shift),
+                                              plan, midx, shift).to(dtype)
+        three = hr32.rns_u32_polymul_inv(hr32.rns_u32_fwd(a, plan, midx, shift),
+                                         hr32.rns_u32_fwd(b, plan, midx, shift), plan, midx,
+                                         shift)
+        assert torch.equal(three, want)
+        assert torch.equal(hr32.rns_u32_polymul(a, b, prepared), want)
+        assert torch.equal(td.rns_polymul_lanes(a, b, plan, sched), want)
+        entry = getattr(lib, "rns_u32_polymul" + ("_i32" if dtype == torch.int32 else ""))
+        for off in offsets:
+            x, w, y = _view_at(a, off), _view_at(b, off), _view_at(a, off)
+            for out in (y, x):  # a separate output off 16 bytes, then in place over a
+                rc = entry(0, x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, logn, 0,
+                           midx.data_ptr(), midx.numel(), shift, fwd.data_ptr(),
+                           inv.data_ptr(), plan.consts.data_ptr(), int(plan.xnp),
+                           ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+                torch.cuda.synchronize()
+                assert rc == 0 and torch.equal(out, want), (dtype, off)
 
 
 @pytest.mark.parametrize("schedule", ["one entry", "per ring"])

@@ -15,6 +15,12 @@
   to 16 bytes and views 1-3 words past it (4 bytes each), and the int64
   entries on views one word past it; the whole-ring kernels of logn
   14-15 (clusters of two blocks, each block a host thread) in place.
+- The fused product (rns_u32_polymul and its _i32 twin: a row pair on a
+  cluster of 2^(logn - 13) blocks) on any u32 word against the
+  three-entry composition and the plain versions, in place too, and its
+  refusals; the route's prepared product through the emulation (its
+  launch count and span), and dispatch's choice of it: "hopper-rns32"
+  on a card at logn 14-15 only.
 - The engine route widens, runs and narrows; a u64 ladder refuses int32
   lanes; the wrappers and rns_polymul_lanes, on the engine route too,
   refuse mixed lanes; the `word` and `passes` attrs of ntt.launch spans,
@@ -23,6 +29,8 @@
 - The benchmark's he_n15_u32_polymul_stream at a CPU size: correct, and
   its control is not.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -233,6 +241,141 @@ def test_source_emulated_int32_entries_refuse_bad_schedules(emu):
                                      hm32.packed_tables(plan)[0].data_ptr(),
                                      plan.consts.data_ptr(), 1, None)
         assert rc == 1  # cudaErrorInvalidValue
+
+
+def _product(lib, entry, plan, midx, shift, a, b, y, log_a=0, rows=None):
+    """merge_u32.cu's fused product `entry` through the emulation; its rc."""
+    fwd, inv = hm32.packed_tables(plan)
+    return getattr(lib, entry)(0, a.data_ptr(), b.data_ptr(), y.data_ptr(),
+                               a.shape[0] if rows is None else rows, plan.logn, log_a,
+                               midx.data_ptr(), midx.numel(), shift, fwd.data_ptr(),
+                               inv.data_ptr(), plan.consts.data_ptr(), int(plan.xnp), None)
+
+
+@pytest.mark.parametrize("poly", [MINUS, PLUS])
+@pytest.mark.parametrize("logn", [14, 15])
+def test_source_emulated_fused_product(emu, capfd, logn, poly):
+    """rns_u32_polymul and rns_u32_polymul_i32 (both forwards, the product
+    and the inverse in one launch, a row pair on a cluster of 2^(logn -
+    13) blocks) on any u32 word equal the three-entry composition (two
+    forwards, the fused inverse) and the plain versions, under one
+    schedule entry for all four rows and one a ring, on int64 and int32
+    lanes, into a fresh output, into a view one word past a 16-byte
+    boundary and in place over a."""
+    plan = ladder(logn, poly)
+    gen = torch.Generator().manual_seed(logn)
+    words = torch.randint(0, 1 << 32, (2, 4, plan.n), generator=gen)
+    for midx, shift in ((torch.tensor([2], dtype=torch.int32), 2),
+                        (torch.tensor([2, 0, 1, 1], dtype=torch.int32), 0)):
+        for suffix, dtype in (("", torch.int64), ("_i32", torch.int32)):
+            a, b = (w.to(dtype) for w in words)  # int32 lanes: every 32-bit pattern
+            ua, ub = a.long() & 0xFFFFFFFF, b.long() & 0xFFFFFFFF
+            want = hr32.rns_u32_polymul_inv_plain(hr32.rns_u32_fwd_plain(ua, plan, midx, shift),
+                                                  hr32.rns_u32_fwd_plain(ub, plan, midx, shift),
+                                                  plan, midx, shift).to(dtype)
+            fa = _entry(emu, "rns_u32_forward" + suffix, plan, midx, shift, a,
+                        y=torch.empty_like(a))
+            fb = _entry(emu, "rns_u32_forward" + suffix, plan, midx, shift, b,
+                        y=torch.empty_like(b))
+            three = _entry(emu, "rns_u32_polymul_inverse" + suffix, plan, midx, shift, fa, fb,
+                           y=torch.empty_like(a))
+            assert torch.equal(three, want)
+            entry = "rns_u32_polymul" + suffix
+            odd = _at(torch.empty_like(a), a.element_size())  # one word past 16 bytes
+            for x, y in ((a, torch.empty_like(a)), (a, odd), (a.clone(),) * 2):  # last in place
+                assert _product(emu, entry, plan, midx, shift, x, b, y) == 0
+                assert torch.equal(y, want), (entry, shift)
+    err = capfd.readouterr().err
+    assert "misaligned" not in err, err
+
+
+@pytest.mark.parametrize("case", ["logn 13", "logn 16", "logn 16 at log A 0", "empty batch",
+                                  "schedule of 3 for 4 rows", "schedule of 2 rings of 4"])
+def test_source_emulated_fused_product_refuses(emu, case):
+    """The fused product takes only the shapes whose transforms run on the
+    clusters (logn 14-15, log A 0), a batch, and a schedule of one entry
+    per ring of 2^shift rows: anything else returns
+    cudaErrorInvalidValue and launches nothing."""
+    logn = {"logn 13": 13, "logn 16": 16, "logn 16 at log A 0": 16}.get(case, 14)
+    plan = ladder(logn, PLUS, 2)
+    x = torch.zeros((4, plan.n), dtype=torch.int32)
+    y = torch.full_like(x, 7)
+    midx, shift, rows = torch.tensor([1, 0, 1, 0], dtype=torch.int32), 0, 4
+    log_a = 0 if case == "logn 16 at log A 0" else hm32.split(logn)
+    if case == "empty batch":
+        midx, rows = midx[:0], 0
+    elif case == "schedule of 3 for 4 rows":
+        midx = midx[:3]
+    elif case == "schedule of 2 rings of 4":
+        midx, shift = midx[:2], 2
+    assert _product(emu, "rns_u32_polymul_i32", plan, midx, shift, x, x, y, log_a, rows) == 1
+    assert torch.equal(y, torch.full_like(x, 7))
+
+
+@pytest.fixture
+def prepared32(emu, monkeypatch):
+    """hopper_rns32.prepare bound to the emulated library (card 0, any stream)."""
+    lib = types.SimpleNamespace(**{e: (lambda fn: lambda dev, *args: fn(0, *args))(
+        getattr(emu, e)) for e in ("rns_u32_polymul", "rns_u32_polymul_i32")})
+    monkeypatch.setattr(kernel, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    return hr32.prepare
+
+
+def test_prepared_product_through_the_emulation(prepared32):
+    """The route's prepared u32 product: one launch a call on either lane
+    width, counted under POLYMUL, one ntt.launch span naming the C entry
+    with the word's bytes and passes 1, the plain versions' result;
+    operands the wrappers refuse raise their error."""
+    plan = ladder(14, MINUS)
+    sched = np.array([1, 2, 0, 1])
+    midx = torch.tensor(sched, dtype=torch.int32)
+    prepared = prepared32(plan, midx)
+    a, b = residues(plan, sched, 30), residues(plan, sched, 31)
+    want = hr32.rns_u32_polymul_inv_plain(hr32.rns_u32_fwd_plain(a, plan, midx),
+                                          hr32.rns_u32_fwd_plain(b, plan, midx), plan, midx)
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = [hr32.rns_u32_polymul(x, w, prepared) for x, w in ((a.int(), b.int()), (a, b))]
+    assert torch.equal(got[0], want.int()) and torch.equal(got[1], want)
+    assert [(k.name, k.launches, k.plain_calls) for k in hr32.KERNELS if k.launches
+            or k.plain_calls] == [(hr32.POLYMUL.name, 2, 0)]
+    assert [(s["name"], s["attrs"]) for s in tracing.snapshot()["spans"]] == [
+        ("ntt.launch", {"kernel": "rns_u32_polymul_i32", "word": 4, "passes": 1}),
+        ("ntt.launch", {"kernel": "rns_u32_polymul", "word": 8, "passes": 1})]
+    for bad in ((a.int(), b), (a[:3], b[:3]), (a[:, :-1], b[:, :-1]), (a.float(), b.float())):
+        with pytest.raises(tg.NTTDispatchError):
+            hr32.rns_u32_polymul(*bad, prepared)
+    assert hr32.POLYMUL.launches == 2
+    with pytest.raises(tg.NTTDispatchError):  # rings that no cluster holds
+        prepared32(ladder(13, MINUS), midx)
+
+
+@pytest.mark.parametrize("logn", [12, 13, 14, 15, 16])
+def test_route_prepares_the_fused_product_at_logn_14_15_on_a_card(monkeypatch, logn):
+    """dispatch prepares the one-launch product on a card for "hopper-rns32"
+    at logn 14-15 only (K12's for "hopper-rns", none for the other
+    paths or off the card); on the CPU the route holds none, and
+    rns_polymul_lanes runs the three plain versions as before."""
+    monkeypatch.setattr(hr32, "prepare", lambda plan, midx: "u32 product")
+    monkeypatch.setattr(td.hr, "prepare", lambda plan, midx: "K12 product")
+    plan = ladder(logn, PLUS, 2)
+    midx = torch.tensor([0, 1], dtype=torch.int32)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert hr32.fuses(plan) == (logn in (14, 15))
+    assert td._prepared(plan, "hopper-rns32", midx, card) == (
+        "u32 product" if logn in (14, 15) else None)
+    assert td._prepared(plan, "hopper-rns", midx, card) == "K12 product"
+    for path in ("hopper-rns-large", "engine"):
+        assert td._prepared(plan, path, midx, card) is None
+    assert td._prepared(plan, "hopper-rns32", midx, cpu) is None
+    a = residues(plan, [0, 1], logn)
+    _, route = td._rns_route(plan, a, [0, 1])
+    assert route.path == "hopper-rns32" and route.product is None
+    td.rns_polymul_lanes(a.int(), a.int(), plan, [0, 1])
+    k = hr32.tpu_kernel(logn)
+    assert [(s.name, s.plain_calls) for s in hr32.KERNELS if s.plain_calls] == [
+        (hr32.FORWARD[k].name, 2), (hr32.POLYMUL_INVERSE[k].name, 1)]
 
 
 # ------------------------------------------------ the engine and the refusals

@@ -72,7 +72,7 @@ def test_route_memo_hits_a_repeat_and_misses_a_new_schedule_rows_rank_or_device(
     plan = _plan()
     x = _words(plan, 3, 0)
     _, first = td._rns_route(plan, x, np.arange(3) % 3)
-    assert first.path == "hopper-rns" and first.k12 is None  # no prepared call off the card
+    assert first.path == "hopper-rns" and first.product is None  # no prepared call off the card
     assert first.midx.dtype == torch.int32 and first.midx.tolist() == [0, 1, 2]
     assert _outcomes() == (0, 1)
     for same in (np.arange(3) % 3, [0, 1, 2], np.array([0, 1, 2], dtype=np.int32)):
